@@ -1,0 +1,39 @@
+"""Backbone factory (counterpart of ``sihl_tpu/backbones/__init__.py``) over
+the ResNet family.  Other families follow in ROADMAP.md, M10 and M17."""
+
+from typing import Optional
+
+import torch
+
+from sihl_tpu_torch.backbones.base import PyramidBackbone
+from sihl_tpu_torch.backbones.resnet import RESNET_CONFIGS, make_resnet_features
+
+
+def backbone_names():
+    return tuple(sorted(RESNET_CONFIGS))
+
+
+def Backbone(
+    name: str,
+    pretrained: bool = False,
+    input_channels: int = 3,
+    top_level: int = 5,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> PyramidBackbone:
+    """Build a pyramid backbone by architecture name, with random weights."""
+    if name not in RESNET_CONFIGS:
+        raise ValueError(f"Architecture {name} is not supported. Select from {backbone_names()}")
+    if pretrained:
+        raise NotImplementedError(
+            "pretrained weights are not available to the port (no weight files on disk); "
+            "ROADMAP.md, M10"
+        )
+    features = make_resnet_features(
+        name, input_channels=input_channels, generator=generator, device=device
+    )
+    return PyramidBackbone(name, features, input_channels=input_channels, top_level=top_level)
+
+
+__all__ = ["Backbone", "PyramidBackbone", "backbone_names"]

@@ -1,0 +1,175 @@
+"""ResNet / ResNeXt / Wide ResNet feature nets (counterpart of
+``sihl_tpu/backbones/resnet.py``), torchvision v1.5 structure.
+
+Level 1 is the stem's ReLU output (stride 2); levels 2..5 are layer1..layer4
+(strides 4..32).  Only the plain stem is ported: the space-to-depth,
+batch-fold and fused Pallas stems and the stage-1 space-to-depth are TPU
+layout levers that leave the values unchanged.
+"""
+
+from typing import List, Optional
+
+import torch
+from torch import nn
+
+from sihl_tpu_torch.layers.convblocks import default_generator, make_conv, make_norm
+from sihl_tpu_torch.ops.image import max_pool2d
+from sihl_tpu_torch.ops.relu import relu
+
+
+class _ConvBN(nn.Module):
+    def __init__(self, cin, cout, k, stride=1, groups=1, *, generator, device=None):
+        super().__init__()
+        self.conv = make_conv(
+            cin, cout, k, stride=stride, groups=groups, bias=False, generator=generator, device=device
+        )
+        self.bn = make_norm("batch", cout, device=device)
+
+    def forward(self, x):
+        return self.bn(self.conv(x))
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, in_planes, planes, stride=1, groups=1, base_width=64, *, generator, device=None):
+        super().__init__()
+        if groups != 1 or base_width != 64:
+            raise ValueError("BasicBlock only supports groups=1 and base_width=64")
+        self.conv1 = _ConvBN(in_planes, planes, 3, stride=stride, generator=generator, device=device)
+        self.conv2 = _ConvBN(planes, planes, 3, generator=generator, device=device)
+        self.downsample = (
+            _ConvBN(in_planes, planes, 1, stride=stride, generator=generator, device=device)
+            if (stride != 1 or in_planes != planes)
+            else None
+        )
+
+    def forward(self, x):
+        identity = self.downsample(x) if self.downsample is not None else x
+        out = relu(self.conv1(x))
+        out = self.conv2(out)
+        return relu(out + identity)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, in_planes, planes, stride=1, groups=1, base_width=64, *, generator, device=None):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out_planes = planes * self.expansion
+        self.conv1 = _ConvBN(in_planes, width, 1, generator=generator, device=device)
+        self.conv2 = _ConvBN(
+            width, width, 3, stride=stride, groups=groups, generator=generator, device=device
+        )
+        self.conv3 = _ConvBN(width, out_planes, 1, generator=generator, device=device)
+        self.downsample = (
+            _ConvBN(in_planes, out_planes, 1, stride=stride, generator=generator, device=device)
+            if (stride != 1 or in_planes != out_planes)
+            else None
+        )
+
+    def forward(self, x):
+        identity = self.downsample(x) if self.downsample is not None else x
+        out = relu(self.conv1(x))
+        out = relu(self.conv2(out))
+        out = self.conv3(out)
+        return relu(out + identity)
+
+
+class _Stage(nn.Module):
+    def __init__(self, block, in_planes, planes, num_blocks, stride, groups, base_width, *, generator, device=None):
+        super().__init__()
+        self.blocks = nn.ModuleList(
+            block(
+                in_planes if i == 0 else planes * block.expansion,
+                planes,
+                stride=stride if i == 0 else 1,
+                groups=groups,
+                base_width=base_width,
+                generator=generator,
+                device=device,
+            )
+            for i in range(num_blocks)
+        )
+
+    def forward(self, x):
+        for b in self.blocks:
+            x = b(x)
+        return x
+
+
+class _Stem(nn.Module):
+    def __init__(self, input_channels, *, generator, device=None):
+        super().__init__()
+        self.conv = make_conv(
+            input_channels, 64, 7, stride=2, padding=3, bias=False, generator=generator, device=device
+        )
+        self.bn = make_norm("batch", 64, device=device)
+
+    def forward(self, x):
+        return relu(self.bn(self.conv(x)))
+
+
+class ResNetFeatures(nn.Module):
+    """Feature-pyramid ResNet; returns levels 1..5 (strides 2..32)."""
+
+    def __init__(
+        self,
+        block,
+        layers: List[int],
+        input_channels: int = 3,
+        groups: int = 1,
+        base_width: int = 64,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        generator = default_generator(generator)
+        self.stem = _Stem(input_channels, generator=generator, device=device)
+        planes = [64, 128, 256, 512]
+        strides = [1, 2, 2, 2]
+        in_planes = 64
+        stages = []
+        for p, n, s in zip(planes, layers, strides):
+            stages.append(
+                _Stage(block, in_planes, p, n, s, groups, base_width, generator=generator, device=device)
+            )
+            in_planes = p * block.expansion
+        self.layer1, self.layer2, self.layer3, self.layer4 = stages
+        self.feature_channels = [64] + [p * block.expansion for p in planes]
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        c1 = self.stem(x)
+        c2 = self.layer1(max_pool2d(c1, 3, stride=2, padding=1))
+        c3 = self.layer2(c2)
+        c4 = self.layer3(c3)
+        c5 = self.layer4(c4)
+        return [c1, c2, c3, c4, c5]
+
+
+# The pre-activation ResNetV2 entries of the JAX registry wait (ROADMAP.md, M10).
+RESNET_CONFIGS = {
+    "resnet18": dict(block=BasicBlock, layers=[2, 2, 2, 2]),
+    "resnet26": dict(block=Bottleneck, layers=[2, 2, 2, 2]),
+    "resnet34": dict(block=BasicBlock, layers=[3, 4, 6, 3]),
+    "resnet50": dict(block=Bottleneck, layers=[3, 4, 6, 3]),
+    "resnet101": dict(block=Bottleneck, layers=[3, 4, 23, 3]),
+    "resnet152": dict(block=Bottleneck, layers=[3, 8, 36, 3]),
+    "resnext50_32x4d": dict(block=Bottleneck, layers=[3, 4, 6, 3], groups=32, base_width=4),
+    "resnext101_32x8d": dict(block=Bottleneck, layers=[3, 4, 23, 3], groups=32, base_width=8),
+    "resnext101_64x4d": dict(block=Bottleneck, layers=[3, 4, 23, 3], groups=64, base_width=4),
+    "wide_resnet50_2": dict(block=Bottleneck, layers=[3, 4, 6, 3], base_width=128),
+    "wide_resnet101_2": dict(block=Bottleneck, layers=[3, 4, 23, 3], base_width=128),
+}
+
+
+def make_resnet_features(
+    name: str, input_channels: int = 3, *, generator=None, device=None
+) -> ResNetFeatures:
+    cfg = dict(RESNET_CONFIGS[name])
+    return ResNetFeatures(
+        cfg.pop("block"), cfg.pop("layers"), input_channels=input_channels,
+        generator=generator, device=device, **cfg,
+    )

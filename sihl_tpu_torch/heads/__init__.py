@@ -1,0 +1,6 @@
+"""Task heads of the port."""
+
+from sihl_tpu_torch.heads.base import Head
+from sihl_tpu_torch.heads.object_detection import ObjectDetection
+
+__all__ = ["Head", "ObjectDetection"]

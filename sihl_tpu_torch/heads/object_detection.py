@@ -1,0 +1,114 @@
+"""Anchor-free object detection head, inference path (counterpart of
+``sihl_tpu/heads/object_detection.py``).
+
+Per-level 1x1 laterals, one flattened anchor list, the loc MLP dense over
+every anchor, the top ``max_instances`` anchors by loc logit (no NMS), then
+the cls and box MLPs over those rows only.  Training and validation come
+with the training slice.
+"""
+
+from typing import List, Optional, Tuple
+
+import torch
+from torch import nn
+
+from sihl_tpu_torch.heads import anchors
+from sihl_tpu_torch.heads.base import Head
+from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_generator
+from sihl_tpu_torch.layers.mlp import MLP
+
+
+class ObjectDetection(Head):
+    def __init__(
+        self,
+        in_channels: List[int],
+        num_classes: int,
+        bottom_level: int = 3,
+        top_level: int = 5,
+        num_channels: int = 256,
+        num_layers: int = 4,
+        max_instances: int = 100,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ) -> None:
+        """
+        Args:
+            in_channels: channels of input feature maps by level.
+            num_classes: number of object categories.
+            bottom_level/top_level: pyramid levels this head reads.
+            num_channels: conv/MLP width.
+            num_layers: MLP depth.
+            max_instances: fixed-size inference output slots.
+        """
+        super().__init__()
+        if num_classes <= 0 or max_instances <= 0 or num_channels % 4:
+            raise ValueError((num_classes, max_instances, num_channels))
+        if len(in_channels) <= top_level or not 0 < bottom_level <= top_level:
+            raise ValueError((len(in_channels), bottom_level, top_level))
+        generator = default_generator(generator)
+
+        self.in_channels = in_channels
+        self.num_classes = num_classes
+        self.bottom_level, self.top_level = bottom_level, top_level
+        self.levels = range(bottom_level, top_level + 1)
+        self.num_channels = num_channels
+        self.max_instances = max_instances
+
+        self.laterals = nn.ModuleList(
+            StandardConvNormAct(
+                in_channels[level], num_channels, 1, act=None, generator=generator, device=device
+            )
+            for level in self.levels
+        )
+        hidden = [num_channels] * num_layers
+
+        def mlp(out, bias=None):
+            return MLP(num_channels, hidden + [out], bias, generator=generator, device=device)
+
+        # loc head biased low so initial predictions are "no object"
+        self.loc_head = mlp(1, -5.0)
+        self.cls_head = mlp(num_classes)
+        self.box_head = mlp(4)
+        self.iou_head = mlp(1)  # read by training only
+
+        self.output_shapes = {
+            "num_instances": ("batch_size",),
+            "scores": ("batch_size", max_instances),
+            "classes": ("batch_size", max_instances),
+            "boxes": ("batch_size", max_instances, 4),
+        }
+
+    def get_offsets_and_scales(self, inputs) -> Tuple[torch.Tensor, torch.Tensor]:
+        return anchors.cell_anchors(inputs, self.levels)
+
+    def flat_features(self, inputs) -> torch.Tensor:
+        return anchors.flatten_laterals(inputs, self.levels, self.laterals, self.num_channels)
+
+    def forward(self, inputs):
+        """Returns (num_instances (B,), scores (B, I), classes (B, I),
+        boxes (B, I, 4) in input pixels as x0, y0, x1, y1)."""
+        height, width = inputs[0].shape[2:]
+        flat_feats = self.flat_features(inputs)
+        offsets, scales = self.get_offsets_and_scales(inputs)
+        full_size = torch.tensor(
+            [width, height, width, height], dtype=torch.float32, device=offsets.device
+        )
+
+        (loc_out,) = anchors.run_mlps(flat_feats, [self.loc_head], num_valid=offsets.shape[0])
+        loc_logits = loc_out[..., 0].float()
+        num_slots = min(self.max_instances, loc_logits.shape[1])
+        # a stable descending sort puts the lower index first among equal
+        # logits, as lax.top_k does; torch.topk promises no order on CUDA
+        loc_logits, loc_idxs = torch.sort(loc_logits, dim=1, descending=True, stable=True)
+        loc_logits, loc_idxs = loc_logits[:, :num_slots], loc_idxs[:, :num_slots]
+        flat_feats = anchors.gather_anchor_rows(flat_feats, loc_idxs)
+        scores = torch.sigmoid(loc_logits)
+        num_instances = torch.sum(scores > 0.5, dim=1)
+
+        class_logits, box_out = anchors.run_mlps(
+            flat_feats, [self.cls_head, self.box_head], num_valid=num_slots
+        )
+        classes = torch.argmax(class_logits, dim=2)
+        box_preds = (offsets[loc_idxs] + scales[loc_idxs] * torch.exp(box_out.float())) * full_size
+        return num_instances, scores, classes, box_preds

@@ -1,0 +1,192 @@
+"""Conv building blocks (counterpart of ``sihl_tpu/layers/convblocks.py``).
+
+Layout: NCHW tensors in ``channels_last`` memory; conv weights are stored
+channels_last too, so cuDNN runs its NHWC kernels and no layout copies are
+made between layers.  All convs use explicit symmetric padding
+``(k-1)//2 * dilation``.
+
+Parameters are float32 and initialised from an explicit ``torch.Generator``
+(flax's defaults: LeCun-normal kernels, zero biases, unit norm scales).
+Every module casts its input and weights to the compute dtype it read from
+the policy at construction.
+"""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from sihl_tpu_torch.ops.relu import relu
+from sihl_tpu_torch.policy import compute_dtype
+
+# flax's truncated-normal initializers divide by this to keep the variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def default_generator(generator: Optional[torch.Generator]) -> torch.Generator:
+    return generator if generator is not None else torch.Generator().manual_seed(0)
+
+
+def lecun_normal(shape, fan_in: int, generator: torch.Generator) -> torch.Tensor:
+    """flax ``lecun_normal``: truncated normal (±2 std) of variance 1/fan_in,
+    drawn on the CPU so the values do not depend on the target device."""
+    std = (1.0 / fan_in) ** 0.5 / _TRUNC_STD
+    return nn.init.trunc_normal_(
+        torch.empty(shape), std=std, a=-2 * std, b=2 * std, generator=generator
+    )
+
+
+class Conv2d(nn.Module):
+    """2-D convolution computed in the construction-time compute dtype."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int,
+        stride: int = 1,
+        padding: int = 0,
+        dilation: int = 1,
+        groups: int = 1,
+        bias: bool = True,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.stride, self.padding = stride, padding
+        self.dilation, self.groups = dilation, groups
+        self.dtype = compute_dtype()
+        fan_in = in_channels // groups * kernel_size * kernel_size
+        weight = lecun_normal(
+            (out_channels, in_channels // groups, kernel_size, kernel_size),
+            fan_in,
+            default_generator(generator),
+        )
+        self.weight = nn.Parameter(
+            weight.to(device).contiguous(memory_format=torch.channels_last)
+        )
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(self.dtype)
+        return F.conv2d(
+            x.to(self.dtype),
+            self.weight.to(self.dtype),
+            bias,
+            self.stride,
+            self.padding,
+            self.dilation,
+            self.groups,
+        )
+
+
+class BatchNorm2d(nn.Module):
+    """Running-statistics BatchNorm (eps 1e-5): the input stays in its
+    compute dtype, normalisation runs in f32 against the f32 statistics and
+    parameters, and the result comes back in the input's dtype."""
+
+    def __init__(self, num_features: int, eps: float = 1e-5, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+        self.register_buffer("running_mean", torch.zeros(num_features, device=device))
+        self.register_buffer("running_var", torch.ones(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            raise NotImplementedError(
+                "training-mode BatchNorm comes with the training slice "
+                "(ROADMAP.md, M2); call model.eval() to serve"
+            )
+        return F.batch_norm(
+            x, self.running_mean, self.running_var, self.weight, self.bias,
+            False, 0.0, self.eps,
+        )
+
+
+def make_conv(
+    in_channels: int,
+    out_channels: int,
+    kernel_size: int = 3,
+    stride: int = 1,
+    dilation: int = 1,
+    groups: int = 1,
+    padding: Optional[int] = None,
+    bias: bool = True,
+    *,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+) -> Conv2d:
+    pad = padding if padding is not None else (kernel_size - 1) // 2 * dilation
+    return Conv2d(
+        in_channels,
+        out_channels,
+        kernel_size,
+        stride=stride,
+        padding=pad,
+        dilation=dilation,
+        groups=groups,
+        bias=bias,
+        generator=generator,
+        device=device,
+    )
+
+
+def make_norm(kind: Optional[str], num_features: int, *, device=None):
+    if kind == "batch":
+        return BatchNorm2d(num_features, eps=1e-5, device=device)
+    if kind is None:
+        return None
+    raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP.md, M16)")
+
+
+_ACTS = {"relu": relu, None: None}
+
+
+class StandardConvNormAct(nn.Module):
+    """torchvision ``Conv2dNormActivation``: conv → norm → act."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        stride: int = 1,
+        dilation: int = 1,
+        groups: int = 1,
+        padding: Optional[int] = None,
+        norm: Optional[str] = "batch",
+        act: Optional[str] = "relu",
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        self.conv = make_conv(
+            in_channels,
+            out_channels,
+            kernel_size,
+            stride=stride,
+            dilation=dilation,
+            groups=groups,
+            padding=padding,
+            bias=norm is None,
+            generator=default_generator(generator),
+            device=device,
+        )
+        self.norm = make_norm(norm, out_channels, device=device)
+        self.act = _ACTS[act]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x

@@ -1,0 +1,69 @@
+"""Helpers of the parity tests between ``sihl_tpu`` (JAX, CPU) and its
+PyTorch port ``sihl_tpu_torch``: weights go from the JAX model to the port
+through ``state_dict_from_flat``; data crosses as numpy arrays, NHWC on the
+JAX side and NCHW in channels_last memory on the torch side."""
+
+import jax.numpy as jnp
+import numpy as np
+import torch
+from flax import nnx
+
+from sihl_tpu_torch.convert import state_dict_from_flat
+
+# tier-1 runs several pytest workers on one host
+torch.set_num_threads(1)
+
+
+def flat_state(module) -> dict:
+    """The module's Param and BatchStat leaves as numpy arrays under dotted paths."""
+    state = nnx.state(module, nnx.Any(nnx.Param, nnx.BatchStat))
+    return {
+        ".".join(str(p) for p in path): np.asarray(v[...])
+        for path, v in nnx.to_flat_state(state)
+    }
+
+
+def randomize_norms(module, rng: np.random.RandomState) -> None:
+    """Give every BatchNorm random running statistics, and every BatchNorm
+    and LayerNorm random affine parameters, so that no norm is the identity."""
+
+    def uniform(lo, hi, shape):
+        return jnp.asarray(rng.uniform(lo, hi, shape), jnp.float32)
+
+    for _, sub in nnx.iter_graph(module):
+        if isinstance(sub, (nnx.BatchNorm, nnx.LayerNorm)):
+            c = sub.scale[...].shape
+            sub.scale[...] = uniform(0.8, 1.2, c)
+            sub.bias[...] = uniform(-0.1, 0.1, c)
+        if isinstance(sub, nnx.BatchNorm):
+            sub.mean[...] = uniform(-0.2, 0.2, c)
+            sub.var[...] = uniform(0.5, 1.5, c)
+
+
+def load_from_jax(port_module: torch.nn.Module, jax_module) -> torch.nn.Module:
+    """Carry the JAX module's weights into the port's counterpart (strict)."""
+    port_module.load_state_dict(state_dict_from_flat(flat_state(jax_module)), strict=True)
+    return port_module.eval()
+
+
+def to_torch(x_nhwc) -> torch.Tensor:
+    """NHWC array → NCHW tensor in channels_last memory."""
+    return torch.from_numpy(np.asarray(x_nhwc)).permute(0, 3, 1, 2)
+
+
+def to_numpy(x: torch.Tensor, nhwc: bool = False) -> np.ndarray:
+    x = x.detach().float()
+    if nhwc:
+        x = x.permute(0, 2, 3, 1)
+    return x.numpy()
+
+
+def assert_detections_match(got, want, box_atol):
+    """num_instances, top-k order and classes exact; scores to 1e-5; boxes
+    to ``box_atol`` pixels."""
+    num, scores, classes, boxes = got
+    w_num, w_scores, w_classes, w_boxes = (np.asarray(w) for w in want)
+    np.testing.assert_array_equal(num.numpy(), w_num)
+    np.testing.assert_array_equal(classes.numpy(), w_classes)
+    np.testing.assert_allclose(to_numpy(scores), w_scores, atol=1e-5, rtol=0)
+    np.testing.assert_allclose(to_numpy(boxes), w_boxes, atol=box_atol, rtol=0)
