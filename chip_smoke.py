@@ -1,20 +1,27 @@
-"""Drive the PyTorch port's serving path on one CUDA card and check it.
+"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The flagship serving model (ResNet-50, FPN 256 channels over levels 3-7,
+The flagship model (ResNet-50, FPN 256 channels over levels 3-7,
 ObjectDetection with 80 classes; random weights from a seed) runs through
 the port's hand-written kernels.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
-2. build: compile both kernels from the checkout's sources;
+2. build: compile every kernel from the checkout's sources, all at once;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   flagship path gives it, with CUDA-event timings of both;
-4. slice: one batch of two 640 px images, f32, on the card and on the CPU
-   (where the plain versions run) with the same weights;
-5. serving: three requests of 16 images at 640 px in bf16.
+   flagship paths give it, with CUDA-event timings of both and the least
+   time the card could take for the same work (the bound);
+4. slice: one batch of two 640 px images, f32, served on the card and on the
+   CPU (where the plain versions run) with the same weights;
+5. serving: three requests of 16 images at 640 px in bf16;
+6. train slice: one f32 training step of two 640 px images on the card
+   against an f64 step on the CPU, with the same weights: losses,
+   gradients, BatchNorm statistics;
+7. training: ten bf16 steps of bench.py's training step (level 1 frozen,
+   targets padded to 100, AdamW, clip 0.1) on 16 images at 640 px through
+   ``Trainer.training_step``.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -22,11 +29,14 @@ line is ``{"ok": true, "device": {...}}``.
 
 import copy
 import json
+import math
 import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from sihl_tpu_torch import Backbone, SihlModel
@@ -34,13 +44,27 @@ from sihl_tpu_torch.heads import ObjectDetection, anchors
 from sihl_tpu_torch.layers import FPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
-from sihl_tpu_torch.ops import fused_mlp, fusion
+from sihl_tpu_torch.ops import boxes, fused_mlp, fusion, topk
 from sihl_tpu_torch.policy import compute_dtype_scope
+from sihl_tpu_torch.training import Trainer
+from sihl_tpu_torch.training.trainer import _losses
 
 BATCH, SIZE, NUM_CLASSES, WIDTH = 16, 640, 80, 256
 # anchors of levels 3-7 at 640 px: 80^2 + 40^2 + 20^2 + 10^2 + 5^2
 NUM_ANCHORS = 8525
 MAX_INSTANCES = 100
+MAX_TARGETS, TOPK = 100, 9
+LOC_BIAS_INIT = -5.0  # ObjectDetection's loc head starts at "no object"
+NUM_LAYERS = 4
+OPTIMIZER = dict(
+    optimizer="adamw",
+    optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
+    grad_clip=0.1,
+)
+# H100 SXM data-sheet peaks: device memory, and dense operations by type
+# (bf16 on tensor cores, f32 outside them)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 
 def card_name() -> str:
@@ -51,11 +75,12 @@ def card_name() -> str:
     ).stdout.strip().splitlines()[0]
 
 
-def build_flagship(generator: torch.Generator) -> SihlModel:
-    backbone = Backbone("resnet50", top_level=5, generator=generator)
-    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator)
+def build_flagship(generator: torch.Generator, device=None) -> SihlModel:
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
     head = ObjectDetection(
-        neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, generator=generator
+        neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7,
+        max_targets=MAX_TARGETS, generator=generator, device=device,
     )
     return SihlModel(backbone, neck, [head])
 
@@ -63,7 +88,7 @@ def build_flagship(generator: torch.Generator) -> SihlModel:
 def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Random BatchNorm running statistics, random affine parameters of every
     BatchNorm and LayerNorm, and random biases of every MLP Linear, so that
-    no norm is the identity and every array the fused-MLP kernel reads
+    no norm is the identity and every array the fused-MLP kernels read
     (hidden biases, LayerNorm scale and shift per layer) is non-trivial."""
 
     def fill(t, lo, hi):
@@ -81,6 +106,34 @@ def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generato
                 fill(m.bias, -0.1, 0.1)
 
 
+def damp_residual_branches(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Scale the last BatchNorm of every bottleneck branch (``conv3.bn``) to
+    U(0.01, 0.03), so that each residual block starts near the identity, as
+    zero-init-residual ResNets do; at full scales the f32 gradients of this
+    random-weight model lose most of their digits."""
+    with torch.no_grad():
+        for name, m in model.named_modules():
+            if name.endswith("conv3.bn"):
+                m.weight.copy_(torch.rand(m.weight.shape, generator=generator) * 0.02 + 0.01)
+
+
+def training_batch(batch: int, seed: int = 0, device="cuda"):
+    """bench.py's images and targets (padded to 100 boxes), from a seeded
+    numpy generator; images as (B, 3, H, W)."""
+    rng = np.random.RandomState(seed)
+    x = rng.rand(batch, SIZE, SIZE, 3).astype(np.float32)
+    classes = np.full((batch, MAX_TARGETS), -1, np.int64)
+    gt = np.zeros((batch, MAX_TARGETS, 4), np.float32)
+    for b in range(batch):
+        n = rng.randint(1, 20)
+        classes[b, :n] = rng.randint(0, NUM_CLASSES, n)
+        xy = rng.rand(n, 2) * (SIZE - 64)
+        wh = rng.rand(n, 2) * 128 + 8
+        gt[b, :n] = np.concatenate([xy, xy + wh], axis=1)
+    images = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(device)
+    return images, {"classes": torch.from_numpy(classes).to(device), "boxes": torch.from_numpy(gt).to(device)}
+
+
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Median over ``reps`` runs of ``fn``'s device time, from CUDA events."""
     for _ in range(warmup):
@@ -96,51 +149,163 @@ def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate for their type, whichever is longer."""
+    t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops), bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def mlp_work(m: int, outs, dtype: torch.dtype, passes: int) -> tuple:
+    """(bytes, operations) of the MLPs of one fused call over m rows: x read
+    and, in the backward (passes = 3), dx written and the output cotangents
+    read; outputs or cotangents of width n_out; every weight read once (and
+    its f32 gradient written in the backward)."""
+    es = torch.finfo(dtype).bits // 8
+    weights = sum(NUM_LAYERS * WIDTH * WIDTH + WIDTH * n for n in outs)
+    num_bytes = m * WIDTH * es * (2 if passes == 3 else 1) + sum(m * n * es for n in outs)
+    num_bytes += weights * es + (weights * 4 if passes == 3 else 0)
+    ops = sum(2 * passes * m * WIDTH * (NUM_LAYERS * WIDTH + n) for n in outs)
+    return num_bytes, ops
+
+
+def random_mlps(outs, dtype, gen):
+    with compute_dtype_scope(dtype):
+        mlps = [MLP(WIDTH, [WIDTH] * NUM_LAYERS + [n], generator=gen) for n in outs]
+    for m in mlps:
+        randomize_norms_and_biases(m, gen)
+    return mlps
+
+
+def mlp_grads(fn, x, mlps, weights):
+    """The outputs of fn(x, mlps), and dx and every parameter's gradient of
+    sum_i sum(fn(x, mlps)[i] * w_i)."""
+    x = x.detach().requires_grad_(True)
+    for p in (p for m in mlps for p in m.parameters()):
+        p.grad = None
+    outputs = fn(x, mlps)
+    loss = sum((o.float() * w).sum() for o, w in zip(outputs, weights))
+    loss.backward()
+    return [o.detach() for o in outputs], [x.grad] + [p.grad for m in mlps for p in m.parameters()]
+
+
+def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_images, train_targets) -> dict:
     """Phase 3: each kernel against its plain version, timed at flagship
-    shapes; ``serving`` marks the cases of the bf16 serving path."""
-    results = {"fused_mlp": [], "upsample_add": []}
-    rows = {"dense": BATCH * NUM_ANCHORS, "gathered": BATCH * MAX_INSTANCES}
+    shapes; ``path`` marks the cases the bf16 serving or training path runs."""
+    results = {"fused_mlp": [], "fused_mlp@train": [], "fused_mlp_backward": [], "row_kth": [], "upsample_add": []}
+
+    # K1f at the serving shapes: loc dense over every anchor, cls + box over the top 100
     for dtype, atol, rtol in ((torch.bfloat16, 5e-2, 5e-2), (torch.float32, 1e-3, 0.0)):
-        with compute_dtype_scope(dtype):
-            heads = {
-                "dense": [MLP(WIDTH, [WIDTH] * 4 + [1], generator=gen)],
-                "gathered": [MLP(WIDTH, [WIDTH] * 4 + [n], generator=gen) for n in (NUM_CLASSES, 4)],
-            }
-        for case, mlps in heads.items():
-            for m in mlps:
-                randomize_norms_and_biases(m, gen)
-            mlps = [m.cuda().eval() for m in mlps]
-            x = torch.randn(rows[case], WIDTH, device="cuda", generator=cuda_gen).to(dtype)
-            got = fused_mlp.fused_mlps(x, mlps)
-            want = fused_mlp.fused_mlps_reference(x, mlps)
+        for case, m, outs in (("dense", BATCH * NUM_ANCHORS, (1,)), ("gathered", BATCH * MAX_INSTANCES, (NUM_CLASSES, 4))):
+            mlps = [mlp.eval() for mlp in random_mlps(outs, dtype, gen)]
+            x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
+            with torch.no_grad():
+                got = fused_mlp.fused_mlps(x, mlps)
+                want = fused_mlp.fused_mlps_reference(x, mlps)
+                torch.cuda.synchronize()
+                err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+                ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+                plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
+            results["fused_mlp"].append(dict(
+                path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_work(m, outs, dtype, 1), dtype),
+            ))
+            print(f"  K1f fused_mlp {case} {tuple(x.shape)} {dtype}: max_abs_err {err:.3g} "
+                  f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"bound {results['fused_mlp'][-1]['bound_ms']:.4f} ms")
+
+    # K1b at the training shapes, and K1f's forward there: loc + iou dense
+    # over every anchor, cls + box over the 900 positives of each image
+    for dtype, tol, (f_atol, f_rtol) in ((torch.bfloat16, 1e-1, (5e-2, 5e-2)), (torch.float32, 1e-3, (1e-3, 0.0))):
+        for case, m, outs in (
+            ("dense", BATCH * NUM_ANCHORS, (1, 1)),
+            ("gathered", BATCH * MAX_TARGETS * TOPK, (NUM_CLASSES, 4)),
+        ):
+            mlps = random_mlps(outs, dtype, gen)
+            x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
+            weights = [torch.randn(m, n, device="cuda", generator=cuda_gen) for n in outs]
+            got_out, got = mlp_grads(fused_mlp.fused_mlps, x, mlps, weights)
+            want_out, want = mlp_grads(fused_mlp.fused_mlps_reference, x, mlps, weights)
             torch.cuda.synchronize()
-            err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-            for g, w in zip(got, want):
-                torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
-            ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
-            plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
-            results["fused_mlp"].append(
-                dict(serving=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms)
-            )
-            print(f"  fused_mlp {case} {tuple(x.shape)} {dtype}: max_abs_err {err:.3g} "
-                  f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-    # the two top-down merges of the FPN at 640 px: level 5 into 4, level 4 into 3
+            out_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got_out, want_out))
+            for g, w in zip(got_out, want_out):
+                torch.testing.assert_close(g.float(), w.float(), atol=f_atol, rtol=f_rtol)
+            with torch.no_grad():
+                ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+                plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
+            results["fused_mlp@train"].append(dict(
+                path=dtype == torch.bfloat16, err=out_err, ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_work(m, outs, dtype, 1), dtype),
+            ))
+            print(f"  K1f fused_mlp {case} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err "
+                  f"{out_err:.3g} (atol {f_atol}, rtol {f_rtol}); kernel {ms:.4f} ms, plain "
+                  f"{plain_ms:.4f} ms, bound {results['fused_mlp@train'][-1]['bound_ms']:.4f} ms")
+
+            err = float((got[0].float() - want[0].float()).abs().max())
+            torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+            param_err = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got[1:], want[1:]))
+            if param_err > tol:
+                raise AssertionError(f"K1b {case} {dtype}: parameter gradient error {param_err} of the largest")
+            packed = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
+            gs = [w.to(dtype) for w in weights]
+            xr = x.detach().requires_grad_(True)
+            outputs = fused_mlp.fused_mlps_reference(xr, mlps)
+            inputs = [xr] + [p for mlp in mlps for p in mlp.parameters()]
+            ms = median_ms(lambda: fused_mlp.fused_mlps_backward(x, packed, gs))
+            plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gs, retain_graph=True))
+            del outputs
+            results["fused_mlp_backward"].append(dict(
+                path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_work(m, outs, dtype, 3), dtype),
+            ))
+            print(f"  K1b fused_mlp_backward {case} {tuple(x.shape)} {dtype}, outputs {outs}: dx "
+                  f"max_abs_err {err:.3g} (atol = rtol = {tol}); parameter gradients' largest error "
+                  f"{param_err:.3g} of their largest magnitude (bound {tol}); kernel {ms:.4f} ms, plain "
+                  f"(autograd of the chain) {plain_ms:.4f} ms, bound {results['fused_mlp_backward'][-1]['bound_ms']:.4f} ms")
+
+    # K2 on the training batch's anchor-gt IoUs: (16 * 100, 8525), k = 9
+    head_levels = [torch.empty(1, 1, SIZE >> lvl, SIZE >> lvl, device="cuda") for lvl in range(8)]
+    offsets, scales = anchors.cell_anchors(head_levels, range(3, 8))
+    full = torch.tensor([SIZE] * 4, dtype=torch.float32, device="cuda")
+    ious = torch.clamp(boxes.complete_box_iou((offsets + scales) * full, train_targets["boxes"]), min=0)
+    ious = torch.where((train_targets["classes"] >= 0)[:, None, :], ious, 0.0)
+    work = ious.transpose(1, 2).reshape(-1, NUM_ANCHORS).contiguous()
+    best, kth = topk.row_best_and_kth(work, TOPK)
+    want_best, want_kth = topk._row_reference(work, TOPK)
+    if not (torch.equal(best, want_best) and torch.equal(kth, want_kth)):
+        raise AssertionError("row_best_and_kth is not bitwise equal to its plain version")
+    ms = median_ms(lambda: topk.row_best_and_kth(work, TOPK))
+    plain_ms = median_ms(lambda: topk._row_reference(work, TOPK))
+    g, a = work.shape
+    results["row_kth"].append(dict(
+        path=True, err=0.0, ms=ms, plain_ms=plain_ms,
+        **bound(g * a * 4 + 2 * g * 4, 2 * TOPK * g * a, torch.float32),
+    ))
+    print(f"  K2 row_best_and_kth {tuple(work.shape)} k={TOPK}: bitwise equal; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {results['row_kth'][-1]['bound_ms']:.4f} ms")
+
+    # K3: the two top-down merges of the FPN at 640 px: level 5 into 4, level 4 into 3
     for h in (SIZE // 32, SIZE // 16):
         cl = torch.channels_last
         top = torch.randn(BATCH, WIDTH, h, h, device="cuda", generator=cuda_gen)
         lateral = torch.randn(BATCH, WIDTH, 2 * h, 2 * h, device="cuda", generator=cuda_gen)
         top, lateral = (t.to(torch.bfloat16).contiguous(memory_format=cl) for t in (top, lateral))
-        got = fusion.fused_upsample_add(top, lateral)
-        want = fusion.fused_upsample_add_reference(top, lateral)
-        if not torch.equal(got, want):
-            raise AssertionError(f"upsample_add at h={h} is not bitwise equal to its plain version")
-        err = float((got.float() - want.float()).abs().max())
-        ms = median_ms(lambda: fusion.fused_upsample_add(top, lateral))
-        plain_ms = median_ms(lambda: fusion.fused_upsample_add_reference(top, lateral))
-        results["upsample_add"].append(dict(serving=True, err=err, ms=ms, plain_ms=plain_ms))
-        print(f"  upsample_add top {tuple(top.shape)} bf16: bitwise equal; "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        with torch.no_grad():
+            got = fusion.fused_upsample_add(top, lateral)
+            want = fusion.fused_upsample_add_reference(top, lateral)
+            if not torch.equal(got, want):
+                raise AssertionError(f"upsample_add at h={h} is not bitwise equal to its plain version")
+            ms = median_ms(lambda: fusion.fused_upsample_add(top, lateral))
+            plain_ms = median_ms(lambda: fusion.fused_upsample_add_reference(top, lateral))
+        results["upsample_add"].append(dict(
+            path=True, err=0.0, ms=ms, plain_ms=plain_ms,
+            **bound((top.numel() + 2 * lateral.numel()) * 2, lateral.numel(), torch.bfloat16),
+        ))
+        print(f"  K3 upsample_add top {tuple(top.shape)} bf16: bitwise equal; kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, bound {results['upsample_add'][-1]['bound_ms']:.4f} ms")
     return results
 
 
@@ -171,16 +336,18 @@ def set_loc_bias(model: SihlModel, images: torch.Tensor) -> float:
 
 
 def check_slice(model: SihlModel, gen: torch.Generator) -> None:
-    """Phase 4: the f32 slice on the card against the CPU (plain versions)."""
+    """Phase 4: the f32 serving slice on the card against the CPU (plain versions)."""
     images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
-    loc_bias = set_loc_bias(model, images)
-    t0 = time.perf_counter()
-    (c_num, c_scores, c_classes, c_boxes), c_idx = detect_with_indices(model, images)
-    t_cpu = time.perf_counter() - t0
-    (num, scores, classes, boxes), idx = detect_with_indices(copy.deepcopy(model).cuda(), images.cuda())
+    with torch.no_grad():
+        loc_bias = set_loc_bias(model, images.cuda())
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        (c_num, c_scores, c_classes, c_boxes), c_idx = detect_with_indices(cpu_model, images)
+        t_cpu = time.perf_counter() - t0
+        (num, scores, classes, boxes_), idx = detect_with_indices(model, images.cuda())
     agree = idx == c_idx
     share = float(agree.float().mean())
-    box_err = float((boxes - c_boxes).abs().amax(dim=2)[agree].max())
+    box_err = float((boxes_ - c_boxes).abs().amax(dim=2)[agree].max())
     score_err = float((scores - c_scores).abs().max())
     score_rel_err = float(((scores - c_scores).abs() / c_scores.abs()).max())
     print(f"  slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
@@ -209,19 +376,143 @@ def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
     for _ in range(requests):
         images = torch.rand(BATCH, 3, SIZE, SIZE, device="cuda", generator=cuda_gen)
         t0 = time.perf_counter()
-        outputs = model(images)[0]
+        with torch.no_grad():
+            outputs = model(images)[0]
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         for (name, shape), out in zip(head.output_shapes.items(), outputs):
             want = tuple(BATCH if s == "batch_size" else s for s in shape)
             if tuple(out.shape) != want:
                 raise AssertionError(f"{name}: shape {tuple(out.shape)}, expected {want}")
-        num, scores, classes, boxes = outputs
-        if not (torch.isfinite(scores).all() and torch.isfinite(boxes).all()):
+        num, scores, classes, boxes_ = outputs
+        if not (torch.isfinite(scores).all() and torch.isfinite(boxes_).all()):
             raise AssertionError("non-finite scores or boxes")
         if not ((0 <= classes).all() and (classes < NUM_CLASSES).all()):
             raise AssertionError("class ids out of range")
     return latencies
+
+
+def step_gradients(model: SihlModel, images, targets):
+    """Loss, metrics, every gradient and every buffer after one training
+    forward and backward of ``model``."""
+    model.train()
+    loss, metrics = _losses(model, images, [targets])
+    loss.backward()
+    grads = {n: p.grad for n, p in model.named_parameters()}
+    return float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()}, grads, dict(model.named_buffers())
+
+
+def relative_error(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float(torch.linalg.vector_norm(got.double() - want.double()) / max(
+        float(torch.linalg.vector_norm(want.double())), 1e-30))
+
+
+# Relative L2 limits of the card's f32 gradients against the CPU's f64 ones,
+# by part of the model.  The heads' gradients keep their digits in f32.  The
+# neck's and backbone's are what train-mode BatchNorm's backward leaves after
+# it removes each channel's mean and its projection on the normalised input,
+# and f32 loses digits there: the CPU's own f32 step, plain PyTorch, misses
+# 1e-3 on some of them, as phase 6 prints (PERF.md, section 6).
+GRADIENT_LIMITS = {"heads": 1e-3, "neck": 1e-2, "backbone": 2e-2}
+
+
+def check_train_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 6: one f32 training step's loss, metrics, gradients and
+    BatchNorm statistics on the card against an f64 step on the CPU (plain
+    versions), on the same weights and batch, each gradient to relative L2
+    ``GRADIENT_LIMITS`` of its part; an f32 step on the CPU shows how many
+    digits f32 keeps.  The weights are those of the serving slice with the
+    residual branches damped (``damp_residual_branches``) and the loc head's
+    final bias back at its initial -5, so that the dense location loss does
+    not send every anchor nearly the same gradient."""
+    model = copy.deepcopy(model)
+    model.backbone.set_frozen_levels(1)
+    damp_residual_branches(model, gen)
+    with torch.no_grad():
+        model.heads[0].loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
+    images, targets = training_batch(2, seed=1)
+    cpu_images, cpu_targets = images.cpu(), {k: v.cpu() for k, v in targets.items()}
+    references = {}
+    for dtype in (torch.float64, torch.float32):
+        with compute_dtype_scope(dtype):
+            ref = build_flagship(torch.Generator().manual_seed(0), device="cpu")
+        ref.backbone.set_frozen_levels(1)
+        ref.load_state_dict(model.state_dict())
+        t0 = time.perf_counter()
+        references[dtype] = step_gradients(ref, cpu_images, cpu_targets)
+        references[dtype] += (time.perf_counter() - t0,)
+    c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
+    f32_grads = references[torch.float32][2]
+    loss, metrics, grads, bufs = step_gradients(model, images, targets)
+
+    if not math.isclose(loss, c_loss, rel_tol=1e-4):
+        raise AssertionError(f"loss {loss} on the card, {c_loss} on the CPU")
+    for k, v in metrics.items():
+        if not math.isclose(v, c_metrics[k], rel_tol=1e-4, abs_tol=1e-6):
+            raise AssertionError(f"{k}: {v} on the card, {c_metrics[k]} on the CPU")
+    stem = [n for n in grads if n.startswith("backbone.features.stem.")]
+    if not stem or any(grads[n] is not None or c_grads[n] is not None for n in stem):
+        raise AssertionError("the frozen stem got a gradient")
+    stats_err = max(
+        float((bufs[n].cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-12)) for n, b in c_bufs.items()
+    )
+    print(f"  train slice, 2 images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
+          f"{c_loss:.6f}; " + "; ".join(
+              f"{k.split('/')[-1]} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
+          + f"; running statistics' largest relative error {stats_err:.3g}; the stem got no "
+          f"gradient; CPU f64 step {t_cpu:.1f} s, f32 step {references[torch.float32][4]:.1f} s")
+    failed = []
+    for part, limit in GRADIENT_LIMITS.items():
+        rows = sorted(
+            ((relative_error(g.cpu(), c_grads[n]), relative_error(f32_grads[n], c_grads[n]), n)
+             for n, g in grads.items() if n.split(".")[0] == part and n not in stem),
+            reverse=True,
+        )
+        within = sum(r[0] <= limit for r in rows)
+        print(f"    {part}: {len(rows)} gradients, {within} within relative L2 {limit} (card f32 "
+              f"against CPU f64); worst three (card error, CPU f32 error, name): "
+              f"{[(f'{r[0]:.3g}', f'{r[1]:.3g}', r[2]) for r in rows[:3]]}")
+        failed += [r for r in rows if r[0] > limit]
+    if failed:
+        raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
+    if stats_err > 1e-3:
+        raise AssertionError(f"running statistics differ by {stats_err} (relative)")
+
+
+def train(steps: int = 10):
+    """Phase 7: bf16 training steps of the flagship through Trainer."""
+    with compute_dtype_scope(torch.bfloat16):
+        model = build_flagship(torch.Generator().manual_seed(2))
+    model.backbone.set_frozen_levels(1)
+    trainer = Trainer(model, **OPTIMIZER)
+    images, targets = training_batch(BATCH)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = (fused_mlp.fused_mlps, fused_mlp.fused_mlps_backward, topk.row_best_and_kth,
+                fusion.fused_upsample_add)
+    for c in counters:
+        c.launches = 0
+    times, metrics = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics.append(trainer.training_step(images, targets))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = dict(zip(("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add"),
+                        (c.launches for c in counters)))
+    losses = [float(m["trainer/loss"]) for m in metrics]
+    steady = statistics.median(times[2:])
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  training bf16, batch {BATCH} at {SIZE} px, {steps} steps: losses "
+          f"{[round(v, 4) for v in losses]}; step times {[round(t * 1000, 3) for t in times]} ms; "
+          f"median of steps 3-{steps} {steady * 1000:.3f} ms, {BATCH / steady:.2f} images/s; "
+          f"peak memory {peak_gib:.2f} GiB; kernel launches {launches}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError("non-finite training loss")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the training path never launched the {name} kernel")
+    return launches
 
 
 def main() -> None:
@@ -232,24 +523,35 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    torch.set_grad_enabled(False)
 
-    # phase 2: build
+    # phase 2: build, every kernel at once
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    def upsample_add_once():
+        cl = torch.channels_last
+        small = torch.zeros(1, 8, 2, 2, device="cuda").contiguous(memory_format=cl)
+        fusion.fused_upsample_add(small, torch.zeros(1, 8, 4, 4, device="cuda").contiguous(memory_format=cl))
+        torch.cuda.synchronize()
+
     t0 = time.perf_counter()
-    fused_mlp._library()
-    t1 = time.perf_counter()
-    small = torch.zeros(1, 8, 2, 2, device="cuda").contiguous(memory_format=torch.channels_last)
-    fusion.fused_upsample_add(small, torch.zeros(1, 8, 4, 4, device="cuda").contiguous(memory_format=torch.channels_last))
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    print(f"build: fused_mlp (CUDA C++, sm_90a) {t1 - t0:.1f} s; upsample_add (Triton) {t2 - t1:.1f} s")
+    with ThreadPoolExecutor(3) as pool:
+        builds = [pool.submit(timed, fn) for fn in (fused_mlp._library, topk._library, upsample_add_once)]
+        t_mlp, t_topk, t_triton = (b.result() for b in builds)
+    print(f"build (in parallel, {time.perf_counter() - t0:.1f} s): fused_mlp K1f + K1b (CUDA C++, "
+          f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; upsample_add K3 "
+          f"(Triton) {t_triton:.1f} s")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     cuda_gen = torch.Generator("cuda").manual_seed(0)
-    kernels = check_kernels(gen, cuda_gen)
+    train_images, train_targets = training_batch(BATCH)
+    kernels = check_kernels(gen, cuda_gen, train_images, train_targets)
+    del train_images
 
-    # phase 4: slice parity, f32, card against CPU
+    # phase 4: serving slice parity, f32, card against CPU
     model = build_flagship(gen)
     randomize_norms_and_biases(model, gen)
     model.eval()
@@ -259,12 +561,12 @@ def main() -> None:
     with compute_dtype_scope(torch.bfloat16):
         served = build_flagship(torch.Generator().manual_seed(1))
     served.load_state_dict(model.state_dict())
-    served = served.cuda().eval()
+    served.eval()
     torch.cuda.reset_peak_memory_stats()
     fused_mlp.fused_mlps.launches = 0
     fusion.fused_upsample_add.launches = 0
     latencies = serve(served, cuda_gen)
-    launches = {
+    serving_launches = {
         "fused_mlp": fused_mlp.fused_mlps.launches,
         "upsample_add": fusion.fused_upsample_add.launches,
     }
@@ -273,22 +575,41 @@ def main() -> None:
     print(f"  serving bf16, batch {BATCH} at {SIZE} px: request latencies "
           f"{[round(t * 1000, 3) for t in latencies]} ms; {BATCH / steady:.2f} images/s from "
           f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB; "
-          f"kernel launches {launches}")
-    for name, n in launches.items():
+          f"kernel launches {serving_launches}")
+    for name, n in serving_launches.items():
         if n == 0:
             raise AssertionError(f"the serving path never launched the {name} kernel")
+    del served
 
+    # phase 6: training-slice parity, card f32 against CPU f64
+    check_train_slice(model, gen)
+    del model
+
+    # phase 7: the bf16 training step through the kernels
+    launches = train()
+
+    # one entry for each kernel on each path, with its launches there and one
+    # call of each shape that path gives it (bf16): K1f's serving request
+    # and its training step's two calls, K1b's two, K2's one, K3's two merges
+    mlp_cu, mlp_py = "sihl_tpu_torch/ops/csrc/fused_mlp.cu", "sihl_tpu/ops/pallas/mlp.py"
+    fusion_tr, fusion_py = "sihl_tpu_torch/ops/fusion_triton.py", "sihl_tpu/ops/pallas/fusion.py:59"
     summary = []
-    for name, route, source, replaces in (
-        ("fused_mlp", "cuda", "sihl_tpu_torch/ops/csrc/fused_mlp.cu", "sihl_tpu/ops/pallas/mlp.py:204"),
-        ("upsample_add", "triton", "sihl_tpu_torch/ops/fusion_triton.py", "sihl_tpu/ops/pallas/fusion.py:59"),
+    for name, path, key, route, source, replaces, n in (
+        ("fused_mlp", "serve", "fused_mlp", "cuda", mlp_cu, f"{mlp_py}:204", serving_launches["fused_mlp"]),
+        ("upsample_add", "serve", "upsample_add", "triton", fusion_tr, fusion_py, serving_launches["upsample_add"]),
+        ("fused_mlp@train", "train", "fused_mlp@train", "cuda", mlp_cu, f"{mlp_py}:204", launches["fused_mlp"]),
+        ("fused_mlp_backward", "train", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365", launches["fused_mlp_backward"]),
+        ("row_kth", "train", "row_kth", "cuda", "sihl_tpu_torch/ops/csrc/topk.cu", "sihl_tpu/ops/pallas/topk.py:51", launches["row_kth"]),
+        ("upsample_add@train", "train", "upsample_add", "triton", fusion_tr, fusion_py, launches["upsample_add"]),
     ):
-        # ms and plain_ms: one request's worth, every call shape of the serving path
-        cases = [c for c in kernels[name] if c["serving"]]
+        cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(
-            name=name, route=route, source=source, replaces=replaces, launches=launches[name],
+            name=name, path=path, route=route, source=source, replaces=replaces, launches=n,
             max_abs_err=max(c["err"] for c in cases),
             ms=sum(c["ms"] for c in cases), plain_ms=sum(c["plain_ms"] for c in cases),
+            bound_ms=sum(c["bound_ms"] for c in cases),
+            bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
+            library_ms=None,
         ))
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

@@ -1,48 +1,63 @@
-"""Profile one bf16 serving request of the PyTorch port on a CUDA card.
+"""Profile the PyTorch port on a CUDA card: one bf16 serving request, or with
+``--train`` one bf16 training step.
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 profile_serving.py
+    python3 profile_serving.py           # a request of 16 images at 640 px
+    python3 profile_serving.py --train   # bench.py's training step, 16 images at 640 px
 
-It builds the flagship serving model of ``chip_smoke.py`` (random weights
-from a seed), warms it up, times ``TIMED`` requests of 16 images at 640 px on
-the host clock (each ended by ``torch.cuda.synchronize()``), then runs
-``torch.profiler`` over ``PROFILED`` more.  It prints:
+It builds the flagship model of ``chip_smoke.py`` (random weights from a
+seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
+``PROFILED`` more.  It prints:
 
-- the median unprofiled request latency;
-- the device's busy time per request: the union of the intervals of every
-  device event, over ``PROFILED``;
-- the busy share: busy time over the unprofiled latency (the profiler's own
-  host cost stretches profiled requests, so their span is not used);
-- device time per request by class.  A class is either an aten op, whose
-  device time includes every kernel it launched, or one of the port's own
-  kernels, matched by name; "other" is busy time outside every class;
+- the median unprofiled request or step time;
+- the device's busy time per request or step: the union of the intervals of
+  every device event, over ``PROFILED``;
+- the busy share: busy time over the unprofiled time (the profiler's own
+  host cost stretches profiled runs, so their span is not used);
+- device time per request or step by class.  A class is a set of aten ops,
+  each counted by the device time of the kernels it launched itself (not
+  those of ops it called), or one of the port's own kernels, matched by
+  name; "other" is busy time outside every class;
 - the profiler's table of the top rows by device time.
 """
 
+import argparse
 import statistics
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from chip_smoke import BATCH, SIZE, build_flagship, card_name, randomize_norms_and_biases
+from chip_smoke import (
+    BATCH, OPTIMIZER, SIZE, build_flagship, card_name, randomize_norms_and_biases, training_batch,
+)
 from sihl_tpu_torch.policy import compute_dtype_scope
+from sihl_tpu_torch.training import Trainer
 
 TIMED, PROFILED = 10, 3
-# (label, aten op): the op's device time, kernels it launched included
+# (label, aten op names, a trailing * for a prefix): the device time of the
+# kernels each op launched itself
 OP_CLASSES = (
-    ("cuDNN convolutions", "aten::cudnn_convolution"),
-    ("BatchNorm transform", "aten::native_batch_norm"),
-    ("ReLU", "aten::clamp_min"),
-    ("adds", "aten::add"),
-    ("max pool", "aten::max_pool2d_with_indices"),
-    ("dtype casts and copies", "aten::copy_"),
+    ("cuDNN convolutions", ("aten::cudnn_convolution",)),
+    ("convolution backward", ("aten::convolution_backward",)),
+    ("BatchNorm transform", ("aten::native_batch_norm",)),
+    ("ReLU", ("aten::clamp_min", "aten::threshold_backward")),
+    ("adds and subtractions", ("aten::add", "aten::add_", "aten::sub")),
+    ("multiplications", ("aten::mul", "aten::mul_")),
+    ("sums and means", ("aten::sum", "aten::mean")),
+    ("max pool", ("aten::max_pool2d_with_indices", "aten::max_pool2d_with_indices_backward")),
+    ("dtype casts and copies", ("aten::copy_",)),
+    ("AdamW (foreach)", ("aten::_foreach_*",)),
 )
-# (label, substring of the kernel's name): the port's hand-written kernels
+# (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
-    ("K1f fused MLP", "fused_mlp_fwd"),
-    ("K3 upsample-add", "upsample_add_kernel"),
+    ("K1f fused MLP", ("fused_mlp_fwd",)),
+    ("K1b fused MLP backward", ("fused_mlp_bwd_tile_kernel", "dw_bf16_kernel", "dw_fma_kernel",
+                                "reduce_partials_kernel")),
+    ("K2 row k-th threshold", ("row_best_kth_kernel",)),
+    ("K3 upsample-add", ("upsample_add_kernel",)),
 )
 
 
@@ -60,48 +75,66 @@ def busy_us(events) -> float:
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--train", action="store_true", help="profile a training step")
+    train = parser.parse_args().train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
-    torch.set_grad_enabled(False)
     with compute_dtype_scope(torch.bfloat16):
         model = build_flagship(torch.Generator().manual_seed(0))
-    randomize_norms_and_biases(model, torch.Generator().manual_seed(1))
-    model = model.cuda().eval()
-    images = torch.rand(
-        BATCH, 3, SIZE, SIZE, device="cuda", generator=torch.Generator("cuda").manual_seed(0)
-    )
+    if train:
+        model.backbone.set_frozen_levels(1)
+        trainer = Trainer(model, **OPTIMIZER)
+        images, targets = training_batch(BATCH)
 
-    def request() -> float:
+        def work():
+            trainer.training_step(images, targets)
+    else:
+        randomize_norms_and_biases(model, torch.Generator().manual_seed(1))
+        model.eval()
+        images = torch.rand(
+            BATCH, 3, SIZE, SIZE, device="cuda", generator=torch.Generator("cuda").manual_seed(0)
+        )
+
+        def work():
+            with torch.no_grad():
+                model(images)
+
+    def timed() -> float:
         t0 = time.perf_counter()
-        model(images)
+        work()
         torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1000
 
+    what = "step" if train else "request"
     for _ in range(3):
-        request()
-    latency = statistics.median(request() for _ in range(TIMED))
+        timed()
+    latency = statistics.median(timed() for _ in range(TIMED))
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
-            request()
+            timed()
     device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     if not device_events:
         raise SystemExit("profile_serving: the profiler recorded no device time")
     busy = busy_us(device_events) / PROFILED / 1000
-    print(f"batch {BATCH} at {SIZE} px, bf16: unprofiled request {latency:.3f} ms (median of "
-          f"{TIMED}); device busy {busy:.3f} ms per request over {PROFILED} profiled; busy "
-          f"share {busy / latency:.4f}")
+    print(f"batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
+          f"{TIMED}); device busy {busy:.3f} ms per {what} over {PROFILED} profiled; busy "
+          f"share {busy / latency:.4f}; peak memory {peak_gib:.2f} GiB")
 
     averages = prof.key_averages()
-    by_key = {e.key: e for e in averages}
-    rows = [(label, by_key[op].device_time_total if op in by_key else 0.0, by_key[op].count
-             if op in by_key else 0) for label, op in OP_CLASSES]
-    for label, name in KERNEL_CLASSES:
-        hits = [e for e in averages if name in e.key]
+    rows = []
+    for label, ops in OP_CLASSES:
+        hits = [e for e in averages if any(e.key == op or (op.endswith("*") and e.key.startswith(op[:-1]))
+                                           for op in ops)]
+        rows.append((label, sum(e.self_device_time_total for e in hits), sum(e.count for e in hits)))
+    for label, names in KERNEL_CLASSES:
+        hits = [e for e in averages if any(name in e.key for name in names)]
         rows.append((label, sum(e.device_time_total for e in hits), sum(e.count for e in hits)))
     rows.append(("other", busy * PROFILED * 1000 - sum(us for _, us, _ in rows), 0))
-    print(f"{'class':24s} {'ms/request':>10s} {'share':>7s} {'calls/request':>13s}")
+    print(f"{'class':24s} {'ms/' + what:>10s} {'share':>7s} {'calls/' + what:>13s}")
     for label, us, count in rows:
         ms = us / PROFILED / 1000
         print(f"{label:24s} {ms:10.3f} {ms / busy:7.3f} {count / PROFILED:13.1f}")

@@ -18,11 +18,14 @@ def Backbone(
     pretrained: bool = False,
     input_channels: int = 3,
     top_level: int = 5,
+    freeze_batchnorms: bool = False,
     *,
     generator: Optional[torch.Generator] = None,
     device=None,
 ) -> PyramidBackbone:
-    """Build a pyramid backbone by architecture name, with random weights."""
+    """Build a pyramid backbone by architecture name, with random weights.
+    Freeze levels with ``set_frozen_levels``; ``freeze_batchnorms`` makes the
+    frozen levels' BatchNorms use their running statistics in training."""
     if name not in RESNET_CONFIGS:
         raise ValueError(f"Architecture {name} is not supported. Select from {backbone_names()}")
     if pretrained:
@@ -33,7 +36,10 @@ def Backbone(
     features = make_resnet_features(
         name, input_channels=input_channels, generator=generator, device=device
     )
-    return PyramidBackbone(name, features, input_channels=input_channels, top_level=top_level)
+    return PyramidBackbone(
+        name, features, input_channels=input_channels, top_level=top_level,
+        freeze_batchnorms=freeze_batchnorms,
+    )
 
 
 __all__ = ["Backbone", "PyramidBackbone", "backbone_names"]

@@ -5,20 +5,33 @@ Contract: the output is ``[input] + [level1..top_level]`` where
 ``out_channels[0] == input_channels``; input H and W must be divisible by
 ``2**top_level``.  The input is moved to channels_last memory here, once,
 and every layer after keeps that layout.
+
+A feature net plugged into this wrapper exposes ``feature_channels`` (the
+channels of levels 1..n), ``level_modules`` (attribute names per level, for
+freezing) and honours ``_sg_levels``: the levels up to it run without a
+gradient, so a frozen prefix has no backward pass.
 """
 
-from typing import List
+from typing import List, Sequence
 
 import torch
 from torch import nn
 
+from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.ops.image import interpolate
 
 
 class PyramidBackbone(nn.Module):
     """Wraps a feature net into the sihl pyramid contract."""
 
-    def __init__(self, name: str, features: nn.Module, input_channels: int = 3, top_level: int = 5):
+    def __init__(
+        self,
+        name: str,
+        features: nn.Module,
+        input_channels: int = 3,
+        top_level: int = 5,
+        freeze_batchnorms: bool = False,
+    ):
         super().__init__()
         if top_level < 1:
             raise ValueError(f"top_level must be >= 1, got {top_level}")
@@ -32,6 +45,35 @@ class PyramidBackbone(nn.Module):
         self.top_level = top_level
         self.features = features
         self.out_channels = [input_channels] + list(features.feature_channels[:top_level])
+        self.freeze_batchnorms = freeze_batchnorms
+        self.set_frozen_levels(0)
+
+    def set_frozen_levels(self, frozen_levels: int) -> None:
+        """Freeze the first ``frozen_levels`` levels (all of them if < 0):
+        their parameters leave the optimizer and, since the feature net cuts
+        the gradient after the deepest frozen level, they have no backward."""
+        self.frozen_levels = frozen_levels
+        n = len(self.features.feature_channels)
+        self.features._sg_levels = n if frozen_levels < 0 else min(max(frozen_levels, 0), n)
+
+    # -- freezing ---------------------------------------------------------
+    def frozen_attr_names(self) -> List[str]:
+        """Feature-net attribute names whose parameters must not be updated."""
+        mods = self.features.level_modules
+        k = len(mods) if self.frozen_levels < 0 else min(self.frozen_levels, len(mods))
+        return [name for level in mods[:k] for name in level]
+
+    def is_frozen_param(self, feature_path: Sequence[str]) -> bool:
+        """Whether a parameter path relative to ``features`` (its dotted name
+        split, ``("stem", "conv", "weight")``) is frozen."""
+        return len(feature_path) > 0 and str(feature_path[0]) in self.frozen_attr_names()
+
+    def _set_frozen_bn_eval(self) -> None:
+        """Frozen levels' BatchNorms normalise with their running statistics."""
+        for name in self.frozen_attr_names():
+            for sub in getattr(self.features, name).modules():
+                if isinstance(sub, BatchNorm2d):
+                    sub.eval()
 
     def forward(self, input: torch.Tensor) -> List[torch.Tensor]:
         h, w = input.shape[2:]

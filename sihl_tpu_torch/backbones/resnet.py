@@ -112,7 +112,16 @@ class _Stem(nn.Module):
 
 
 class ResNetFeatures(nn.Module):
-    """Feature-pyramid ResNet; returns levels 1..5 (strides 2..32)."""
+    """Feature-pyramid ResNet; returns levels 1..5 (strides 2..32).
+
+    Levels up to ``_sg_levels`` (set by ``PyramidBackbone.set_frozen_levels``)
+    run without a gradient, as ``stop_gradient`` cuts them in the JAX
+    package: a frozen stem has no backward pass, and its BatchNorm still
+    updates its running statistics in training mode.
+    """
+
+    level_modules = [["stem"], ["layer1"], ["layer2"], ["layer3"], ["layer4"]]
+    _sg_levels = 0
 
     def __init__(
         self,
@@ -141,11 +150,17 @@ class ResNetFeatures(nn.Module):
         self.feature_channels = [64] + [p * block.expansion for p in planes]
 
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
-        c1 = self.stem(x)
-        c2 = self.layer1(max_pool2d(c1, 3, stride=2, padding=1))
-        c3 = self.layer2(c2)
-        c4 = self.layer3(c3)
-        c5 = self.layer4(c4)
+        sg = self._sg_levels
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 1):
+            c1 = self.stem(x)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 2):
+            c2 = self.layer1(max_pool2d(c1, 3, stride=2, padding=1))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 3):
+            c3 = self.layer2(c2)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 4):
+            c4 = self.layer3(c3)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 5):
+            c5 = self.layer4(c4)
         return [c1, c2, c3, c4, c5]
 
 

@@ -14,8 +14,17 @@ from sihl_tpu_torch.ops.fused_mlp import fused_mlps
 
 
 def gather_anchor_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """Per-image rows of (B, A, C) features at (B, k) indices: (B, k, C)."""
+    """Per-image rows of (B, A, C) features at (B, k) indices: (B, k, C).
+    Its backward is autograd's scatter-add."""
     return feats[torch.arange(feats.shape[0], device=feats.device)[:, None], idx]
+
+
+def sort_positives(pos_w: torch.Tensor, pos_idx: torch.Tensor):
+    """Reorder per-image top-k positives ascending by anchor index.  The
+    losses over positives are permutation-invariant sums, so this changes no
+    value; it keeps the gather of their features in memory order."""
+    order = torch.argsort(pos_idx, dim=1)
+    return torch.take_along_dim(pos_w, order, dim=1), torch.take_along_dim(pos_idx, order, dim=1)
 
 
 def _level_grid(feature: torch.Tensor):

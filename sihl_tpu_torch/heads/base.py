@@ -1,8 +1,11 @@
 """Head protocol (counterpart of ``sihl_tpu/heads/base.py``).
 
 A head is an ``nn.Module`` with ``output_shapes`` (the static-shape
-contract of its outputs) and ``forward(inputs)``, the inference path.
-Training and validation come with the training slice.
+contract of its outputs), ``forward(inputs)``, the inference path, and
+``training_step(inputs, *targets) -> (loss, metrics)``, whose loss and
+metrics are f32 scalar tensors computed without a host sync.  Targets are
+padded, fixed-shape tensors.  Validation comes with detection eval
+(ROADMAP.md, M9).
 """
 
 from typing import Any, Dict, List, Tuple, Union
@@ -19,7 +22,5 @@ class Head(nn.Module):
     def forward(self, inputs: List[torch.Tensor]) -> Any:
         raise NotImplementedError
 
-    def training_step(self, inputs, *targets):
-        raise NotImplementedError(
-            "training steps come with the training slice (ROADMAP.md, M1 and M5)"
-        )
+    def training_step(self, inputs, *targets) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        raise NotImplementedError

@@ -1,10 +1,17 @@
-"""Anchor-free object detection head, inference path (counterpart of
+"""Anchor-free object detection head (counterpart of
 ``sihl_tpu/heads/object_detection.py``).
 
-Per-level 1x1 laterals, one flattened anchor list, the loc MLP dense over
-every anchor, the top ``max_instances`` anchors by loc logit (no NMS), then
-the cls and box MLPs over those rows only.  Training and validation come
-with the training slice.
+Inference: per-level 1x1 laterals, one flattened anchor list, the loc MLP
+dense over every anchor, the top ``max_instances`` anchors by loc logit (no
+NMS), then the cls and box MLPs over those rows only.
+
+Training: every image's padded ground truth is matched to the anchors at
+once (``bbox_matching``, batched over images); the loc and iou MLPs run dense
+over every anchor in one fused call; the ``max_targets * topk`` anchors of
+highest relative IoU per image are gathered, and the cls and box MLPs run
+over them in a second fused call.  Losses are f32 (f64 for a model built
+under the f64 compute dtype).  Validation comes with
+detection eval (ROADMAP.md, M9).
 """
 
 from typing import List, Optional, Tuple
@@ -16,6 +23,9 @@ from sihl_tpu_torch.heads import anchors
 from sihl_tpu_torch.heads.base import Head
 from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_generator
 from sihl_tpu_torch.layers.mlp import MLP
+from sihl_tpu_torch.ops.boxes import bbox_matching, complete_box_iou_loss
+from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, cross_entropy
+from sihl_tpu_torch.policy import upcast
 
 
 class ObjectDetection(Head):
@@ -28,6 +38,7 @@ class ObjectDetection(Head):
         num_channels: int = 256,
         num_layers: int = 4,
         max_instances: int = 100,
+        max_targets: int = 100,
         *,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -40,6 +51,7 @@ class ObjectDetection(Head):
             num_channels: conv/MLP width.
             num_layers: MLP depth.
             max_instances: fixed-size inference output slots.
+            max_targets: ground-truth padding size (targets per image).
         """
         super().__init__()
         if num_classes <= 0 or max_instances <= 0 or num_channels % 4:
@@ -54,6 +66,8 @@ class ObjectDetection(Head):
         self.levels = range(bottom_level, top_level + 1)
         self.num_channels = num_channels
         self.max_instances = max_instances
+        self.max_targets = max_targets
+        self.topk = 9
 
         self.laterals = nn.ModuleList(
             StandardConvNormAct(
@@ -112,3 +126,67 @@ class ObjectDetection(Head):
         classes = torch.argmax(class_logits, dim=2)
         box_preds = (offsets[loc_idxs] + scales[loc_idxs] * torch.exp(box_out.float())) * full_size
         return num_instances, scores, classes, box_preds
+
+    def training_step(self, inputs, classes: torch.Tensor, boxes: torch.Tensor):
+        """classes: (B, T) integer with -1 padding; boxes: (B, T, 4) in input
+        pixels as x0, y0, x1, y1.  Returns (loss, metrics)."""
+        if len(inputs) <= self.top_level:
+            raise ValueError(f"need levels up to {self.top_level}, got {len(inputs)} inputs")
+        height, width = inputs[0].shape[2:]
+        offsets, scales = self.get_offsets_and_scales(inputs)
+        full_size = torch.tensor(
+            [width, height, width, height], dtype=torch.float32, device=offsets.device
+        )
+        boxes = boxes.float()
+        assignment, rel_iou = bbox_matching(
+            (offsets + scales) * full_size, boxes, classes >= 0, self.topk, relative=True
+        )
+
+        # loc and iou heads, dense over every anchor, in one fused call
+        flat_feats = self.flat_features(inputs)
+        num_anchors = offsets.shape[0]
+        loc_out, iou_out = anchors.run_mlps(
+            flat_feats, [self.loc_head, self.iou_head], num_valid=num_anchors
+        )
+        loc_logits = upcast(loc_out[..., 0])
+        loc_target = (rel_iou == 1.0).float()
+        loc_loss = binary_cross_entropy_with_logits(loc_logits, loc_target).sum() / torch.clamp(
+            loc_target.sum(), min=1.0
+        )
+        any_match = rel_iou.max() > 0.0
+        rel_sum = torch.clamp(rel_iou.sum(), min=1e-6)
+        iou_loss = ((upcast(iou_out[..., 0]) - rel_iou) ** 2).sum() / rel_sum
+
+        # the positives of each image (a static count), in anchor order
+        k = min(self.max_targets * self.topk, num_anchors)
+        pos_w, pos_idx = anchors.sort_positives(*torch.topk(rel_iou, k, dim=1))
+        pos_feats = anchors.gather_anchor_rows(flat_feats, pos_idx)
+        pos_assign = torch.clamp(torch.take_along_dim(assignment, pos_idx, dim=1), min=0).long()
+        class_logits, box_out = anchors.run_mlps(
+            pos_feats, [self.cls_head, self.box_head], num_valid=k
+        )
+
+        # box loss: CIoU between the decoded positives and their gt
+        box_preds = offsets[pos_idx] + scales[pos_idx] * torch.exp(upcast(box_out))
+        box_target = torch.take_along_dim(boxes, pos_assign[..., None], dim=1) / full_size
+        box_loss = (pos_w * complete_box_iou_loss(box_preds, box_target)).sum() / rel_sum
+
+        # classification over the positives, weighted by relative IoU
+        class_target = torch.take_along_dim(classes, pos_assign, dim=1)
+        class_ce = cross_entropy(class_logits, torch.clamp(class_target, min=0))
+        class_loss = (pos_w * class_ce).sum() / rel_sum
+
+        # where no gt matched anywhere, only the location loss applies
+        zero = torch.zeros((), device=loc_loss.device)
+        box_loss = torch.where(any_match, box_loss, zero)
+        class_loss = torch.where(any_match, class_loss, zero)
+        iou_loss = torch.where(any_match, iou_loss, zero)
+
+        loss = loc_loss + 10.0 * box_loss + class_loss + iou_loss
+        metrics = {
+            "location_loss": loc_loss,
+            "box_loss": box_loss,
+            "class_loss": class_loss,
+            "iou_loss": iou_loss,
+        }
+        return loss, metrics

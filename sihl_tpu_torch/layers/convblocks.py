@@ -18,7 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sihl_tpu_torch.ops.relu import relu
-from sihl_tpu_torch.policy import compute_dtype
+from sihl_tpu_torch.policy import compute_dtype, resolve_device, upcast
 
 # flax's truncated-normal initializers divide by this to keep the variance
 _TRUNC_STD = 0.87962566103423978
@@ -58,6 +58,7 @@ class Conv2d(nn.Module):
         self.stride, self.padding = stride, padding
         self.dilation, self.groups = dilation, groups
         self.dtype = compute_dtype()
+        device = resolve_device(device)
         fan_in = in_channels // groups * kernel_size * kernel_size
         weight = lecun_normal(
             (out_channels, in_channels // groups, kernel_size, kernel_size),
@@ -85,13 +86,60 @@ class Conv2d(nn.Module):
         )
 
 
+class _BatchNormTrain(torch.autograd.Function):
+    """Training-mode BatchNorm over (B, C, H, W) with the batch statistics
+    differentiated through (counterpart of ``sihl_tpu/ops/fused_bn.py``).
+
+    Forward: "fast variance" statistics in f32 (f64 for f64 inputs),
+    ``E[x^2] - E[x]^2`` clipped at 0; ``y = (x - mu) * (r * scale) + bias``
+    in that dtype, cast to ``x``'s dtype.
+    Backward, with ``xhat = (x - mu) * r`` and n = B*H*W:
+    ``dx = scale * r * (dy - sum(dy) / n - xhat * sum(dy * xhat) / n)``.
+    Only ``x`` and the (C,) statistics are saved, not f32 copies of ``x``.
+    """
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        xf = upcast(x)
+        mu = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mu * mu, min=0.0)
+        r = torch.rsqrt(var + eps)
+        y = (xf - mu[:, None, None]) * (r * scale)[:, None, None] + bias[:, None, None]
+        ctx.save_for_backward(x, mu, r, scale)
+        ctx.mark_non_differentiable(mu, var)
+        return y.to(x.dtype), mu, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmu, _dvar):
+        x, mu, r, scale = ctx.saved_tensors
+        n = x.numel() // x.shape[1]
+        dyf = upcast(dy)
+        xhat = (upcast(x) - mu[:, None, None]) * r[:, None, None]
+        dbeta = dyf.sum(dim=(0, 2, 3))
+        dgamma = (dyf * xhat).sum(dim=(0, 2, 3))
+        dx = (scale * r)[:, None, None] * (
+            dyf - (dbeta / n)[:, None, None] - xhat * (dgamma / n)[:, None, None]
+        )
+        return dx.to(x.dtype), dgamma, dbeta, None
+
+
 class BatchNorm2d(nn.Module):
-    """Running-statistics BatchNorm (eps 1e-5): the input stays in its
-    compute dtype, normalisation runs in f32 against the f32 statistics and
-    parameters, and the result comes back in the input's dtype."""
+    """BatchNorm (eps 1e-5) in the input's compute dtype.
+
+    Eval: normalisation in f32 against the f32 running statistics and
+    parameters; the result comes back in the input's dtype.  Training:
+    :class:`_BatchNormTrain` on the batch statistics, with scale and bias
+    first rounded to the input's dtype (flax's ``promote_dtype``), and the
+    running statistics updated with the *biased* batch variance at flax's
+    momentum 0.9 (``running = 0.9 * running + 0.1 * batch``, which is
+    torch's momentum 0.1).
+    """
+
+    momentum = 0.9
 
     def __init__(self, num_features: int, eps: float = 1e-5, *, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.eps = eps
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
@@ -99,15 +147,19 @@ class BatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(num_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "training-mode BatchNorm comes with the training slice "
-                "(ROADMAP.md, M2); call model.eval() to serve"
+        if not self.training:
+            return F.batch_norm(
+                x, self.running_mean, self.running_var, self.weight, self.bias,
+                False, 0.0, self.eps,
             )
-        return F.batch_norm(
-            x, self.running_mean, self.running_var, self.weight, self.bias,
-            False, 0.0, self.eps,
-        )
+        scale = upcast(self.weight.to(x.dtype))
+        bias = upcast(self.bias.to(x.dtype))
+        y, mu, var = _BatchNormTrain.apply(x, scale, bias, self.eps)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.copy_(m * self.running_mean + (1 - m) * mu)
+            self.running_var.copy_(m * self.running_var + (1 - m) * var)
+        return y
 
 
 def make_conv(

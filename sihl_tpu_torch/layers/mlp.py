@@ -9,7 +9,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from sihl_tpu_torch.layers.convblocks import default_generator, lecun_normal
-from sihl_tpu_torch.policy import compute_dtype
+from sihl_tpu_torch.policy import compute_dtype, resolve_device, upcast
 
 
 class Linear(nn.Module):
@@ -19,6 +19,7 @@ class Linear(nn.Module):
     def __init__(self, in_features: int, out_features: int, *, generator, device=None):
         super().__init__()
         self.dtype = compute_dtype()
+        device = resolve_device(device)
         weight = lecun_normal((out_features, in_features), in_features, generator)
         self.weight = nn.Parameter(weight.to(device))
         self.bias = nn.Parameter(torch.zeros(out_features, device=device))
@@ -29,18 +30,20 @@ class Linear(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """LayerNorm over the last axis: statistics and affine in f32, result in
-    the compute dtype."""
+    """LayerNorm over the last axis: statistics and affine in f32 (f64 for
+    the f64 compute dtype), result in the compute dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5, *, device=None):
         super().__init__()
         self.eps = eps
         self.dtype = compute_dtype()
+        device = resolve_device(device)
         self.weight = nn.Parameter(torch.ones(num_features, device=device))
         self.bias = nn.Parameter(torch.zeros(num_features, device=device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.layer_norm(x.float(), self.weight.shape, self.weight, self.bias, self.eps)
+        x = upcast(x)
+        y = F.layer_norm(x, self.weight.shape, self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps)
         return y.to(self.dtype)
 
 

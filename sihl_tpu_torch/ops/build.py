@@ -19,14 +19,16 @@ CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 @functools.cache
 def cuda_library(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` (plain C interface, no PyTorch headers)
-    for sm_90a and load it; later calls reuse the loaded library."""
+    for sm_90a and load it; later calls reuse the loaded library.  Each
+    library has its own build directory, so several can build at once."""
     from torch.utils.cpp_extension import load
 
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir = BUILD_DIR / name
+    build_dir.mkdir(parents=True, exist_ok=True)
     path = load(
         name=f"sihl_{name}",
         sources=[str(CSRC_DIR / f"{name}.cu")],
-        build_directory=str(BUILD_DIR),
+        build_directory=str(build_dir),
         extra_cuda_cflags=CUDA_FLAGS,
         is_python_module=False,
         verbose=False,

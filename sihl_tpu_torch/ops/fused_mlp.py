@@ -1,22 +1,27 @@
-"""Fused per-anchor MLPs, forward (counterpart of ``sihl_tpu/ops/pallas/mlp.py``).
+"""Fused per-anchor MLPs, forward and backward (counterpart of
+``sihl_tpu/ops/pallas/mlp.py``).
 
 :func:`fused_mlps` runs several :class:`~sihl_tpu_torch.layers.mlp.MLP`\\ s
 over one shared (M, D) input.  A CUDA tensor goes to the hand-written
-kernel ``csrc/fused_mlp.cu`` (one launch per MLP; the file says how it is
-laid out and what bounds it); a CPU tensor goes to
-:func:`fused_mlps_reference`, the plain module chain.  The backward kernel
-is not ported yet, so the CUDA path refuses inputs that need a gradient.
+kernels of ``csrc/fused_mlp.cu`` (the file says how they are laid out and
+what bounds them) through :class:`_FusedMLPs`: K1f in the forward, one launch
+per MLP, and K1b (:func:`fused_mlps_backward`) in the backward.  The
+parameters are packed inside the autograd graph, so the gradients reach each
+Linear and LayerNorm through the stack, transpose and cast.  A CPU tensor
+goes to :func:`fused_mlps_reference`, the plain module chain, whose backward
+is autograd's.
 """
 
 import ctypes
 import functools
-from typing import List, Sequence
+from typing import List, Sequence, Tuple
 
 import torch
 
 from sihl_tpu_torch.ops.build import cuda_library
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_PARAMS_PER_MLP = 6
 
 
 def fused_mlps_reference(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) -> List[torch.Tensor]:
@@ -25,7 +30,7 @@ def fused_mlps_reference(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) ->
 
 
 def pack_mlp_params(mlp, dtype: torch.dtype):
-    """(wh, bh, sc, bi, wo, bo) as the kernel reads them: hidden weights
+    """(wh, bh, sc, bi, wo, bo) as the kernels read them: hidden weights
     (L, D, D) and the output weight (D, n_out) as [in][out] in ``dtype``;
     biases and LayerNorm parameters in f32."""
     linears = list(mlp.linears)
@@ -44,6 +49,10 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sihl_fused_mlp_fwd.argtypes = [i, p, i, p, p, p, p, i, p, p, i, p, p]
     lib.sihl_fused_mlp_fwd.restype = i
+    lib.sihl_fused_mlp_bwd_workspace.argtypes = [i, i, i, i]
+    lib.sihl_fused_mlp_bwd_workspace.restype = ctypes.c_size_t
+    lib.sihl_fused_mlp_bwd.argtypes = [i, p, i, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p, p, p, p]
+    lib.sihl_fused_mlp_bwd.restype = i
     lib.sihl_fused_mlp_width.argtypes = []
     lib.sihl_fused_mlp_width.restype = i
     lib.sihl_cuda_error_string.argtypes = [i]
@@ -66,47 +75,118 @@ def _check_supported(x_2d: torch.Tensor, mlps, width: int) -> torch.dtype:
                 raise ValueError(f"hidden layers must be {width} wide, got {tuple(lin.weight.shape)}")
         if any(p.device != x_2d.device for p in m.parameters()):
             raise ValueError("MLP parameters and input must be on one device")
-    if torch.is_grad_enabled() and (
-        x_2d.requires_grad or any(p.requires_grad for m in mlps for p in m.parameters())
-    ):
-        raise NotImplementedError(
-            "the fused-MLP kernel has no backward yet (ROADMAP.md, K1b); "
-            "run inference under torch.no_grad()"
-        )
     return next(iter(dtypes))
 
 
-def _fused_mlps_cuda(x_2d: torch.Tensor, mlps) -> List[torch.Tensor]:
+def _check_launch(lib, err: int, what: str) -> None:
+    if err:
+        raise RuntimeError(f"fused-MLP {what} kernel launch failed: {lib.sihl_cuda_error_string(err).decode()}")
+
+
+def _forward_cuda(x: torch.Tensor, heads) -> List[torch.Tensor]:
+    """K1f: one launch per MLP of packed parameters ``heads``."""
     lib = _library()
-    dtype = _check_supported(x_2d, mlps, lib.sihl_fused_mlp_width())
-    x = x_2d.to(dtype).contiguous()
-    if x.data_ptr() % 16:  # the kernel reads x in 16-byte vectors
-        x = x.clone()
     m = x.shape[0]
     outs = []
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for mlp in mlps:
-            wh, bh, sc, bi, wo, bo = pack_mlp_params(mlp, dtype)
-            out = torch.empty((m, wo.shape[1]), dtype=dtype, device=x.device)
+        for wh, bh, sc, bi, wo, bo in heads:
+            out = torch.empty((m, wo.shape[1]), dtype=x.dtype, device=x.device)
             if m:
                 err = lib.sihl_fused_mlp_fwd(
-                    _KERNEL_DTYPES[dtype], x.data_ptr(), m, wh.data_ptr(), bh.data_ptr(),
+                    _KERNEL_DTYPES[x.dtype], x.data_ptr(), m, wh.data_ptr(), bh.data_ptr(),
                     sc.data_ptr(), bi.data_ptr(), wh.shape[0], wo.data_ptr(), bo.data_ptr(),
                     wo.shape[1], out.data_ptr(), stream,
                 )
-                if err:
-                    raise RuntimeError(
-                        f"fused-MLP kernel launch failed: {lib.sihl_cuda_error_string(err).decode()}"
-                    )
+                _check_launch(lib, err, "forward")
                 fused_mlps.launches += 1
             outs.append(out)
     return outs
 
 
+def fused_mlps_backward(x: torch.Tensor, heads, gs) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K1b: the backward of the MLPs of packed parameters ``heads`` over the
+    CUDA input ``x`` (M, D), given each output's cotangent ``gs`` in the
+    compute dtype.  Returns dx (M, D) in the compute dtype, summed over the
+    MLPs, and the gradient of every packed parameter, cast to its dtype (as
+    ``_fused_bwd`` casts them)."""
+    lib = _library()
+    m, d = x.shape
+    f32 = dict(dtype=torch.float32, device=x.device)
+    is_bf16 = _KERNEL_DTYPES[x.dtype]
+    dx = torch.empty_like(x)
+    grads = []
+    if m == 0:
+        for head in heads:
+            grads += [torch.zeros_like(p) for p in head]
+        return dx, grads
+    workspace = torch.empty(
+        max(lib.sihl_fused_mlp_bwd_workspace(is_bf16, m, wh.shape[0], wo.shape[1])
+            for wh, _, _, _, wo, _ in heads),
+        dtype=torch.uint8, device=x.device,
+    )
+    dx_acc = torch.empty((m, d), **f32) if len(heads) > 1 else None
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        for idx, ((wh, bh, sc, bi, wo, bo), g) in enumerate(zip(heads, gs)):
+            num_layers, n_out = wh.shape[0], wo.shape[1]
+            wht = wh.transpose(1, 2).contiguous()
+            dwh = torch.empty((num_layers, d, d), **f32)
+            dcols = torch.empty((num_layers, 3, d), **f32)  # LN scale, LN shift, hidden bias
+            dwo = torch.empty((d, n_out), **f32)
+            dbo = torch.empty((n_out,), **f32)
+            first, last = idx == 0, idx == len(heads) - 1
+            err = lib.sihl_fused_mlp_bwd(
+                is_bf16, x.data_ptr(), m, wh.data_ptr(), wht.data_ptr(), bh.data_ptr(),
+                sc.data_ptr(), bi.data_ptr(), num_layers, wo.data_ptr(), n_out, g.data_ptr(),
+                workspace.data_ptr(), dwh.data_ptr(), dcols.data_ptr(), dwo.data_ptr(),
+                dbo.data_ptr(), None if first else dx_acc.data_ptr(),
+                None if last else dx_acc.data_ptr(), dx.data_ptr() if last else None, stream,
+            )
+            _check_launch(lib, err, "backward")
+            fused_mlps_backward.launches += 1
+            grads += [dwh.to(wh.dtype), dcols[:, 2], dcols[:, 0], dcols[:, 1], dwo.to(wo.dtype), dbo]
+    return dx, grads
+
+
+fused_mlps_backward.launches = 0  # kernel launches since the last reset
+
+
+class _FusedMLPs(torch.autograd.Function):
+    """K1f forward, K1b backward, over the packed parameters of every MLP."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        heads = [flat[i : i + _PARAMS_PER_MLP] for i in range(0, len(flat), _PARAMS_PER_MLP)]
+        ctx.save_for_backward(x, *flat)
+        return tuple(_forward_cuda(x, heads))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        x, *flat = ctx.saved_tensors
+        heads = [flat[i : i + _PARAMS_PER_MLP] for i in range(0, len(flat), _PARAMS_PER_MLP)]
+        gs = [
+            torch.zeros((x.shape[0], head[4].shape[1]), dtype=x.dtype, device=x.device)
+            if g is None else g.to(x.dtype).contiguous()
+            for g, head in zip(gs, heads)
+        ]
+        dx, grads = fused_mlps_backward(x, heads, gs)
+        return (dx, *grads)
+
+
+def _fused_mlps_cuda(x_2d: torch.Tensor, mlps) -> List[torch.Tensor]:
+    dtype = _check_supported(x_2d, mlps, _library().sihl_fused_mlp_width())
+    x = x_2d.to(dtype).contiguous()
+    if x.data_ptr() % 16:  # the kernels read x in 16-byte vectors
+        x = x.clone()
+    flat = [t for mlp in mlps for t in pack_mlp_params(mlp, dtype)]
+    return list(_FusedMLPs.apply(x, *flat))
+
+
 def fused_mlps(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) -> List[torch.Tensor]:
     """Run several MLPs over one shared (M, D) input; one (M, out_i) tensor
-    per MLP, in the MLPs' compute dtype."""
+    per MLP, in the MLPs' compute dtype, differentiable in the input and in
+    every parameter."""
     if x_2d.device.type == "cuda":
         return _fused_mlps_cuda(x_2d, mlps)
     if x_2d.device.type == "cpu":

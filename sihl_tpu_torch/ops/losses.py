@@ -1,0 +1,38 @@
+"""Loss functions, computed in f32 (counterpart of ``sihl_tpu/ops/losses.py``):
+every loss upcasts its inputs explicitly, as the reference computes its
+losses with autocast off (f64 inputs stay f64)."""
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from sihl_tpu_torch.policy import upcast
+
+
+def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Numerically stable elementwise BCE on logits."""
+    logits, targets = upcast(logits), upcast(targets)
+    return torch.clamp(logits, min=0) - logits * targets + torch.log1p(torch.exp(-logits.abs()))
+
+
+def cross_entropy(
+    logits: torch.Tensor,
+    targets: torch.Tensor,
+    label_smoothing: float = 0.0,
+    ignore_index: Optional[int] = None,
+    dim: int = -1,
+) -> torch.Tensor:
+    """Elementwise categorical cross-entropy over integer targets, with no
+    reduction; entries equal to ``ignore_index`` give 0 (torch
+    ``F.cross_entropy(reduction="none")`` with optional label smoothing)."""
+    logits = upcast(logits)
+    num_classes = logits.shape[dim]
+    log_probs = F.log_softmax(logits, dim=dim)
+    valid = torch.ones_like(targets, dtype=torch.bool) if ignore_index is None else targets != ignore_index
+    safe_targets = torch.where(valid, targets, 0).long()
+    one_hot = F.one_hot(safe_targets, num_classes).to(logits.dtype).movedim(-1, dim)
+    if label_smoothing != 0.0:
+        one_hot = one_hot * (1.0 - label_smoothing) + label_smoothing / num_classes
+    loss = -(one_hot * log_probs).sum(dim=dim)
+    return torch.where(valid, loss, 0.0)

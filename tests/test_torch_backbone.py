@@ -8,6 +8,7 @@ import torch
 
 from sihl_tpu import Backbone as JaxBackbone
 from sihl_tpu_torch import Backbone
+from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 
 from torch_parity import load_from_jax, randomize_norms, to_numpy, to_torch
 
@@ -39,3 +40,28 @@ def test_backbone_refusals():
         Backbone("resnet18", top_level=6)
     with pytest.raises(ValueError, match="divisible"):
         Backbone("resnet18").eval()(torch.zeros(1, 3, 48, 40))
+
+
+@pytest.mark.parametrize("frozen_levels", [0, 1, 3, -1])
+def test_frozen_levels_match_jax(frozen_levels):
+    """Frozen attribute names, the parameter test and the stop-gradient cut
+    agree with the JAX package; with ``freeze_batchnorms`` the frozen
+    levels' BatchNorms use their running statistics."""
+    jax_bb = JaxBackbone("resnet18", freeze_batchnorms=True, rngs=nnx.Rngs(0))
+    jax_bb.set_frozen_levels(frozen_levels)
+    bb = Backbone("resnet18", freeze_batchnorms=True)
+    bb.set_frozen_levels(frozen_levels)
+    assert bb.frozen_attr_names() == jax_bb.frozen_attr_names()
+    assert bb.features._sg_levels == jax_bb.features._sg_levels
+    for name, _ in bb.features.named_parameters():
+        path = name.split(".")
+        assert bb.is_frozen_param(path) == jax_bb.is_frozen_param(path), name
+    bb.train()
+    bb._set_frozen_bn_eval()
+    frozen = set(bb.frozen_attr_names())
+    for name, module in bb.features.named_modules():
+        if isinstance(module, BatchNorm2d):
+            assert module.training == (name.split(".")[0] not in frozen), name
+    levels = bb(torch.rand(1, 3, 64, 64))[1:]
+    cut = bb.features._sg_levels
+    assert [f.requires_grad for f in levels] == [level > cut for level in range(1, 6)]

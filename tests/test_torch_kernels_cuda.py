@@ -10,28 +10,32 @@ import pytest
 import torch
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import fused_mlp
+from sihl_tpu_torch.ops import fused_mlp, topk
 from sihl_tpu_torch.ops.fusion import fused_upsample_add, fused_upsample_add_reference
 from sihl_tpu_torch.policy import compute_dtype_scope
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
 
 
 def _random_mlp(out: int, gen: torch.Generator) -> MLP:
     """An MLP whose every bias and LayerNorm affine parameter is random, so
     that the kernel's reads of each (per layer) are checked."""
-    mlp = MLP(256, [256] * 4 + [out], generator=gen)
+    mlp = MLP(256, [256] * 4 + [out], generator=gen, device="cpu")
     with torch.no_grad():
         for lin in mlp.linears:
             lin.bias.uniform_(-0.1, 0.1, generator=gen)
         for norm in mlp.norms:
             norm.weight.uniform_(0.8, 1.2, generator=gen)
             norm.bias.uniform_(-0.1, 0.1, generator=gen)
-    return mlp.cuda().eval()
+    return mlp.cuda()
 
 
 @pytest.mark.cuda
 def test_fused_mlp_kernel_matches_plain_version_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _need_card()
     gen = torch.Generator().manual_seed(0)
     for tdt, atol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
         with compute_dtype_scope(tdt):
@@ -45,10 +49,62 @@ def test_fused_mlp_kernel_matches_plain_version_on_card():
                 torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=atol)
 
 
+def mlp_gradients(fn, x, mlps, weights):
+    """dx and every parameter's gradient of sum_i sum(fn(x, mlps)[i] * w_i)."""
+    x = x.detach().requires_grad_(True)
+    for p in (p for m in mlps for p in m.parameters()):
+        p.grad = None
+    loss = sum((o.float() * w).sum() for o, w in zip(fn(x, mlps), weights))
+    loss.backward()
+    return [x.grad] + [p.grad for m in mlps for p in m.parameters()]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outs", [(1, 1), (80, 4)], ids=["loc_iou", "cls_box"])
+def test_fused_mlp_backward_kernel_matches_plain_autograd_on_card(outs):
+    """K1b against autograd of the plain chain.  dx within atol = rtol =
+    ``tol``; every parameter gradient's largest error within ``tol`` times its
+    largest magnitude (tests/ops/test_fused_mlp.py bounds bf16 so)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(1)
+    for tdt, tol in ((torch.bfloat16, 1e-1), (torch.float32, 1e-3)):
+        with compute_dtype_scope(tdt):
+            mlps = [_random_mlp(n, gen) for n in outs]
+        for m in (1, 65, 333, 2000):
+            x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
+            weights = [torch.randn(m, n, generator=gen).cuda() for n in outs]
+            before = fused_mlp.fused_mlps_backward.launches
+            got = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
+            assert fused_mlp.fused_mlps_backward.launches == before + len(outs)
+            want = mlp_gradients(fused_mlp.fused_mlps_reference, x, mlps, weights)
+            torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+            for g, w in zip(got[1:], want[1:]):
+                assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+                err = float((g - w).abs().max())
+                assert err <= tol * max(float(w.abs().max()), 1e-6), (tuple(g.shape), m, tdt, err)
+
+
+@pytest.mark.cuda
+def test_row_kth_kernel_matches_plain_version_on_card():
+    """K2 is bitwise equal to its plain version, with ties, zeros and zero rows."""
+    _need_card()
+    gen = torch.Generator().manual_seed(2)
+    for g, a, k in ((1600, 8525, 9), (7, 33, 9), (5, 1000, 1), (3, 4, 9)):
+        x = torch.rand(g, a, generator=gen)
+        x = torch.where(x < 0.3, 0.0, torch.round(x * 50) / 50)  # zeros and many ties
+        x[0] = 0.0
+        x = x.cuda()
+        before = topk.row_best_and_kth.launches
+        best, kth = topk.row_best_and_kth(x, k)
+        assert topk.row_best_and_kth.launches == before + 1
+        want_best, want_kth = topk._row_reference(x, k)
+        assert torch.equal(best, want_best) and torch.equal(kth, want_kth)
+        assert float(kth[0]) == -1.0 or k == 1
+
+
 @pytest.mark.cuda
 def test_upsample_add_kernel_matches_plain_version_on_card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _need_card()
     gen = torch.Generator().manual_seed(0)
     for dt in (torch.bfloat16, torch.float32):
         for h in (40, 20, 10, 3):

@@ -79,3 +79,39 @@ def test_image_ops():
     for size in ((5, 5), (12, 20)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             image.interpolate(xt, size=size)
+
+
+@pytest.mark.parametrize("act", [None, "relu"])
+def test_standard_conv_norm_act_training(act):
+    """Training-mode BatchNorm (batch statistics, differentiated through)
+    behind a conv: output, every gradient and the running statistics after
+    the step, f32."""
+    rng = np.random.RandomState(4)
+    jax_block = JaxConvNormAct(8, 16, 3, act=act, rngs=nnx.Rngs(4))
+    randomize_norms(jax_block, rng)
+    block = load_from_jax(StandardConvNormAct(8, 16, 3, act=act), jax_block).train()
+    x = rng.randn(2, 12, 12, 8).astype(np.float32)
+    w = rng.randn(2, 12, 12, 16).astype(np.float32)
+
+    jax_block.train()
+
+    def jax_loss(m, xx):
+        out = m(xx)
+        return jnp.sum(out * jnp.asarray(w)), out
+
+    (_, want), (grads, want_dx) = nnx.value_and_grad(jax_loss, argnums=(0, 1), has_aux=True)(
+        jax_block, jnp.asarray(x)
+    )
+    x_t = to_torch(x).requires_grad_(True)
+    got = block(x_t)
+    (got * to_torch(w)).sum().backward()
+
+    np.testing.assert_allclose(to_numpy(got, nhwc=True), np.asarray(want), **TOL)
+    np.testing.assert_allclose(to_numpy(x_t.grad, nhwc=True), np.asarray(want_dx), **TOL)
+    np.testing.assert_allclose(
+        block.conv.weight.grad.permute(2, 3, 1, 0).numpy(), np.asarray(grads["conv"]["kernel"][...]), **TOL
+    )
+    np.testing.assert_allclose(block.norm.weight.grad.numpy(), np.asarray(grads["norm"]["scale"][...]), **TOL)
+    np.testing.assert_allclose(block.norm.bias.grad.numpy(), np.asarray(grads["norm"]["bias"][...]), **TOL)
+    np.testing.assert_allclose(block.norm.running_mean.numpy(), np.asarray(jax_block.norm.mean[...]), **TOL)
+    np.testing.assert_allclose(block.norm.running_var.numpy(), np.asarray(jax_block.norm.var[...]), **TOL)

@@ -3,10 +3,12 @@ FPN and ObjectDetection in one SihlModel, weights carried by the bridge."""
 
 import subprocess
 import sys
+from contextlib import contextmanager
 from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from flax import nnx
 
@@ -18,8 +20,19 @@ from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.convert import state_dict_from_flat
 from sihl_tpu_torch.heads import ObjectDetection
 from sihl_tpu_torch.layers import FPN
+from sihl_tpu_torch.policy import default_device, set_default_device
 
 from torch_parity import assert_detections_match, flat_state, randomize_norms, to_torch
+
+
+@contextmanager
+def default_device_scope(device):
+    prev = default_device()
+    set_default_device(device)
+    try:
+        yield
+    finally:
+        set_default_device(prev)
 
 
 def _build(backbone, fpn, head, model, **init):
@@ -51,10 +64,24 @@ def test_slice_matches_jax():
     assert_detections_match(got, want, box_atol=1e-3)
 
 
+def test_building_without_a_card_raises():
+    """The port builds on the card unless asked for the CPU, and never moves
+    to the CPU on its own."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with default_device_scope("cuda"):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            Backbone("resnet18")
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            ObjectDetection([3, 8, 8, 8, 8, 8], 5, num_channels=8)
+    assert Backbone("resnet18", device="cpu").features.stem.conv.weight.device.type == "cpu"
+
+
 def test_import_loads_no_jax_and_no_triton():
     code = (
         "import sys, sihl_tpu_torch, sihl_tpu_torch.heads, sihl_tpu_torch.layers, "
-        "sihl_tpu_torch.convert; "
+        "sihl_tpu_torch.convert, sihl_tpu_torch.training, sihl_tpu_torch.ops.topk, "
+        "sihl_tpu_torch.ops.boxes, sihl_tpu_torch.ops.losses; "
         "print(sorted(m for m in ('jax', 'flax', 'triton') if m in sys.modules))"
     )
     out = subprocess.run(
