@@ -4,15 +4,18 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-The flagship model (ResNet-50, FPN 256 channels over levels 3-7,
-ObjectDetection with 80 classes; random weights from a seed) runs through
-the port's hand-written kernels.  Phases, each of which raises on failure:
+Two models run through the port's hand-written kernels, with random weights
+from a seed: the flagship (ResNet-50, FPN 256 channels over levels 3-7,
+ObjectDetection with 80 classes) and the instance-segmentation model of
+``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
+FPN 256 channels over levels 3-5, InstanceSegmentation with 80 classes).
+Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
-   flagship paths give it, with CUDA-event timings of both and the least
-   time the card could take for the same work (the bound);
+   paths give it, with CUDA-event timings of both and the least time the
+   card could take for the same work (the bound);
 4. slice: one batch of two 640 px images, f32, served on the card and on the
    CPU (where the plain versions run) with the same weights;
 5. serving: three requests of 16 images at 640 px in bf16;
@@ -21,7 +24,11 @@ the port's hand-written kernels.  Phases, each of which raises on failure:
    gradients, BatchNorm statistics;
 7. training: ten bf16 steps of bench.py's training step (level 1 frozen,
    targets padded to 100, AdamW, clip 0.1) on 16 images at 640 px through
-   ``Trainer.training_step``.
+   ``Trainer.training_step``;
+8-11. the same four for instance segmentation: the f32 serving slice
+   (scores, classes and masks against the CPU), three bf16 requests, the
+   f32 training slice against f64 on the CPU, and ten bf16 steps on 16
+   images at 640 px with masks (16, 100, 640, 640).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -40,11 +47,11 @@ import numpy as np
 import torch
 
 from sihl_tpu_torch import Backbone, SihlModel
-from sihl_tpu_torch.heads import ObjectDetection, anchors
+from sihl_tpu_torch.heads import InstanceSegmentation, ObjectDetection, anchors
 from sihl_tpu_torch.layers import FPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
-from sihl_tpu_torch.ops import boxes, fused_mlp, fusion, topk
+from sihl_tpu_torch.ops import boxes, dynconv, fused_mlp, fusion, topk
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
 from sihl_tpu_torch.training.trainer import _losses
@@ -55,6 +62,12 @@ NUM_ANCHORS = 8525
 MAX_INSTANCES = 100
 MAX_TARGETS, TOPK = 100, 9
 LOC_BIAS_INIT = -5.0  # ObjectDetection's loc head starts at "no object"
+# instance segmentation: anchors of levels 3-5 at 640 px, 80^2 + 40^2 + 20^2;
+# the head's defaults (256 mask positives per image, 8 mask channels, one
+# mask logit, masks at level 3)
+INSTANCE_ANCHORS = 8400
+MASK_POSITIVES, MASK_CHANNELS, MASK_SIZE = 256, 8, SIZE // 8
+KERNEL_PARAMS = dynconv.param_count(MASK_CHANNELS, 1)
 NUM_LAYERS = 4
 OPTIMIZER = dict(
     optimizer="adamw",
@@ -81,6 +94,16 @@ def build_flagship(generator: torch.Generator, device=None) -> SihlModel:
     head = ObjectDetection(
         neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7,
         max_targets=MAX_TARGETS, generator=generator, device=device,
+    )
+    return SihlModel(backbone, neck, [head])
+
+
+def build_instance(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/instance_segmentation.py``'s model at the flagship's width."""
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    head = InstanceSegmentation(
+        neck.out_channels, NUM_CLASSES, max_targets=MAX_TARGETS, generator=generator, device=device
     )
     return SihlModel(backbone, neck, [head])
 
@@ -132,6 +155,31 @@ def training_batch(batch: int, seed: int = 0, device="cuda"):
         gt[b, :n] = np.concatenate([xy, xy + wh], axis=1)
     images = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(device)
     return images, {"classes": torch.from_numpy(classes).to(device), "boxes": torch.from_numpy(gt).to(device)}
+
+
+def instance_batch(batch: int, seed: int = 0, mask_size: int = SIZE, device="cuda"):
+    """Images and padded instance targets from a seeded numpy generator: per
+    image 1-20 rectangles or ellipses, classes 0-79, as binary f32 masks
+    (B, 100, mask_size, mask_size) drawn on ``device``."""
+    rng = np.random.RandomState(seed)
+    images = torch.from_numpy(rng.rand(batch, SIZE, SIZE, 3).astype(np.float32)).permute(0, 3, 1, 2)
+    classes = np.full((batch, MAX_TARGETS), -1, np.int64)
+    masks = torch.zeros(batch, MAX_TARGETS, mask_size, mask_size, device=device)
+    scale = mask_size / SIZE
+    for b in range(batch):
+        n = rng.randint(1, 21)
+        classes[b, :n] = rng.randint(0, NUM_CLASSES, n)
+        for t in range(n):
+            h, w = (rng.randint(SIZE // 40, SIZE // 4, 2) * scale).astype(int) + 1
+            y, x = rng.randint(0, mask_size - h), rng.randint(0, mask_size - w)
+            if rng.rand() < 0.5:
+                masks[b, t, y : y + h, x : x + w] = 1.0
+            else:
+                yy = torch.arange(h, device=device)[:, None] - (h - 1) / 2
+                xx = torch.arange(w, device=device)[None, :] - (w - 1) / 2
+                inside = (2 * yy / h) ** 2 + (2 * xx / w) ** 2 <= 1.0
+                masks[b, t, y : y + h, x : x + w] = inside.float()
+    return images.contiguous().to(device), {"classes": torch.from_numpy(classes).to(device), "masks": masks}
 
 
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
@@ -190,102 +238,119 @@ def mlp_grads(fn, x, mlps, weights):
     return [o.detach() for o in outputs], [x.grad] + [p.grad for m in mlps for p in m.parameters()]
 
 
-def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_images, train_targets) -> dict:
-    """Phase 3: each kernel against its plain version, timed at flagship
-    shapes; ``path`` marks the cases the bf16 serving or training path runs."""
+def k1f_case(gen, cuda_gen, label, m, outs, dtype, atol, rtol) -> dict:
+    """K1f over m rows against the plain chain, eval MLPs, no gradient."""
+    mlps = [mlp.eval() for mlp in random_mlps(outs, dtype, gen)]
+    x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
+    with torch.no_grad():
+        got = fused_mlp.fused_mlps(x, mlps)
+        want = fused_mlp.fused_mlps_reference(x, mlps)
+        torch.cuda.synchronize()
+        err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
+        ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+        plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
+    case = dict(path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
+                **bound(*mlp_work(m, outs, dtype, 1), dtype))
+    print(f"  K1f fused_mlp {label} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err {err:.3g} "
+          f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms")
+    return case
+
+
+def k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol):
+    """K1f's forward and K1b over m rows against the plain chain and its
+    autograd, with gradients; returns the forward's and the backward's case."""
+    mlps = random_mlps(outs, dtype, gen)
+    x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
+    weights = [torch.randn(m, n, device="cuda", generator=cuda_gen) for n in outs]
+    got_out, got = mlp_grads(fused_mlp.fused_mlps, x, mlps, weights)
+    want_out, want = mlp_grads(fused_mlp.fused_mlps_reference, x, mlps, weights)
+    torch.cuda.synchronize()
+    out_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got_out, want_out))
+    for g, w in zip(got_out, want_out):
+        torch.testing.assert_close(g.float(), w.float(), atol=f_atol, rtol=f_rtol)
+    with torch.no_grad():
+        ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+        plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
+    fwd = dict(path=dtype == torch.bfloat16, err=out_err, ms=ms, plain_ms=plain_ms,
+               **bound(*mlp_work(m, outs, dtype, 1), dtype))
+    print(f"  K1f fused_mlp {label} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err "
+          f"{out_err:.3g} (atol {f_atol}, rtol {f_rtol}); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms")
+
+    err = float((got[0].float() - want[0].float()).abs().max())
+    torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+    param_err = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got[1:], want[1:]))
+    if param_err > tol:
+        raise AssertionError(f"K1b {label} {dtype}: parameter gradient error {param_err} of the largest")
+    packed = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
+    gs = [w.to(dtype) for w in weights]
+    xr = x.detach().requires_grad_(True)
+    outputs = fused_mlp.fused_mlps_reference(xr, mlps)
+    inputs = [xr] + [p for mlp in mlps for p in mlp.parameters()]
+    ms = median_ms(lambda: fused_mlp.fused_mlps_backward(x, packed, gs))
+    plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gs, retain_graph=True))
+    del outputs
+    bwd = dict(path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
+               **bound(*mlp_work(m, outs, dtype, 3), dtype))
+    print(f"  K1b fused_mlp_backward {label} {tuple(x.shape)} {dtype}, outputs {outs}: dx "
+          f"max_abs_err {err:.3g} (atol = rtol = {tol}); parameter gradients' largest error "
+          f"{param_err:.3g} of their largest magnitude (bound {tol}); kernel {ms:.4f} ms, plain "
+          f"(autograd of the chain) {plain_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms")
+    return fwd, bwd
+
+
+def k2_case(label, work) -> dict:
+    """K2 on a (G, A) matrix of anchor-gt IoUs, bitwise against its plain version."""
+    best, kth = topk.row_best_and_kth(work, TOPK)
+    want_best, want_kth = topk._row_reference(work, TOPK)
+    if not (torch.equal(best, want_best) and torch.equal(kth, want_kth)):
+        raise AssertionError(f"row_best_and_kth {label} is not bitwise equal to its plain version")
+    ms = median_ms(lambda: topk.row_best_and_kth(work, TOPK))
+    plain_ms = median_ms(lambda: topk._row_reference(work, TOPK))
+    g, a = work.shape
+    case = dict(path=True, err=0.0, ms=ms, plain_ms=plain_ms,
+                **bound(g * a * 4 + 2 * g * 4, 2 * TOPK * g * a, torch.float32))
+    print(f"  K2 row_best_and_kth {label} {tuple(work.shape)} k={TOPK}: bitwise equal; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms")
+    return case
+
+
+def anchor_ious(levels, gt_boxes, classes) -> torch.Tensor:
+    """The (B * G, A) matrix of clamped anchor-gt CIoUs that matching hands K2."""
+    head_levels = [torch.empty(1, 1, SIZE >> lvl, SIZE >> lvl, device="cuda") for lvl in range(max(levels) + 1)]
+    offsets, scales = anchors.cell_anchors(head_levels, levels)
+    full = torch.tensor([SIZE] * 4, dtype=torch.float32, device="cuda")
+    ious = torch.clamp(boxes.complete_box_iou((offsets + scales) * full, gt_boxes), min=0)
+    ious = torch.where((classes >= 0)[:, None, :], ious, 0.0)
+    return ious.transpose(1, 2).reshape(-1, offsets.shape[0]).contiguous()
+
+
+def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets) -> dict:
+    """Phase 3, flagship shapes: each kernel against its plain version,
+    timed; ``path`` marks the cases the bf16 serving or training path runs."""
     results = {"fused_mlp": [], "fused_mlp@train": [], "fused_mlp_backward": [], "row_kth": [], "upsample_add": []}
 
     # K1f at the serving shapes: loc dense over every anchor, cls + box over the top 100
     for dtype, atol, rtol in ((torch.bfloat16, 5e-2, 5e-2), (torch.float32, 1e-3, 0.0)):
-        for case, m, outs in (("dense", BATCH * NUM_ANCHORS, (1,)), ("gathered", BATCH * MAX_INSTANCES, (NUM_CLASSES, 4))):
-            mlps = [mlp.eval() for mlp in random_mlps(outs, dtype, gen)]
-            x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
-            with torch.no_grad():
-                got = fused_mlp.fused_mlps(x, mlps)
-                want = fused_mlp.fused_mlps_reference(x, mlps)
-                torch.cuda.synchronize()
-                err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
-                for g, w in zip(got, want):
-                    torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
-                ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
-                plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
-            results["fused_mlp"].append(dict(
-                path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_work(m, outs, dtype, 1), dtype),
-            ))
-            print(f"  K1f fused_mlp {case} {tuple(x.shape)} {dtype}: max_abs_err {err:.3g} "
-                  f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                  f"bound {results['fused_mlp'][-1]['bound_ms']:.4f} ms")
+        for label, m, outs in (("dense", BATCH * NUM_ANCHORS, (1,)), ("gathered", BATCH * MAX_INSTANCES, (NUM_CLASSES, 4))):
+            results["fused_mlp"].append(k1f_case(gen, cuda_gen, label, m, outs, dtype, atol, rtol))
 
     # K1b at the training shapes, and K1f's forward there: loc + iou dense
     # over every anchor, cls + box over the 900 positives of each image
     for dtype, tol, (f_atol, f_rtol) in ((torch.bfloat16, 1e-1, (5e-2, 5e-2)), (torch.float32, 1e-3, (1e-3, 0.0))):
-        for case, m, outs in (
+        for label, m, outs in (
             ("dense", BATCH * NUM_ANCHORS, (1, 1)),
             ("gathered", BATCH * MAX_TARGETS * TOPK, (NUM_CLASSES, 4)),
         ):
-            mlps = random_mlps(outs, dtype, gen)
-            x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
-            weights = [torch.randn(m, n, device="cuda", generator=cuda_gen) for n in outs]
-            got_out, got = mlp_grads(fused_mlp.fused_mlps, x, mlps, weights)
-            want_out, want = mlp_grads(fused_mlp.fused_mlps_reference, x, mlps, weights)
-            torch.cuda.synchronize()
-            out_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got_out, want_out))
-            for g, w in zip(got_out, want_out):
-                torch.testing.assert_close(g.float(), w.float(), atol=f_atol, rtol=f_rtol)
-            with torch.no_grad():
-                ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
-                plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
-            results["fused_mlp@train"].append(dict(
-                path=dtype == torch.bfloat16, err=out_err, ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_work(m, outs, dtype, 1), dtype),
-            ))
-            print(f"  K1f fused_mlp {case} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err "
-                  f"{out_err:.3g} (atol {f_atol}, rtol {f_rtol}); kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, bound {results['fused_mlp@train'][-1]['bound_ms']:.4f} ms")
-
-            err = float((got[0].float() - want[0].float()).abs().max())
-            torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
-            param_err = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got[1:], want[1:]))
-            if param_err > tol:
-                raise AssertionError(f"K1b {case} {dtype}: parameter gradient error {param_err} of the largest")
-            packed = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
-            gs = [w.to(dtype) for w in weights]
-            xr = x.detach().requires_grad_(True)
-            outputs = fused_mlp.fused_mlps_reference(xr, mlps)
-            inputs = [xr] + [p for mlp in mlps for p in mlp.parameters()]
-            ms = median_ms(lambda: fused_mlp.fused_mlps_backward(x, packed, gs))
-            plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gs, retain_graph=True))
-            del outputs
-            results["fused_mlp_backward"].append(dict(
-                path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_work(m, outs, dtype, 3), dtype),
-            ))
-            print(f"  K1b fused_mlp_backward {case} {tuple(x.shape)} {dtype}, outputs {outs}: dx "
-                  f"max_abs_err {err:.3g} (atol = rtol = {tol}); parameter gradients' largest error "
-                  f"{param_err:.3g} of their largest magnitude (bound {tol}); kernel {ms:.4f} ms, plain "
-                  f"(autograd of the chain) {plain_ms:.4f} ms, bound {results['fused_mlp_backward'][-1]['bound_ms']:.4f} ms")
+            fwd, bwd = k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol)
+            results["fused_mlp@train"].append(fwd)
+            results["fused_mlp_backward"].append(bwd)
 
     # K2 on the training batch's anchor-gt IoUs: (16 * 100, 8525), k = 9
-    head_levels = [torch.empty(1, 1, SIZE >> lvl, SIZE >> lvl, device="cuda") for lvl in range(8)]
-    offsets, scales = anchors.cell_anchors(head_levels, range(3, 8))
-    full = torch.tensor([SIZE] * 4, dtype=torch.float32, device="cuda")
-    ious = torch.clamp(boxes.complete_box_iou((offsets + scales) * full, train_targets["boxes"]), min=0)
-    ious = torch.where((train_targets["classes"] >= 0)[:, None, :], ious, 0.0)
-    work = ious.transpose(1, 2).reshape(-1, NUM_ANCHORS).contiguous()
-    best, kth = topk.row_best_and_kth(work, TOPK)
-    want_best, want_kth = topk._row_reference(work, TOPK)
-    if not (torch.equal(best, want_best) and torch.equal(kth, want_kth)):
-        raise AssertionError("row_best_and_kth is not bitwise equal to its plain version")
-    ms = median_ms(lambda: topk.row_best_and_kth(work, TOPK))
-    plain_ms = median_ms(lambda: topk._row_reference(work, TOPK))
-    g, a = work.shape
-    results["row_kth"].append(dict(
-        path=True, err=0.0, ms=ms, plain_ms=plain_ms,
-        **bound(g * a * 4 + 2 * g * 4, 2 * TOPK * g * a, torch.float32),
-    ))
-    print(f"  K2 row_best_and_kth {tuple(work.shape)} k={TOPK}: bitwise equal; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {results['row_kth'][-1]['bound_ms']:.4f} ms")
+    work = anchor_ious(range(3, 8), train_targets["boxes"], train_targets["classes"])
+    results["row_kth"].append(k2_case("levels 3-7", work))
 
     # K3: the two top-down merges of the FPN at 640 px: level 5 into 4, level 4 into 3
     for h in (SIZE // 32, SIZE // 16):
@@ -306,6 +371,130 @@ def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_images,
         ))
         print(f"  K3 upsample_add top {tuple(top.shape)} bf16: bitwise equal; kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {results['upsample_add'][-1]['bound_ms']:.4f} ms")
+    return results
+
+
+def decode_inputs(cuda_gen, batch, instances, c, k, dtype):
+    """Random decode inputs on the card: (B, c, 80, 80) channels_last
+    features, the mask grid, centres and dynamic weights in ``dtype``."""
+    feats = torch.randn(batch, MASK_SIZE, MASK_SIZE, c, device="cuda", generator=cuda_gen)
+    grid = torch.rand(MASK_SIZE, MASK_SIZE, 2, device="cuda", generator=cuda_gen)
+    centers = torch.rand(batch, instances, 2, device="cuda", generator=cuda_gen)
+    dyn = torch.randn(batch, instances, dynconv.param_count(c, k), device="cuda", generator=cuda_gen) * 0.3
+    return (feats * 0.5).to(dtype).permute(0, 3, 1, 2), grid, centers, dyn.to(dtype)
+
+
+def decode_work(batch, instances, c, k, dtype, backward: bool):
+    """(bytes, f32 operations, exponentials) of one decode call: features,
+    weights, grid and centres read once; logits written (forward) or their
+    cotangent read and the two gradients written (backward).  Per
+    pixel-instance the forward does (c + 2) c + c c + c k multiply-adds and
+    2 c exponentials; the backward recomputes it, backpropagates (c k + 2 c c),
+    and forms the weight gradients (as many products as the forward, and
+    2 c + k bias sums)."""
+    es = torch.finfo(dtype).bits // 8
+    s, p = MASK_SIZE * MASK_SIZE, dynconv.param_count(c, k)
+    num_bytes = batch * s * c * es + batch * instances * p * es + s * 2 * 4 + batch * instances * 2 * 4
+    num_bytes += batch * instances * s * k * 4
+    fwd_macs = (c + 2) * c + c * c + c * k
+    macs = fwd_macs + (c * k + 2 * c * c + fwd_macs + 2 * c + k if backward else 0)
+    if backward:
+        num_bytes += batch * s * c * es + batch * instances * p * es
+    pixels = batch * instances * s
+    return num_bytes, 2 * macs * pixels, 2 * c * pixels
+
+
+def k5f_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) -> dict:
+    """K5f against the plain einsum chain on the same inputs, f32 logits
+    within atol = rtol = 1e-4 (tests/ops/test_dynconv.py holds the Pallas
+    kernel so)."""
+    args = decode_inputs(cuda_gen, batch, instances, c, k, dtype)
+    with torch.no_grad():
+        got = dynconv.dynamic_pointwise_decode(*args, c, k)
+        want = dynconv.reference_decode(*args, c, k)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        ms = median_ms(lambda: dynconv.dynamic_pointwise_decode(*args, c, k))
+        plain_ms = median_ms(lambda: dynconv.reference_decode(*args, c, k))
+    num_bytes, ops, exps = decode_work(batch, instances, c, k, dtype, backward=False)
+    case = dict(path=path, err=err, ms=ms, plain_ms=plain_ms, **bound(num_bytes, ops, torch.float32))
+    print(f"  K5f dynconv_decode {label} {batch}x{instances} instances at {MASK_SIZE}x{MASK_SIZE}, c={c}, "
+          f"k={k}, {dtype} inputs: max_abs_err {err:.3g} (atol = rtol = 1e-4); kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {num_bytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.2f} GFLOP f32, {exps / 1e6:.0f} M exponentials beside them)")
+    return case
+
+
+def k5b_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) -> dict:
+    """K5b's d(features) and d(weights) against autograd of the plain chain,
+    within atol = rtol = 2e-3 (tests/ops/test_dynconv.py's gradient bound);
+    bf16 gradients also within one bf16 step (at most 2^-7 relative), since
+    both sides round their f32 sums to bf16 and a sum near a rounding
+    boundary may round either way.  Two calls are bitwise equal."""
+    mf, grid, centers, dyn = decode_inputs(cuda_gen, batch, instances, c, k, dtype)
+    gout = torch.randn(batch, instances, MASK_SIZE, MASK_SIZE, k, device="cuda", generator=cuda_gen)
+    got = dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k)
+    again = dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k)
+    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+        raise AssertionError(f"K5b {label}: two calls differ")
+    inputs = [mf.detach().requires_grad_(True), dyn.detach().requires_grad_(True)]
+    outputs = dynconv.reference_decode(inputs[0], grid, centers, inputs[1], c, k)
+    want = torch.autograd.grad(outputs, inputs, gout, retain_graph=True)
+    torch.cuda.synchronize()
+    rtol = 2e-3 + (2**-7 if dtype == torch.bfloat16 else 0.0)
+    err = 0.0
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == dtype
+        err = max(err, float((g.float() - w.float()).abs().max()))
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=rtol)
+    ms = median_ms(lambda: dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k))
+    plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gout, retain_graph=True))
+    del outputs
+    num_bytes, ops, exps = decode_work(batch, instances, c, k, dtype, backward=True)
+    case = dict(path=path, err=err, ms=ms, plain_ms=plain_ms, **bound(num_bytes, ops, torch.float32))
+    print(f"  K5b dynconv_decode_backward {label} {batch}x{instances} instances at {MASK_SIZE}x{MASK_SIZE}, "
+          f"c={c}, k={k}, {dtype} inputs: d(features) and d(weights) max_abs_err {err:.3g} (atol 2e-3, "
+          f"rtol {rtol:.3g}); two calls bitwise equal; kernel {ms:.4f} ms, plain (autograd of the chain) "
+          f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {num_bytes / 1e6:.1f} MB, "
+          f"{ops / 1e9:.2f} GFLOP f32, {exps / 1e6:.0f} M exponentials beside them)")
+    return case
+
+
+def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets) -> dict:
+    """Phase 3, instance-segmentation shapes: K1f and K1b at the head's calls,
+    K2 at its matching, K5f and K5b at its decodes and at the keypoint
+    head's (c = 32, k = 17; off this slice's paths)."""
+    results = {key: [] for key in (
+        "fused_mlp@instance_serve", "fused_mlp@instance_train", "fused_mlp_backward@instance_train",
+        "row_kth@instance_train", "dynconv_decode", "dynconv_decode@train", "dynconv_decode_backward",
+        "dynconv_decode@keypoint", "dynconv_decode_backward@keypoint",
+    )}
+    dense = BATCH * INSTANCE_ANCHORS
+    # serving: loc dense over every anchor, cls + kernel over the top 100
+    for label, m, outs in (("dense", dense, (1,)), ("gathered", BATCH * MAX_INSTANCES, (NUM_CLASSES, KERNEL_PARAMS))):
+        results["fused_mlp@instance_serve"].append(k1f_case(gen, cuda_gen, label, m, outs, torch.bfloat16, 5e-2, 5e-2))
+    # training: loc dense over every anchor, cls + kernel over the 256 mask positives
+    for dtype, tol, (f_atol, f_rtol) in ((torch.bfloat16, 1e-1, (5e-2, 5e-2)), (torch.float32, 1e-3, (1e-3, 0.0))):
+        cases = [("gathered", BATCH * MASK_POSITIVES, (NUM_CLASSES, KERNEL_PARAMS))]
+        if dtype == torch.bfloat16:
+            cases.insert(0, ("dense", dense, (1,)))
+        for label, m, outs in cases:
+            fwd, bwd = k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol)
+            results["fused_mlp@instance_train"].append(fwd)
+            results["fused_mlp_backward@instance_train"].append(bwd)
+    work = anchor_ious(range(3, 6), train_targets["boxes"], train_targets["classes"])
+    results["row_kth@instance_train"].append(k2_case("levels 3-5", work))
+    c, bf16 = MASK_CHANNELS, torch.bfloat16
+    results["dynconv_decode"].append(k5f_case(cuda_gen, "serving", BATCH, MAX_INSTANCES, c, 1, bf16))
+    results["dynconv_decode@train"].append(k5f_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, bf16))
+    for dtype in (bf16, torch.float32):
+        results["dynconv_decode_backward"].append(
+            k5b_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, dtype, path=dtype == bf16))
+    results["dynconv_decode@keypoint"].append(
+        k5f_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, bf16, path=False))
+    results["dynconv_decode_backward@keypoint"].append(
+        k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, torch.float32, path=False))
     return results
 
 
@@ -369,8 +558,50 @@ def check_slice(model: SihlModel, gen: torch.Generator) -> None:
         )
 
 
+def expected_shape(shape) -> tuple:
+    """A head's ``output_shapes`` entry at batch 16 and 640 px."""
+    sizes = {"batch_size": BATCH, "height": SIZE, "width": SIZE}
+    return tuple(sizes[d.split("/")[0]] // int(d.split("/")[1]) if isinstance(d, str) and "/" in d
+                 else sizes.get(d, d) for d in shape)
+
+
+def check_instance_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 8: the f32 instance-segmentation serving slice on the card
+    against the CPU (plain versions): num_instances equal, top-100 indices
+    agreeing in >= 98% of slots, and in those slots classes equal, scores
+    and mask probabilities within 1e-3."""
+    images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
+    with torch.no_grad():
+        loc_bias = set_loc_bias(model, images.cuda())
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        (c_num, c_scores, c_classes, c_masks), c_idx = detect_with_indices(cpu_model, images)
+        t_cpu = time.perf_counter() - t0
+        (num, scores, classes, masks), idx = detect_with_indices(model, images.cuda())
+    agree = idx == c_idx
+    share = float(agree.float().mean())
+    score_err = float((scores - c_scores).abs()[agree].max())
+    mask_err = float((masks - c_masks).abs().amax(dim=(2, 3))[agree].max())
+    print(f"  instance slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
+          f"{num.tolist()} cpu {c_num.tolist()}; top-k indices agree in {share:.4f} of slots; max score "
+          f"err {score_err:.3g}; max mask err {mask_err:.3g} over masks {tuple(masks.shape)}; CPU forward "
+          f"{t_cpu:.1f} s")
+    if not 0 < int(c_num.sum()) < 2 * MAX_INSTANCES:
+        raise AssertionError(f"num_instances {c_num.tolist()} leave nothing to compare")
+    if not torch.equal(num, c_num):
+        raise AssertionError("num_instances differ between card and CPU")
+    if share < 0.98:
+        raise AssertionError(f"top-k indices agree in only {share:.4f} of slots")
+    if not torch.equal(classes[agree], c_classes[agree]):
+        raise AssertionError("classes differ in slots whose indices agree")
+    if score_err > 1e-3 or mask_err > 1e-3:
+        raise AssertionError(f"score err {score_err} or mask err {mask_err} out of bounds")
+
+
 def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
-    """Phase 5: answer ``requests`` batches of 16 images at 640 px."""
+    """Phases 5 and 9: answer ``requests`` batches of 16 images at 640 px;
+    every output of the shape ``output_shapes`` gives, finite, class ids in
+    range, mask probabilities in [0, 1]."""
     head = model.heads[0]
     latencies = []
     for _ in range(requests):
@@ -380,15 +611,16 @@ def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
             outputs = model(images)[0]
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
-        for (name, shape), out in zip(head.output_shapes.items(), outputs):
-            want = tuple(BATCH if s == "batch_size" else s for s in shape)
-            if tuple(out.shape) != want:
-                raise AssertionError(f"{name}: shape {tuple(out.shape)}, expected {want}")
-        num, scores, classes, boxes_ = outputs
-        if not (torch.isfinite(scores).all() and torch.isfinite(boxes_).all()):
-            raise AssertionError("non-finite scores or boxes")
-        if not ((0 <= classes).all() and (classes < NUM_CLASSES).all()):
+        named = dict(zip(head.output_shapes, outputs))
+        for name, shape in head.output_shapes.items():
+            if tuple(named[name].shape) != expected_shape(shape):
+                raise AssertionError(f"{name}: shape {tuple(named[name].shape)}, expected {expected_shape(shape)}")
+            if named[name].is_floating_point() and not torch.isfinite(named[name]).all():
+                raise AssertionError(f"non-finite {name}")
+        if not ((0 <= named["classes"]).all() and (named["classes"] < NUM_CLASSES).all()):
             raise AssertionError("class ids out of range")
+        if "masks" in named and not ((0 <= named["masks"]).all() and (named["masks"] <= 1).all()):
+            raise AssertionError("mask probabilities out of [0, 1]")
     return latencies
 
 
@@ -414,28 +646,36 @@ def relative_error(got: torch.Tensor, want: torch.Tensor) -> float:
 # and f32 loses digits there: the CPU's own f32 step, plain PyTorch, misses
 # 1e-3 on some of them, as phase 6 prints (PERF.md, section 6).
 GRADIENT_LIMITS = {"heads": 1e-3, "neck": 1e-2, "backbone": 2e-2}
+# The instance head's mask branch ends in train-mode BatchNorms of its own
+# (mask_lateral, mask_head).  Where the CPU's own f32 step misses the heads'
+# limit on one of their parameters, f32 itself loses those digits, and the
+# parameter is held at the neck's fixed limit instead.
+MASK_BRANCH = ("heads.0.mask_lateral.", "heads.0.mask_head.")
 
 
-def check_train_slice(model: SihlModel, gen: torch.Generator) -> None:
-    """Phase 6: one f32 training step's loss, metrics, gradients and
+def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagship, batch=None,
+                      label: str = "train slice") -> None:
+    """Phases 6 and 10: one f32 training step's loss, metrics, gradients and
     BatchNorm statistics on the card against an f64 step on the CPU (plain
     versions), on the same weights and batch, each gradient to relative L2
     ``GRADIENT_LIMITS`` of its part; an f32 step on the CPU shows how many
     digits f32 keeps.  The weights are those of the serving slice with the
     residual branches damped (``damp_residual_branches``) and the loc head's
     final bias back at its initial -5, so that the dense location loss does
-    not send every anchor nearly the same gradient."""
+    not send every anchor nearly the same gradient.  ``build`` makes the
+    CPU models; ``batch`` is the images and targets (the flagship's two
+    images by default)."""
     model = copy.deepcopy(model)
     model.backbone.set_frozen_levels(1)
     damp_residual_branches(model, gen)
     with torch.no_grad():
         model.heads[0].loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
-    images, targets = training_batch(2, seed=1)
+    images, targets = batch if batch is not None else training_batch(2, seed=1)
     cpu_images, cpu_targets = images.cpu(), {k: v.cpu() for k, v in targets.items()}
     references = {}
     for dtype in (torch.float64, torch.float32):
         with compute_dtype_scope(dtype):
-            ref = build_flagship(torch.Generator().manual_seed(0), device="cpu")
+            ref = build(torch.Generator().manual_seed(0), device="cpu")
         ref.backbone.set_frozen_levels(1)
         ref.load_state_dict(model.state_dict())
         t0 = time.perf_counter()
@@ -456,7 +696,7 @@ def check_train_slice(model: SihlModel, gen: torch.Generator) -> None:
     stats_err = max(
         float((bufs[n].cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-12)) for n, b in c_bufs.items()
     )
-    print(f"  train slice, 2 images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
+    print(f"  {label}, 2 images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
           f"{c_loss:.6f}; " + "; ".join(
               f"{k.split('/')[-1]} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
           + f"; running statistics' largest relative error {stats_err:.3g}; the stem got no "
@@ -468,42 +708,63 @@ def check_train_slice(model: SihlModel, gen: torch.Generator) -> None:
              for n, g in grads.items() if n.split(".")[0] == part and n not in stem),
             reverse=True,
         )
-        within = sum(r[0] <= limit for r in rows)
+        held = [r[2] for r in rows if r[2].startswith(MASK_BRANCH) and r[1] > limit]
+        limits = [GRADIENT_LIMITS["neck"] if r[2] in held else limit for r in rows]
+        within = sum(r[0] <= lim for r, lim in zip(rows, limits))
         print(f"    {part}: {len(rows)} gradients, {within} within relative L2 {limit} (card f32 "
-              f"against CPU f64); worst three (card error, CPU f32 error, name): "
+              f"against CPU f64){f', {held} at the neck limit: the CPU f32 step misses {limit} there' if held else ''}; "
+              f"worst three (card error, CPU f32 error, name): "
               f"{[(f'{r[0]:.3g}', f'{r[1]:.3g}', r[2]) for r in rows[:3]]}")
-        failed += [r for r in rows if r[0] > limit]
+        failed += [r for r, lim in zip(rows, limits) if r[0] > lim]
     if failed:
         raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
     if stats_err > 1e-3:
         raise AssertionError(f"running statistics differ by {stats_err} (relative)")
 
 
-def train(steps: int = 10):
-    """Phase 7: bf16 training steps of the flagship through Trainer."""
+COUNTERS = {
+    "fused_mlp": fused_mlp.fused_mlps,
+    "fused_mlp_backward": fused_mlp.fused_mlps_backward,
+    "row_kth": topk.row_best_and_kth,
+    "upsample_add": fusion.fused_upsample_add,
+    "dynconv_decode": dynconv.dynamic_pointwise_decode,
+    "dynconv_decode_backward": dynconv.dynamic_pointwise_decode_backward,
+}
+
+
+def reset_counts() -> None:
+    for wrapper in COUNTERS.values():
+        wrapper.launches = 0
+
+
+def read_counts(names) -> dict:
+    return {name: COUNTERS[name].launches for name in names}
+
+
+def train(build=build_flagship, batch=None, kernels=("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add"),
+          steps: int = 10, label: str = "training"):
+    """Phases 7 and 11: bf16 training steps through Trainer (level 1 frozen,
+    bench.py's optimizer) on ``batch`` (the flagship's 16 images by
+    default); every kernel in ``kernels`` must launch."""
     with compute_dtype_scope(torch.bfloat16):
-        model = build_flagship(torch.Generator().manual_seed(2))
+        model = build(torch.Generator().manual_seed(2))
     model.backbone.set_frozen_levels(1)
     trainer = Trainer(model, **OPTIMIZER)
-    images, targets = training_batch(BATCH)
+    images, targets = batch if batch is not None else training_batch(BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    counters = (fused_mlp.fused_mlps, fused_mlp.fused_mlps_backward, topk.row_best_and_kth,
-                fusion.fused_upsample_add)
-    for c in counters:
-        c.launches = 0
+    reset_counts()
     times, metrics = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
         metrics.append(trainer.training_step(images, targets))
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    launches = dict(zip(("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add"),
-                        (c.launches for c in counters)))
+    launches = read_counts(kernels)
     losses = [float(m["trainer/loss"]) for m in metrics]
     steady = statistics.median(times[2:])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  training bf16, batch {BATCH} at {SIZE} px, {steps} steps: losses "
+    print(f"  {label} bf16, batch {BATCH} at {SIZE} px, {steps} steps: losses "
           f"{[round(v, 4) for v in losses]}; step times {[round(t * 1000, 3) for t in times]} ms; "
           f"median of steps 3-{steps} {steady * 1000:.3f} ms, {BATCH / steady:.2f} images/s; "
           f"peak memory {peak_gib:.2f} GiB; kernel launches {launches}")
@@ -511,7 +772,30 @@ def train(steps: int = 10):
         raise AssertionError("non-finite training loss")
     for name, n in launches.items():
         if n == 0:
-            raise AssertionError(f"the training path never launched the {name} kernel")
+            raise AssertionError(f"the {label} path never launched the {name} kernel")
+    return launches
+
+
+def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
+    """Phases 5 and 9: the f32 slice's weights in a bf16 model, three
+    requests; every kernel in ``kernels`` must launch.  Returns the counts."""
+    with compute_dtype_scope(torch.bfloat16):
+        served = build(torch.Generator().manual_seed(1))
+    served.load_state_dict(model.state_dict())
+    served.eval()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    latencies = serve(served, cuda_gen)
+    launches = read_counts(kernels)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    steady = statistics.median(latencies[1:])
+    print(f"  {label} bf16, batch {BATCH} at {SIZE} px: request latencies "
+          f"{[round(t * 1000, 3) for t in latencies]} ms; {BATCH / steady:.2f} images/s from "
+          f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB; "
+          f"kernel launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the {label} path never launched the {name} kernel")
     return launches
 
 
@@ -523,6 +807,7 @@ def main() -> None:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
 
     # phase 2: build, every kernel at once
     def timed(fn):
@@ -537,19 +822,20 @@ def main() -> None:
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
-        builds = [pool.submit(timed, fn) for fn in (fused_mlp._library, topk._library, upsample_add_once)]
-        t_mlp, t_topk, t_triton = (b.result() for b in builds)
+    with ThreadPoolExecutor(4) as pool:
+        builds = [pool.submit(timed, fn) for fn in
+                  (fused_mlp._library, topk._library, dynconv._library, upsample_add_once)]
+        t_mlp, t_topk, t_dynconv, t_triton = (b.result() for b in builds)
     print(f"build (in parallel, {time.perf_counter() - t0:.1f} s): fused_mlp K1f + K1b (CUDA C++, "
-          f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; upsample_add K3 "
-          f"(Triton) {t_triton:.1f} s")
+          f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; dynconv K5f + K5b "
+          f"(CUDA C++, sm_90a) {t_dynconv:.1f} s; upsample_add K3 (Triton) {t_triton:.1f} s")
 
     # phase 3: kernels against their plain versions
     gen = torch.Generator().manual_seed(0)
     cuda_gen = torch.Generator("cuda").manual_seed(0)
-    train_images, train_targets = training_batch(BATCH)
-    kernels = check_kernels(gen, cuda_gen, train_images, train_targets)
-    del train_images
+    _, train_targets = training_batch(BATCH)
+    kernels = check_kernels(gen, cuda_gen, train_targets)
+    kernels.update(check_instance_kernels(gen, cuda_gen, train_targets))
 
     # phase 4: serving slice parity, f32, card against CPU
     model = build_flagship(gen)
@@ -558,59 +844,71 @@ def main() -> None:
     check_slice(model, gen)
 
     # phase 5: serving in bf16 through the kernels
-    with compute_dtype_scope(torch.bfloat16):
-        served = build_flagship(torch.Generator().manual_seed(1))
-    served.load_state_dict(model.state_dict())
-    served.eval()
-    torch.cuda.reset_peak_memory_stats()
-    fused_mlp.fused_mlps.launches = 0
-    fusion.fused_upsample_add.launches = 0
-    latencies = serve(served, cuda_gen)
-    serving_launches = {
-        "fused_mlp": fused_mlp.fused_mlps.launches,
-        "upsample_add": fusion.fused_upsample_add.launches,
-    }
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    steady = statistics.median(latencies[1:])
-    print(f"  serving bf16, batch {BATCH} at {SIZE} px: request latencies "
-          f"{[round(t * 1000, 3) for t in latencies]} ms; {BATCH / steady:.2f} images/s from "
-          f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB; "
-          f"kernel launches {serving_launches}")
-    for name, n in serving_launches.items():
-        if n == 0:
-            raise AssertionError(f"the serving path never launched the {name} kernel")
-    del served
+    launches = {"serve": serve_phase(model, build_flagship, cuda_gen, ("fused_mlp", "upsample_add"), "serving")}
 
     # phase 6: training-slice parity, card f32 against CPU f64
     check_train_slice(model, gen)
     del model
 
     # phase 7: the bf16 training step through the kernels
-    launches = train()
+    launches["train"] = train()
+
+    # phases 8-11: instance segmentation, the same four
+    model = build_instance(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_instance_slice(model, gen)
+    launches["instance_serve"] = serve_phase(
+        model, build_instance, cuda_gen, ("fused_mlp", "upsample_add", "dynconv_decode"), "instance serving")
+    check_train_slice(model, gen, build_instance, instance_batch(2, seed=1, mask_size=SIZE // 2),
+                      "instance train slice")
+    del model
+    launches["instance_train"] = train(
+        build_instance, instance_batch(BATCH),
+        ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode", "dynconv_decode_backward"),
+        label="instance training")
 
     # one entry for each kernel on each path, with its launches there and one
-    # call of each shape that path gives it (bf16): K1f's serving request
-    # and its training step's two calls, K1b's two, K2's one, K3's two merges
+    # call of each shape that path gives it (bf16)
     mlp_cu, mlp_py = "sihl_tpu_torch/ops/csrc/fused_mlp.cu", "sihl_tpu/ops/pallas/mlp.py"
     fusion_tr, fusion_py = "sihl_tpu_torch/ops/fusion_triton.py", "sihl_tpu/ops/pallas/fusion.py:59"
+    topk_cu, topk_py = "sihl_tpu_torch/ops/csrc/topk.cu", "sihl_tpu/ops/pallas/topk.py:51"
+    dyn_cu, dyn_py = "sihl_tpu_torch/ops/csrc/dynconv.cu", "sihl_tpu/ops/pallas/dynconv.py"
     summary = []
-    for name, path, key, route, source, replaces, n in (
-        ("fused_mlp", "serve", "fused_mlp", "cuda", mlp_cu, f"{mlp_py}:204", serving_launches["fused_mlp"]),
-        ("upsample_add", "serve", "upsample_add", "triton", fusion_tr, fusion_py, serving_launches["upsample_add"]),
-        ("fused_mlp@train", "train", "fused_mlp@train", "cuda", mlp_cu, f"{mlp_py}:204", launches["fused_mlp"]),
-        ("fused_mlp_backward", "train", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365", launches["fused_mlp_backward"]),
-        ("row_kth", "train", "row_kth", "cuda", "sihl_tpu_torch/ops/csrc/topk.cu", "sihl_tpu/ops/pallas/topk.py:51", launches["row_kth"]),
-        ("upsample_add@train", "train", "upsample_add", "triton", fusion_tr, fusion_py, launches["upsample_add"]),
+    for name, path, key, route, source, replaces, counter in (
+        ("fused_mlp", "serve", "fused_mlp", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp"),
+        ("upsample_add", "serve", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add"),
+        ("fused_mlp@train", "train", "fused_mlp@train", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp"),
+        ("fused_mlp_backward", "train", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365", "fused_mlp_backward"),
+        ("row_kth", "train", "row_kth", "cuda", topk_cu, topk_py, "row_kth"),
+        ("upsample_add@train", "train", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add"),
+        ("fused_mlp@instance_serve", "instance_serve", "fused_mlp@instance_serve", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("upsample_add@instance_serve", "instance_serve", "upsample_add", "triton", fusion_tr, fusion_py,
+         "upsample_add"),
+        ("dynconv_decode", "instance_serve", "dynconv_decode", "cuda", dyn_cu, f"{dyn_py}:257", "dynconv_decode"),
+        ("fused_mlp@instance_train", "instance_train", "fused_mlp@instance_train", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("fused_mlp_backward@instance_train", "instance_train", "fused_mlp_backward@instance_train", "cuda",
+         mlp_cu, f"{mlp_py}:365", "fused_mlp_backward"),
+        ("row_kth@instance_train", "instance_train", "row_kth@instance_train", "cuda", topk_cu, topk_py, "row_kth"),
+        ("upsample_add@instance_train", "instance_train", "upsample_add", "triton", fusion_tr, fusion_py,
+         "upsample_add"),
+        ("dynconv_decode@train", "instance_train", "dynconv_decode@train", "cuda", dyn_cu, f"{dyn_py}:257",
+         "dynconv_decode"),
+        ("dynconv_decode_backward", "instance_train", "dynconv_decode_backward", "cuda", dyn_cu, f"{dyn_py}:290",
+         "dynconv_decode_backward"),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(
-            name=name, path=path, route=route, source=source, replaces=replaces, launches=n,
+            name=name, path=path, route=route, source=source, replaces=replaces, launches=launches[path][counter],
             max_abs_err=max(c["err"] for c in cases),
             ms=sum(c["ms"] for c in cases), plain_ms=sum(c["plain_ms"] for c in cases),
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
             library_ms=None,
         ))
+    print(f"all phases passed in {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -3,11 +3,13 @@
 
 Run from the repository root on a machine with an NVIDIA card:
 
-    python3 profile_serving.py           # a request of 16 images at 640 px
-    python3 profile_serving.py --train   # bench.py's training step, 16 images at 640 px
+    python3 profile_serving.py                      # a request of 16 images at 640 px
+    python3 profile_serving.py --train              # bench.py's training step, 16 images at 640 px
+    python3 profile_serving.py --instance [--train] # the instance-segmentation model instead
 
-It builds the flagship model of ``chip_smoke.py`` (random weights from a
-seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
+its instance-segmentation model, trained on masks (16, 100, 640, 640); random
+weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
 
@@ -31,7 +33,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, OPTIMIZER, SIZE, build_flagship, card_name, randomize_norms_and_biases, training_batch,
+    BATCH, OPTIMIZER, SIZE, build_flagship, build_instance, card_name, instance_batch,
+    randomize_norms_and_biases, training_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -50,6 +53,8 @@ OP_CLASSES = (
     ("max pool", ("aten::max_pool2d_with_indices", "aten::max_pool2d_with_indices_backward")),
     ("dtype casts and copies", ("aten::copy_",)),
     ("AdamW (foreach)", ("aten::_foreach_*",)),
+    ("mask-target resize", ("aten::_upsample_bilinear2d_aa",)),
+    ("mask comparisons and any", ("aten::gt", "aten::any")),
 )
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
@@ -58,6 +63,8 @@ KERNEL_CLASSES = (
                                 "reduce_partials_kernel")),
     ("K2 row k-th threshold", ("row_best_kth_kernel",)),
     ("K3 upsample-add", ("upsample_add_kernel",)),
+    ("K5f dynamic decode", ("decode_fwd_kernel",)),
+    ("K5b dynamic decode backward", ("decode_bwd_tile_kernel", "reduce_parts_kernel")),
 )
 
 
@@ -77,16 +84,18 @@ def busy_us(events) -> float:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true", help="profile a training step")
-    train = parser.parse_args().train
+    parser.add_argument("--instance", action="store_true", help="the instance-segmentation model")
+    args = parser.parse_args()
+    train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
     with compute_dtype_scope(torch.bfloat16):
-        model = build_flagship(torch.Generator().manual_seed(0))
+        model = (build_instance if args.instance else build_flagship)(torch.Generator().manual_seed(0))
     if train:
         model.backbone.set_frozen_levels(1)
         trainer = Trainer(model, **OPTIMIZER)
-        images, targets = training_batch(BATCH)
+        images, targets = instance_batch(BATCH) if args.instance else training_batch(BATCH)
 
         def work():
             trainer.training_step(images, targets)
@@ -120,7 +129,7 @@ def main() -> None:
     if not device_events:
         raise SystemExit("profile_serving: the profiler recorded no device time")
     busy = busy_us(device_events) / PROFILED / 1000
-    print(f"batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
+    print(f"{'instance segmentation' if args.instance else 'flagship'}, batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
           f"{TIMED}); device busy {busy:.3f} ms per {what} over {PROFILED} profiled; busy "
           f"share {busy / latency:.4f}; peak memory {peak_gib:.2f} GiB")
 

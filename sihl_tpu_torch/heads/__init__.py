@@ -1,6 +1,7 @@
 """Task heads of the port."""
 
 from sihl_tpu_torch.heads.base import Head
+from sihl_tpu_torch.heads.instance_segmentation import InstanceSegmentation
 from sihl_tpu_torch.heads.object_detection import ObjectDetection
 
-__all__ = ["Head", "ObjectDetection"]
+__all__ = ["Head", "InstanceSegmentation", "ObjectDetection"]

@@ -198,7 +198,7 @@ def make_norm(kind: Optional[str], num_features: int, *, device=None):
     raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP.md, M16)")
 
 
-_ACTS = {"relu": relu, None: None}
+_ACTS = {"relu": relu, "silu": F.silu, None: None}
 
 
 class StandardConvNormAct(nn.Module):

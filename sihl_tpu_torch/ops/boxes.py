@@ -1,8 +1,9 @@
 """Box geometry and anchor matching (counterpart of ``sihl_tpu/ops/boxes.py``).
 
 IoU and complete-IoU (CIoU) of ``(x1, y1, x2, y2)`` boxes, the CIoU loss,
-and ``bbox_matching``, the static top-k anchor <-> ground-truth assignment of
-the detection heads over padded ground truth, batched over images.
+the boxes of binary masks, and ``bbox_matching``, the static top-k anchor
+<-> ground-truth assignment of the detection heads over padded ground truth,
+batched over images.
 """
 
 import math
@@ -73,6 +74,29 @@ def complete_box_iou_loss(boxes1: torch.Tensor, boxes2: torch.Tensor) -> torch.T
     """Elementwise CIoU loss (1 - CIoU) for matched (..., 4) box pairs, in f32
     (f64 for f64 boxes)."""
     return 1.0 - _ciou_terms(upcast(boxes1), upcast(boxes2))
+
+
+def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
+    """Pixel-index bounding boxes (..., 4) of binary masks (..., H, W): the
+    first and last column and row holding a value > 0, in f32; zeros for an
+    empty mask.  The extremes are taken over each mask's row and column
+    "any", which gives the same values as over every pixel."""
+    h, w = masks.shape[-2:]
+    valid = masks > 0
+    cols, rows = valid.any(dim=-2), valid.any(dim=-1)  # (..., W), (..., H)
+    xs = torch.arange(w, dtype=torch.float32, device=masks.device)
+    ys = torch.arange(h, dtype=torch.float32, device=masks.device)
+    big = 1e9
+    boxes = torch.stack(
+        [
+            torch.where(cols, xs, big).amin(dim=-1),
+            torch.where(rows, ys, big).amin(dim=-1),
+            torch.where(cols, xs, -big).amax(dim=-1),
+            torch.where(rows, ys, -big).amax(dim=-1),
+        ],
+        dim=-1,
+    )
+    return torch.where(rows.any(dim=-1, keepdim=True), boxes, 0.0)
 
 
 def bbox_matching(

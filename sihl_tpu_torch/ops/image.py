@@ -1,7 +1,7 @@
 """Image-space ops on NCHW tensors (counterpart of ``sihl_tpu/ops/image.py``).
 
-Only what the serving slice runs is ported: nearest 2x upsampling, the
-identity case of ``interpolate``, and max pooling.
+Ported so far: nearest 2x upsampling, the identity case of ``interpolate``,
+max pooling, and the linear resize of mask targets.
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -23,6 +23,14 @@ def interpolate(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     raise NotImplementedError(
         f"interpolate from {(h, w)} to {tuple(size)} is not ported yet (ROADMAP.md, M16)"
     )
+
+
+def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Resize the last two axes of (B, C, H, W) to ``size`` as
+    ``jax.image.resize(method="linear")`` does: half-pixel centres and, when
+    shrinking, a triangle filter widened by the scale (antialiasing), which
+    ``F.interpolate``'s antialiased bilinear mode computes."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=True)
 
 
 def max_pool2d(

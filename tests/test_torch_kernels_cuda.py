@@ -6,11 +6,16 @@ mode). The file imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 """
 
+import os
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import fused_mlp, topk
+from sihl_tpu_torch.ops import dynconv, fused_mlp, topk
 from sihl_tpu_torch.ops.fusion import fused_upsample_add, fused_upsample_add_reference
 from sihl_tpu_torch.policy import compute_dtype_scope
 
@@ -60,7 +65,7 @@ def mlp_gradients(fn, x, mlps, weights):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("outs", [(1, 1), (80, 4)], ids=["loc_iou", "cls_box"])
+@pytest.mark.parametrize("outs", [(1, 1), (80, 4), (80, 169)], ids=["loc_iou", "cls_box", "cls_kernel"])
 def test_fused_mlp_backward_kernel_matches_plain_autograd_on_card(outs):
     """K1b against autograd of the plain chain.  dx within atol = rtol =
     ``tol``; every parameter gradient's largest error within ``tol`` times its
@@ -115,3 +120,84 @@ def test_upsample_add_kernel_matches_plain_version_on_card():
             )
             got = fused_upsample_add(top, lat)
             assert torch.equal(got, fused_upsample_add_reference(top, lat))
+
+
+def _decode_inputs(gen, b, i, h, w, c, k, dtype):
+    """Decode inputs on the card: (B, c, H, W) channels_last features, grid,
+    centres and dynamic weights."""
+    feats = torch.randn(b, h, w, c, generator=gen) * 0.5
+    grid = torch.rand(h, w, 2, generator=gen)
+    centers = torch.rand(b, i, 2, generator=gen)
+    dyn = torch.randn(b, i, dynconv.param_count(c, k), generator=gen) * 0.3
+    return feats.to("cuda", dtype).permute(0, 3, 1, 2), grid.cuda(), centers.cuda(), dyn.to("cuda", dtype)
+
+
+# (b, i, h, w, c, k): instance masks, a ragged spatial tile and instance
+# group, and keypoint heatmaps
+DECODE_SHAPES = [(2, 37, 80, 80, 8, 1), (3, 5, 13, 11, 8, 1), (2, 11, 40, 40, 32, 17)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,h,w,c,k", DECODE_SHAPES)
+def test_dynconv_decode_kernel_matches_plain_version_on_card(b, i, h, w, c, k):
+    """K5f within atol = rtol = 1e-4 of the plain einsum chain (f32 logits),
+    for f32 and bf16 inputs."""
+    _need_card()
+    gen = torch.Generator().manual_seed(3)
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _decode_inputs(gen, b, i, h, w, c, k, dtype)
+        before = dynconv.dynamic_pointwise_decode.launches
+        with torch.no_grad():
+            got = dynconv.dynamic_pointwise_decode(*args, c, k)
+        assert dynconv.dynamic_pointwise_decode.launches == before + 1
+        want = dynconv.reference_decode(*args, c, k)
+        assert got.shape == (b, i, h, w, k) and got.dtype == torch.float32
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,i,h,w,c,k", DECODE_SHAPES)
+def test_dynconv_decode_backward_kernel_matches_plain_autograd_on_card(b, i, h, w, c, k):
+    """K5b's d(features) and d(weights) through autograd, within atol = rtol
+    = 2e-3 of autograd of the plain chain (f32 inputs), bitwise equal over
+    two calls, and no gradient for the grid and the centres."""
+    _need_card()
+    gen = torch.Generator().manual_seed(4)
+    mf, grid, centers, dyn = _decode_inputs(gen, b, i, h, w, c, k, torch.float32)
+    weights = torch.randn(b, i, h, w, k, generator=gen).cuda()
+    grads = []
+    for fn in (dynconv.dynamic_pointwise_decode, dynconv.dynamic_pointwise_decode, dynconv.reference_decode):
+        leaves = [t.detach().requires_grad_(True) for t in (mf, grid, centers, dyn)]
+        before = dynconv.dynamic_pointwise_decode_backward.launches
+        (torch.tanh(fn(*leaves, c, k)) * weights).sum().backward()
+        if fn is dynconv.dynamic_pointwise_decode:
+            assert dynconv.dynamic_pointwise_decode_backward.launches == before + 1
+            assert leaves[1].grad is None and leaves[2].grad is None
+            assert leaves[0].grad.is_contiguous(memory_format=torch.channels_last)
+        grads.append((leaves[0].grad, leaves[3].grad))
+    (k_mf, k_dyn), (k2_mf, k2_dyn), (want_mf, want_dyn) = grads
+    assert torch.equal(k_mf, k2_mf) and torch.equal(k_dyn, k2_dyn)
+    torch.testing.assert_close(k_mf, want_mf, atol=2e-3, rtol=2e-3)
+    torch.testing.assert_close(k_dyn, want_dyn, atol=2e-3, rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_dynconv_decode_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    gen = torch.Generator().manual_seed(5)
+    mf, grid, centers, dyn = _decode_inputs(gen, 1, 2, 8, 8, 16, 1, torch.float32)
+    with pytest.raises(ValueError, match="c in"):
+        dynconv.dynamic_pointwise_decode(mf, grid, centers, dyn, 16, 1)
+    mf, grid, centers, dyn = _decode_inputs(gen, 1, 2, 8, 8, 8, 1, torch.float32)
+    with pytest.raises(ValueError, match="one dtype"):
+        dynconv.dynamic_pointwise_decode(mf, grid, centers, dyn.bfloat16(), 8, 1)
+    with pytest.raises(ValueError, match="channels_last"):
+        dynconv.dynamic_pointwise_decode(mf.contiguous(), grid, centers, dyn, 8, 1)
+
+
+def test_card_tests_import_no_jax():
+    """This file runs where JAX is absent: nothing it imports loads JAX."""
+    code = "import sys, test_torch_kernels_cuda; print(sorted(m for m in ('jax', 'flax') if m in sys.modules))"
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, timeout=120,
+                         cwd=Path(__file__).resolve().parent, env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1])})
+    assert out.stdout.strip() == "[]", out
