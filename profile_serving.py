@@ -6,10 +6,12 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py                      # a request of 16 images at 640 px
     python3 profile_serving.py --train              # bench.py's training step, 16 images at 640 px
     python3 profile_serving.py --instance [--train] # the instance-segmentation model instead
+    python3 profile_serving.py --quad [--train]     # the quadrilateral detector instead
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
-its instance-segmentation model, trained on masks (16, 100, 640, 640); random
-weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
+with ``--quad``, its quadrilateral detector, trained on 5-20 quads per image;
+random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
 
@@ -33,8 +35,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, OPTIMIZER, SIZE, build_flagship, build_instance, card_name, instance_batch,
-    randomize_norms_and_biases, training_batch,
+    BATCH, OPTIMIZER, SIZE, build_flagship, build_instance, build_quad, card_name, instance_batch,
+    quad_batch, randomize_norms_and_biases, training_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -55,6 +57,8 @@ OP_CLASSES = (
     ("AdamW (foreach)", ("aten::_foreach_*",)),
     ("mask-target resize", ("aten::_upsample_bilinear2d_aa",)),
     ("mask comparisons and any", ("aten::gt", "aten::any")),
+    ("reflect pad (blur-pool)", ("aten::reflection_pad2d",)),
+    ("nearest upsample", ("aten::upsample_nearest2d", "aten::upsample_nearest2d_backward")),
 )
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
@@ -65,6 +69,8 @@ KERNEL_CLASSES = (
     ("K3 upsample-add", ("upsample_add_kernel",)),
     ("K5f dynamic decode", ("decode_fwd_kernel",)),
     ("K5b dynamic decode backward", ("decode_bwd_tile_kernel", "reduce_parts_kernel")),
+    ("K4 stem conv + statistics", ("stem_conv_stats_kernel", "stem_stats_reduce_kernel")),
+    ("K6 weighted sum", ("weighted_sum_kernel",)),
 )
 
 
@@ -84,18 +90,25 @@ def busy_us(events) -> float:
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true", help="profile a training step")
-    parser.add_argument("--instance", action="store_true", help="the instance-segmentation model")
+    models = parser.add_mutually_exclusive_group()
+    models.add_argument("--instance", action="store_true", help="the instance-segmentation model")
+    models.add_argument("--quad", action="store_true", help="the quadrilateral detector")
     args = parser.parse_args()
+    name, build, batch = (
+        ("instance segmentation", build_instance, instance_batch) if args.instance
+        else ("quadrilateral detection", build_quad, quad_batch) if args.quad
+        else ("flagship", build_flagship, training_batch)
+    )
     train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
     with compute_dtype_scope(torch.bfloat16):
-        model = (build_instance if args.instance else build_flagship)(torch.Generator().manual_seed(0))
+        model = build(torch.Generator().manual_seed(0))
     if train:
         model.backbone.set_frozen_levels(1)
         trainer = Trainer(model, **OPTIMIZER)
-        images, targets = instance_batch(BATCH) if args.instance else training_batch(BATCH)
+        images, targets = batch(BATCH)
 
         def work():
             trainer.training_step(images, targets)
@@ -129,7 +142,7 @@ def main() -> None:
     if not device_events:
         raise SystemExit("profile_serving: the profiler recorded no device time")
     busy = busy_us(device_events) / PROFILED / 1000
-    print(f"{'instance segmentation' if args.instance else 'flagship'}, batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
+    print(f"{name}, batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
           f"{TIMED}); device busy {busy:.3f} ms per {what} over {PROFILED} profiled; busy "
           f"share {busy / latency:.4f}; peak memory {peak_gib:.2f} GiB")
 

@@ -2,9 +2,12 @@
 ``sihl_tpu/backbones/resnet.py``), torchvision v1.5 structure.
 
 Level 1 is the stem's ReLU output (stride 2); levels 2..5 are layer1..layer4
-(strides 4..32).  Only the plain stem is ported: the space-to-depth,
-batch-fold and fused Pallas stems and the stage-1 space-to-depth are TPU
-layout levers that leave the values unchanged.
+(strides 4..32).  A frozen stem (``_sg_levels >= 1``) runs its conv and its
+BatchNorm's batch statistics in one pass through
+:func:`~sihl_tpu_torch.ops.stem.stem_conv_stats` (K4), as the JAX package's
+``_Stem._fused`` does; any other stem is the conv and ``BatchNorm2d``.  The
+space-to-depth and batch-fold stems and the stage-1 space-to-depth are TPU
+layout levers that leave the values unchanged, and are not ported.
 """
 
 from typing import List, Optional
@@ -13,6 +16,7 @@ import torch
 from torch import nn
 
 from sihl_tpu_torch.layers.convblocks import default_generator, make_conv, make_norm
+from sihl_tpu_torch.ops import stem as stem_ops
 from sihl_tpu_torch.ops.image import max_pool2d
 from sihl_tpu_torch.ops.relu import relu
 
@@ -107,7 +111,40 @@ class _Stem(nn.Module):
         )
         self.bn = make_norm("batch", 64, device=device)
 
-    def forward(self, x):
+    @torch.no_grad()
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The forward-only stem of a frozen level 1, through K4: the conv and
+        its output's sums in one pass, then BatchNorm as ``_Stem._fused`` in
+        the JAX package computes it.  In training mode: mean = s / n,
+        var = max(0, q / n - mean^2), and the running statistics updated at
+        momentum 0.9 with that biased variance; in eval mode the running
+        statistics, rounded to the compute dtype.  Scale and bias are rounded
+        to the compute dtype; the transform runs in f32 (f64 for f64)."""
+        dtype = self.conv.dtype
+        y, s, q = stem_ops.stem_conv_stats(x.to(dtype), self.conv.weight)
+        bn = self.bn
+        stat = s.dtype
+        if bn.training:
+            n = y.numel() // y.shape[1]
+            mean = s / n
+            var = torch.clamp(q / n - mean * mean, min=0.0)
+            m = bn.momentum
+            bn.running_mean.copy_(m * bn.running_mean + (1 - m) * mean)
+            bn.running_var.copy_(m * bn.running_var + (1 - m) * var)
+        else:
+            mean = bn.running_mean.to(dtype).to(stat)
+            var = bn.running_var.to(dtype).to(stat)
+        scale = bn.weight.to(dtype).to(stat)
+        bias = bn.bias.to(dtype).to(stat)
+        mul = torch.rsqrt(var + bn.eps) * scale
+        out = (y.to(stat) - mean[:, None, None]) * mul[:, None, None] + bias[:, None, None]
+        return relu(out.to(dtype))
+
+    def forward(self, x, fwd_only: bool = False):
+        """``fwd_only``: the stem is frozen and nothing differentiates it, so
+        the K4 path may run (where its geometry allows)."""
+        if fwd_only and stem_ops.supported(tuple(x.shape), tuple(self.conv.weight.shape)):
+            return self._fused(x)
         return relu(self.bn(self.conv(x)))
 
 
@@ -152,7 +189,7 @@ class ResNetFeatures(nn.Module):
     def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
         sg = self._sg_levels
         with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 1):
-            c1 = self.stem(x)
+            c1 = self.stem(x, fwd_only=sg >= 1)
         with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 2):
             c2 = self.layer1(max_pool2d(c1, 3, stride=2, padding=1))
         with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 3):

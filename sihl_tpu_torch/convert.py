@@ -20,7 +20,8 @@ def state_dict_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
     * conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W);
     * Linear ``kernel`` (in, out) → ``weight`` (out, in);
     * BatchNorm ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
-    * LayerNorm ``scale/bias`` → ``weight/bias``.
+    * LayerNorm ``scale/bias`` → ``weight/bias``;
+    * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is.
     """
     out = {}
     for path, value in flat.items():
@@ -36,6 +37,8 @@ def state_dict_from_flat(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]
             name = "weight"
         elif leaf in _LEAF_NAMES:
             name = _LEAF_NAMES[leaf]
+        elif leaf == "weights" and value.ndim == 1:
+            name = "weights"
         else:
             raise KeyError(f"{path}: no counterpart for leaf {leaf!r}")
         key = f"{prefix}.{name}" if prefix else name

@@ -51,8 +51,22 @@ def cell_anchors(inputs, levels) -> Tuple[torch.Tensor, torch.Tensor]:
     return torch.cat(offsets), torch.cat(scales)
 
 
-def flatten_laterals(inputs, levels, laterals, num_channels: int) -> torch.Tensor:
-    """Apply per-level 1x1 laterals and flatten into one (B, A, C) anchor list.
+def cell_centers_with_levels(inputs, levels) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The quadrilateral head's variant: each anchor's normalised cell centre
+    tiled to the 4 vertices, (A, 8) as x, y, x, y, ..., and its pyramid
+    level, (A, 1) f32, over all ``levels``."""
+    rel_offsets, level_ids = [], []
+    for level in levels:
+        xg, yg, _, _ = _level_grid(inputs[level])
+        rel_offsets.append(torch.stack([xg, yg], dim=1).repeat(1, 4))
+        level_ids.append(torch.full((xg.shape[0], 1), float(level), dtype=torch.float32, device=xg.device))
+    return torch.cat(rel_offsets), torch.cat(level_ids)
+
+
+def flatten_laterals(inputs, levels, laterals, num_channels: int, extra=None) -> torch.Tensor:
+    """Apply per-level 1x1 laterals and flatten into one (B, A, C) anchor list;
+    ``extra`` is an addend broadcast to every level's lateral (the
+    quadrilateral head's (B, C, 1, 1) global context).
 
     On channels_last maps the per-level ``permute(0, 2, 3, 1).reshape`` is a
     view; the concatenation is the only copy.
@@ -60,6 +74,8 @@ def flatten_laterals(inputs, levels, laterals, num_channels: int) -> torch.Tenso
     flat = []
     for level, lateral in zip(levels, laterals):
         f = lateral(inputs[level])
+        if extra is not None:
+            f = f + extra
         flat.append(f.permute(0, 2, 3, 1).reshape(f.shape[0], -1, num_channels))
     return torch.cat(flat, dim=1)
 

@@ -242,3 +242,53 @@ class StandardConvNormAct(nn.Module):
         if self.act is not None:
             x = self.act(x)
         return x
+
+
+class ConvNormAct(nn.Module):
+    """sihl's conv block: conv → act → norm (the JAX package keeps this order
+    for parity with upstream sihl).  The conv has a bias where there is no
+    norm, unless ``bias`` says otherwise.  Only plain convs are ported: the
+    separable variant waits (ROADMAP.md, M2b)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        stride: int = 1,
+        dilation: int = 1,
+        groups: int = 1,
+        padding: Optional[int] = None,
+        norm: Optional[str] = "batch",
+        act: Optional[str] = "relu",
+        bias: Optional[bool] = None,
+        separable: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if separable and kernel_size > 1:
+            raise NotImplementedError("separable ConvNormAct is not ported yet (ROADMAP.md, M2b)")
+        self.conv = make_conv(
+            in_channels,
+            out_channels,
+            kernel_size,
+            stride=stride,
+            dilation=dilation,
+            groups=groups,
+            padding=padding,
+            bias=(norm is None) if bias is None else bias,
+            generator=default_generator(generator),
+            device=device,
+        )
+        self.act = _ACTS[act]
+        self.norm = make_norm(norm, out_channels, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if self.act is not None:
+            x = self.act(x)
+        if self.norm is not None:
+            x = self.norm(x)
+        return x

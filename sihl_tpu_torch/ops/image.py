@@ -1,13 +1,16 @@
 """Image-space ops on NCHW tensors (counterpart of ``sihl_tpu/ops/image.py``).
 
 Ported so far: nearest 2x upsampling, the identity case of ``interpolate``,
-max pooling, and the linear resize of mask targets.
+max pooling, the linear resize of mask targets, and the binomial blur-pool.
 """
 
 from typing import Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+from sihl_tpu_torch.policy import upcast
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -44,3 +47,26 @@ def max_pool2d(
     return F.max_pool2d(
         x, kernel_size, stride=stride if stride is not None else kernel_size, padding=padding
     )
+
+
+def _depthwise_conv(x: torch.Tensor, kernel_hw: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """Depthwise conv of (B, C, H, W) ``x`` with one (kh, kw) kernel shared by
+    every channel, unpadded, in the kernel's dtype."""
+    c = x.shape[1]
+    kernel = kernel_hw[None, None].expand(c, 1, *kernel_hw.shape)
+    return F.conv2d(x.to(kernel.dtype), kernel, stride=stride, groups=c)
+
+
+def blur_pool_2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 1) -> torch.Tensor:
+    """Antialiased (binomial-kernel) blur-pool with reflect padding, as the
+    JAX package's: kernel ``poly1d((0.5, 0.5)) ** (k - 1)`` in its outer
+    product, reflect pad of ``((s - 1) + (k - 1)) // 2``, a strided depthwise
+    conv in f32 (f64 for f64 inputs), and the result in ``x``'s dtype, in
+    channels_last memory."""
+    coeffs = (np.poly1d((0.5, 0.5)) ** (kernel_size - 1)).coeffs
+    xp = upcast(x)
+    k1 = torch.tensor(coeffs, dtype=xp.dtype, device=x.device)
+    pad = ((stride - 1) + (kernel_size - 1)) // 2
+    xp = F.pad(xp, (pad, pad, pad, pad), mode="reflect")
+    out = _depthwise_conv(xp, k1[:, None] * k1[None, :], stride=stride)
+    return out.to(dtype=x.dtype, memory_format=torch.channels_last)

@@ -36,3 +36,18 @@ def cross_entropy(
         one_hot = one_hot * (1.0 - label_smoothing) + label_smoothing / num_classes
     loss = -(one_hot * log_probs).sum(dim=dim)
     return torch.where(valid, loss, 0.0)
+
+
+def sigmoid_focal_loss(
+    logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25, gamma: float = 2.0
+) -> torch.Tensor:
+    """Elementwise focal loss on logits (torchvision ``sigmoid_focal_loss``
+    semantics, no reduction); ``alpha < 0`` turns the class weighting off."""
+    logits, targets = upcast(logits), upcast(targets)
+    p = torch.sigmoid(logits)
+    ce = binary_cross_entropy_with_logits(logits, targets)
+    p_t = p * targets + (1.0 - p) * (1.0 - targets)
+    loss = ce * (1.0 - p_t) ** gamma
+    if alpha >= 0:
+        loss = (alpha * targets + (1.0 - alpha) * (1.0 - targets)) * loss
+    return loss

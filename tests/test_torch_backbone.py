@@ -13,13 +13,12 @@ from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from torch_parity import load_from_jax, randomize_norms, to_numpy, to_torch
 
 
-def test_resnet26_pyramid_matches_jax():
-    """resnet26 runs resnet50's Bottleneck code at half the depth."""
+def _assert_pyramid_matches_jax(name: str) -> None:
     rng = np.random.RandomState(0)
-    jax_bb = JaxBackbone("resnet26", rngs=nnx.Rngs(0))
+    jax_bb = JaxBackbone(name, rngs=nnx.Rngs(0))
     randomize_norms(jax_bb, rng)
     jax_bb.eval()
-    bb = load_from_jax(Backbone("resnet26"), jax_bb)
+    bb = load_from_jax(Backbone(name), jax_bb)
     assert bb.out_channels == jax_bb.out_channels
     x = rng.rand(2, 64, 64, 3).astype(np.float32)
     want = jax_bb(jnp.asarray(x))
@@ -29,6 +28,16 @@ def test_resnet26_pyramid_matches_jax():
     for level, (g, w) in enumerate(zip(got, want)):
         assert g.shape[2:] == (64 >> level, 64 >> level)
         np.testing.assert_allclose(to_numpy(g, nhwc=True), np.asarray(w), rtol=1e-3, atol=1e-4)
+
+
+def test_resnet26_pyramid_matches_jax():
+    """resnet26 runs resnet50's Bottleneck code at half the depth."""
+    _assert_pyramid_matches_jax("resnet26")
+
+
+def test_resnet18_pyramid_matches_jax():
+    """resnet18, the examples' default backbone, runs the BasicBlock code."""
+    _assert_pyramid_matches_jax("resnet18")
 
 
 def test_backbone_refusals():

@@ -13,16 +13,31 @@ from pathlib import Path
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import dynconv, fused_mlp, topk
-from sihl_tpu_torch.ops.fusion import fused_upsample_add, fused_upsample_add_reference
+from sihl_tpu_torch.ops import dynconv, fused_mlp, stem, topk
+from sihl_tpu_torch.ops.fusion import (
+    fused_upsample_add,
+    fused_upsample_add_reference,
+    fused_weighted_sum,
+    fused_weighted_sum_reference,
+)
 from sihl_tpu_torch.policy import compute_dtype_scope
 
 
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+
+
+@pytest.fixture
+def full_f32_convs():
+    """cuDNN's f32 convs in full f32, not TF32, for the plain versions."""
+    before = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cudnn.allow_tf32 = before
 
 
 def _random_mlp(out: int, gen: torch.Generator) -> MLP:
@@ -38,6 +53,15 @@ def _random_mlp(out: int, gen: torch.Generator) -> MLP:
     return mlp.cuda()
 
 
+def _within_one_bf16_step(got: torch.Tensor, want: torch.Tensor, slack=0.0) -> bool:
+    """Every element within one bf16 step (the spacing of bf16 values at the
+    larger of the two magnitudes) of the other, plus ``slack``."""
+    got, want = got.float(), want.float()
+    mag = torch.maximum(got.abs(), want.abs())
+    step = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, 1.0))) - 7)
+    return bool(((got - want).abs() <= step + slack).all())
+
+
 @pytest.mark.cuda
 def test_fused_mlp_kernel_matches_plain_version_on_card():
     _need_card()
@@ -46,6 +70,24 @@ def test_fused_mlp_kernel_matches_plain_version_on_card():
         with compute_dtype_scope(tdt):
             mlps = [_random_mlp(n, gen) for n in (1, 80, 4)]
         for m in (1, 64, 65, 333, 1600):
+            x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
+            with torch.no_grad():
+                got = fused_mlp.fused_mlps(x, mlps)
+                ref = fused_mlp.fused_mlps_reference(x, mlps)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+def test_fused_mlp_kernel_matches_plain_version_at_quad_outputs_on_card():
+    """K1f with the quadrilateral head's gathered MLPs (8 and 5 outputs) at
+    its serving and training row counts."""
+    _need_card()
+    gen = torch.Generator().manual_seed(6)
+    for tdt, atol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        with compute_dtype_scope(tdt):
+            mlps = [_random_mlp(n, gen) for n in (8, 5)]
+        for m in (1600, 2880):
             x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
             with torch.no_grad():
                 got = fused_mlp.fused_mlps(x, mlps)
@@ -65,7 +107,9 @@ def mlp_gradients(fn, x, mlps, weights):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("outs", [(1, 1), (80, 4), (80, 169)], ids=["loc_iou", "cls_box", "cls_kernel"])
+@pytest.mark.parametrize(
+    "outs", [(1, 1), (80, 4), (80, 169), (8, 5)], ids=["loc_iou", "cls_box", "cls_kernel", "quad_class"]
+)
 def test_fused_mlp_backward_kernel_matches_plain_autograd_on_card(outs):
     """K1b against autograd of the plain chain.  dx within atol = rtol =
     ``tol``; every parameter gradient's largest error within ``tol`` times its
@@ -120,6 +164,104 @@ def test_upsample_add_kernel_matches_plain_version_on_card():
             )
             got = fused_upsample_add(top, lat)
             assert torch.equal(got, fused_upsample_add_reference(top, lat))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_weighted_sum_kernel_matches_plain_version_on_card(n):
+    """K6 against its plain version (the same f32 order, no fused
+    multiply-add): bf16 within one bf16 step, f32 within 1e-6 of the largest
+    magnitude; its backward (plain PyTorch) against autograd of the plain
+    version within 1e-6 relative."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    for dt in (torch.bfloat16, torch.float32):
+        for shape in ((2, 128, 20, 20), (3, 16, 7, 9)):
+            xs = [torch.randn(shape, generator=gen).to("cuda", dt).contiguous(memory_format=torch.channels_last)
+                  for _ in range(n)]
+            w = torch.softmax(torch.randn(n, generator=gen), dim=0).cuda()
+            g = torch.randn(shape, generator=gen).to("cuda", dt).contiguous(memory_format=torch.channels_last)
+            grads = []
+            for fn in (fused_weighted_sum, fused_weighted_sum_reference):
+                leaves = [w.clone().requires_grad_(True)] + [x.clone().requires_grad_(True) for x in xs]
+                before = fused_weighted_sum.launches
+                out = fn(leaves[0], leaves[1:])
+                assert fused_weighted_sum.launches == before + (fn is fused_weighted_sum)
+                out.backward(g)
+                grads.append([out.detach()] + [t.grad for t in leaves])
+            (got, *got_grads), (want, *want_grads) = grads
+            assert got.dtype == dt and got.is_contiguous(memory_format=torch.channels_last)
+            if dt == torch.bfloat16:
+                assert _within_one_bf16_step(got, want)
+            else:
+                assert float((got - want).abs().max()) <= 1e-6 * float(want.abs().max())
+            for a, b in zip(got_grads, want_grads):
+                assert a.dtype == b.dtype
+                err = float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
+                assert err <= 1e-6, err
+
+
+@pytest.mark.cuda
+def test_weighted_sum_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    x = torch.zeros(1, 8, 4, 4, device="cuda").contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="channels_last"):
+        fused_weighted_sum(torch.ones(2, device="cuda"), [x.contiguous(), x.contiguous()])
+    with pytest.raises(ValueError, match="float32 weights"):
+        fused_weighted_sum(torch.ones(2, device="cuda", dtype=torch.float64), [x, x])
+    with pytest.raises(ValueError, match="2 or 3 inputs"):
+        fused_weighted_sum(torch.ones(4, device="cuda"), [x, x, x, x])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_stem_kernel_matches_plain_version_on_card(dtype, full_f32_convs):
+    """K4 against its plain version (an f32 conv of the rounded operands,
+    rounded once, then the sums; cuDNN in full f32): y within 1e-4 of the
+    largest magnitude in f32; in bf16 within one bf16 step plus the most two
+    f32 sums of the same 49 * C products can differ by (2 * 49 * C * 2^-24
+    times the sum of their magnitudes: near zero, cancellation leaves fewer
+    digits than a bf16 step); the sums
+    within 1e-5 of the sums of |y| and y^2, against the plain version's and
+    against K4's own y summed by PyTorch; two calls bitwise equal.  Shapes:
+    the ragged H/2 = 18 and W/2 = 19 edges, one channel, eight channels."""
+    _need_card()
+    gen = torch.Generator().manual_seed(8)
+    for b, c, h, w in ((2, 3, 36, 38), (1, 1, 64, 64), (2, 8, 20, 22)):
+        x = torch.rand(b, h, w, c, generator=gen).to("cuda", dtype).permute(0, 3, 1, 2)
+        weight = (torch.randn(64, c, 7, 7, generator=gen) * (1 / (49 * c)) ** 0.5).cuda()
+        before = stem.stem_conv_stats.launches
+        got = stem.stem_conv_stats(x, weight)
+        assert stem.stem_conv_stats.launches == before + 1
+        again = stem.stem_conv_stats(x, weight)
+        assert all(torch.equal(p, q) for p, q in zip(got, again))
+        y, s, q = got
+        want_y, want_s, want_q = stem.stem_conv_stats_reference(x, weight)
+        assert y.shape == (b, 64, h // 2, w // 2) and y.dtype == dtype
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        if dtype == torch.bfloat16:
+            magnitudes = F.conv2d(x.float().abs(), weight.to(dtype).float().abs(), stride=2, padding=3)
+            assert _within_one_bf16_step(y, want_y, 2 * 49 * c * 2.0**-24 * magnitudes)
+        else:
+            assert float((y - want_y).abs().max()) <= 1e-4 * float(want_y.abs().max())
+        yf = y.float()
+        norms = (yf.abs().sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3)))
+        for got_sum, want_sum, own, norm in zip(
+            (s, q), (want_s, want_q), (yf.sum(dim=(0, 2, 3)), (yf * yf).sum(dim=(0, 2, 3))), norms
+        ):
+            assert float(((got_sum - want_sum).abs() / norm).max()) <= 1e-5
+            assert float(((got_sum - own).abs() / norm).max()) <= 1e-5
+
+
+@pytest.mark.cuda
+def test_stem_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    x = torch.zeros(1, 3, 16, 16, device="cuda")
+    weight = torch.zeros(64, 3, 7, 7, device="cuda")
+    with pytest.raises(ValueError, match="channels_last"):
+        stem.stem_conv_stats(x, weight)
+    with pytest.raises(ValueError, match="takes"):
+        stem.stem_conv_stats(x.half().contiguous(memory_format=torch.channels_last), weight)
 
 
 def _decode_inputs(gen, b, i, h, w, c, k, dtype):

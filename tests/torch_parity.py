@@ -81,3 +81,15 @@ def assert_detections_match(got, want, box_atol):
     np.testing.assert_array_equal(classes.numpy(), w_classes)
     np.testing.assert_allclose(to_numpy(scores), w_scores, atol=1e-5, rtol=0)
     np.testing.assert_allclose(to_numpy(boxes), w_boxes, atol=box_atol, rtol=0)
+
+
+def assert_within_one_bf16_step(got, want) -> None:
+    """Each element of ``got`` within one bf16 step of ``want``: the spacing
+    of bf16 values at the larger magnitude of the two (2^-7 of its power of
+    two).  Two roundings to bf16 of f32 sums taken in different orders agree
+    so where the sums keep more digits than bf16."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    step = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
+    bad = np.abs(got - want) > step
+    assert not bad.any(), f"{int(bad.sum())} of {bad.size} elements beyond one bf16 step, e.g. {got[bad][:4]} vs {want[bad][:4]}"
