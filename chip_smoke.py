@@ -290,8 +290,40 @@ def mlp_grads(fn, x, mlps, weights):
     return [o.detach() for o in outputs], [x.grad] + [p.grad for m in mlps for p in m.parameters()]
 
 
+def cublas_products_ms(m: int, outs, dtype: torch.dtype, backward: bool) -> float:
+    """A yardstick of tensor-core speed, never called by the port: the same
+    layer products alone on cuBLAS (torch.matmul at the call's shapes, from
+    a CUDA graph).  Forward: per MLP, NUM_LAYERS hidden (m, D) x (D, D)
+    products and the output (m, D) x (D, n_out).  Backward: per MLP, the
+    chain's dX and dW products of every layer (what autograd of the plain
+    chain multiplies), without K1b's recompute of the forward."""
+    gen = torch.Generator("cuda").manual_seed(m)
+    a = torch.randn(m, WIDTH, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(WIDTH, WIDTH, device="cuda", generator=gen).to(dtype)
+    heads = [(torch.randn(WIDTH, n, device="cuda", generator=gen).to(dtype),
+              torch.randn(m, n, device="cuda", generator=gen).to(dtype)) for n in outs]
+
+    def products():
+        for wo, g in heads:
+            if backward:
+                torch.matmul(g, wo.t())
+                torch.matmul(a.t(), g)
+                for _ in range(NUM_LAYERS):
+                    torch.matmul(a, w.t())
+                    torch.matmul(a.t(), a)
+            else:
+                for _ in range(NUM_LAYERS):
+                    torch.matmul(a, w)
+                torch.matmul(a, wo)
+
+    return graph_ms(products)
+
+
 def k1f_case(gen, cuda_gen, label, m, outs, dtype, atol, rtol) -> dict:
-    """K1f over m rows against the plain chain, eval MLPs, no gradient."""
+    """K1f over m rows against the plain chain, eval MLPs, no gradient.
+    ``ms`` is the kernel alone (a CUDA graph of 20 calls over packed
+    weights); ``call_ms`` the call as a request makes it (the pack cache is
+    warm, so it packs nothing)."""
     mlps = [mlp.eval() for mlp in random_mlps(outs, dtype, gen)]
     x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
     with torch.no_grad():
@@ -301,18 +333,26 @@ def k1f_case(gen, cuda_gen, label, m, outs, dtype, atol, rtol) -> dict:
         err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got, want))
         for g, w in zip(got, want):
             torch.testing.assert_close(g.float(), w.float(), atol=atol, rtol=rtol)
-        ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+        packs = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
+        ms = graph_ms(lambda: fused_mlp._forward_cuda(x, packs))
+        call_ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
         plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
-    case = dict(path=dtype == torch.bfloat16, label=label, err=err, ms=ms, plain_ms=plain_ms,
-                **bound(*mlp_work(m, outs, dtype, 1), dtype))
+    cublas_ms = cublas_products_ms(m, outs, dtype, backward=False)
+    case = dict(path=dtype == torch.bfloat16, label=label, err=err, ms=ms, call_ms=call_ms, cublas_ms=cublas_ms,
+                plain_ms=plain_ms, **bound(*mlp_work(m, outs, dtype, 1), dtype))
     print(f"  K1f fused_mlp {label} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err {err:.3g} "
-          f"(atol {atol}, rtol {rtol}); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms")
+          f"(atol {atol}, rtol {rtol}); kernel alone {ms:.4f} ms, call {call_ms:.4f} ms, plain {plain_ms:.4f} ms, "
+          f"bound {case['bound_ms']:.4f} ms; yardstick: the same products alone on cuBLAS {cublas_ms:.4f} ms")
     return case
 
 
 def k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol):
     """K1f's forward and K1b over m rows against the plain chain and its
-    autograd, with gradients; returns the forward's and the backward's case."""
+    autograd, with gradients; returns the forward's and the backward's case.
+    Each is timed as the kernel alone (a CUDA graph of 20 calls over packed
+    weights; the forward writing the stash its backward reads) and as the
+    call a training step makes: the forward packing the weights (as after an
+    optimizer step), the backward through autograd."""
     mlps = random_mlps(outs, dtype, gen)
     x = torch.randn(m, WIDTH, device="cuda", generator=cuda_gen).to(dtype)
     weights = [torch.randn(m, n, device="cuda", generator=cuda_gen) for n in outs]
@@ -322,34 +362,47 @@ def k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol):
     out_err = max(float((g.float() - w.float()).abs().max()) for g, w in zip(got_out, want_out))
     for g, w in zip(got_out, want_out):
         torch.testing.assert_close(g.float(), w.float(), atol=f_atol, rtol=f_rtol)
+    packs = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
+    stash = fused_mlp.stash_for(x, packs)
+
+    def packed_call():
+        fused_mlp._PACKS.clear()
+        return fused_mlp.fused_mlps(x, mlps)
+
     with torch.no_grad():
-        ms = median_ms(lambda: fused_mlp.fused_mlps(x, mlps))
+        ms = graph_ms(lambda: fused_mlp._forward_cuda(x, packs, stash))
         plain_ms = median_ms(lambda: fused_mlp.fused_mlps_reference(x, mlps))
-    fwd = dict(path=dtype == torch.bfloat16, label=label, err=out_err, ms=ms, plain_ms=plain_ms,
-               **bound(*mlp_work(m, outs, dtype, 1), dtype))
+    call_ms = median_ms(packed_call)
+    cublas_ms = cublas_products_ms(m, outs, dtype, backward=False)
+    fwd = dict(path=dtype == torch.bfloat16, label=label, err=out_err, ms=ms, call_ms=call_ms, cublas_ms=cublas_ms,
+               plain_ms=plain_ms, **bound(*mlp_work(m, outs, dtype, 1), dtype))
     print(f"  K1f fused_mlp {label} {tuple(x.shape)} {dtype}, outputs {outs}: max_abs_err "
-          f"{out_err:.3g} (atol {f_atol}, rtol {f_rtol}); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms")
+          f"{out_err:.3g} (atol {f_atol}, rtol {f_rtol}); kernel alone {ms:.4f} ms, call (packing included) "
+          f"{call_ms:.4f} ms, plain {plain_ms:.4f} ms, bound {fwd['bound_ms']:.4f} ms; yardstick: the same "
+          f"products alone on cuBLAS {cublas_ms:.4f} ms")
 
     err = float((got[0].float() - want[0].float()).abs().max())
     torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
     param_err = max(float((g - w).abs().max()) / float(w.abs().max()) for g, w in zip(got[1:], want[1:]))
     if param_err > tol:
         raise AssertionError(f"K1b {label} {dtype}: parameter gradient error {param_err} of the largest")
-    packed = [fused_mlp.pack_mlp_params(mlp, dtype) for mlp in mlps]
     gs = [w.to(dtype) for w in weights]
     xr = x.detach().requires_grad_(True)
-    outputs = fused_mlp.fused_mlps_reference(xr, mlps)
     inputs = [xr] + [p for mlp in mlps for p in mlp.parameters()]
-    ms = median_ms(lambda: fused_mlp.fused_mlps_backward(x, packed, gs))
+    outputs = fused_mlp.fused_mlps(xr, mlps)
+    ms = graph_ms(lambda: fused_mlp.fused_mlps_backward(x, packs, gs, stash))
+    call_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gs, retain_graph=True))
+    outputs = fused_mlp.fused_mlps_reference(xr, mlps)
     plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gs, retain_graph=True))
     del outputs
-    bwd = dict(path=dtype == torch.bfloat16, label=label, err=err, ms=ms, plain_ms=plain_ms,
-               **bound(*mlp_work(m, outs, dtype, 3), dtype))
+    cublas_ms = cublas_products_ms(m, outs, dtype, backward=True)
+    bwd = dict(path=dtype == torch.bfloat16, label=label, err=err, ms=ms, call_ms=call_ms, cublas_ms=cublas_ms,
+               plain_ms=plain_ms, **bound(*mlp_work(m, outs, dtype, 3), dtype))
     print(f"  K1b fused_mlp_backward {label} {tuple(x.shape)} {dtype}, outputs {outs}: dx "
           f"max_abs_err {err:.3g} (atol = rtol = {tol}); parameter gradients' largest error "
-          f"{param_err:.3g} of their largest magnitude (bound {tol}); kernel {ms:.4f} ms, plain "
-          f"(autograd of the chain) {plain_ms:.4f} ms, bound {bwd['bound_ms']:.4f} ms")
+          f"{param_err:.3g} of their largest magnitude (bound {tol}); kernel alone {ms:.4f} ms, call "
+          f"(autograd through the kernel) {call_ms:.4f} ms, plain (autograd of the chain) {plain_ms:.4f} ms, "
+          f"bound {bwd['bound_ms']:.4f} ms; yardstick: the chain's products alone on cuBLAS {cublas_ms:.4f} ms")
     return fwd, bwd
 
 
@@ -1216,6 +1269,8 @@ def main() -> None:
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
             library_ms=None,
+            # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick
+            **({k: sum(c[k] for c in cases) for k in ("call_ms", "cublas_ms")} if "call_ms" in cases[0] else {}),
         ))
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": summary}))

@@ -63,8 +63,7 @@ OP_CLASSES = (
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
     ("K1f fused MLP", ("fused_mlp_fwd",)),
-    ("K1b fused MLP backward", ("fused_mlp_bwd_tile_kernel", "dw_bf16_kernel", "dw_fma_kernel",
-                                "reduce_partials_kernel")),
+    ("K1b fused MLP backward", ("fused_mlp_bwd_", "dw_bf16_kernel", "dw_f32_kernel", "reduce_partials_kernel")),
     ("K2 row k-th threshold", ("row_best_kth_kernel",)),
     ("K3 upsample-add", ("upsample_add_kernel",)),
     ("K5f dynamic decode", ("decode_fwd_kernel",)),

@@ -4,24 +4,43 @@
 :func:`fused_mlps` runs several :class:`~sihl_tpu_torch.layers.mlp.MLP`\\ s
 over one shared (M, D) input.  A CUDA tensor goes to the hand-written
 kernels of ``csrc/fused_mlp.cu`` (the file says how they are laid out and
-what bounds them) through :class:`_FusedMLPs`: K1f in the forward, one launch
-per MLP, and K1b (:func:`fused_mlps_backward`) in the backward.  The
-parameters are packed inside the autograd graph, so the gradients reach each
-Linear and LayerNorm through the stack, transpose and cast.  A CPU tensor
-goes to :func:`fused_mlps_reference`, the plain module chain, whose backward
-is autograd's.
+what bounds them) through :class:`_FusedMLPs`: K1f in the forward and K1b
+(:func:`fused_mlps_backward`) in the backward.  A CPU tensor goes to
+:func:`fused_mlps_reference`, the plain module chain, whose backward is
+autograd's.
+
+One launch covers every MLP of a call: ``fused_mlps.launches`` counts K1f
+launches, one per forward call, and ``fused_mlps_backward.launches`` counts
+K1b launches, one per backward call (its tile kernel over every MLP, then
+the dW GEMM and the fixed-order reductions that finish it).
+
+The kernels read each MLP's parameters as :func:`pack_mlp_params` lays them
+out: in bf16, the hidden weights as one swizzled image that the kernels'
+bulk copies move as it is (:func:`pack_hidden_image`).  A pack is cached per
+MLP and rebuilt only when a parameter changes (its ``_version`` or
+``data_ptr``), so a warm request packs nothing and a training step packs
+once.  The autograd Function takes the MLPs' own parameters as inputs, packs
+them outside the graph, and returns each parameter's gradient in its own
+layout and dtype, the weights' gradients rounded to the compute dtype first
+(``_fused_bwd`` of ``sihl_tpu/ops/pallas/mlp.py`` returns its compute-dtype
+weights' gradients so).  A bf16 forward that a backward will follow also
+writes the :class:`Stash` (x and every hidden output as tile images) that
+K1b reads in place of recomputing the forward.
 """
 
 import ctypes
 import functools
-from typing import List, Sequence, Tuple
+import weakref
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
 from sihl_tpu_torch.ops.build import cuda_library
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_PARAMS_PER_MLP = 6
+_CHUNK = 64  # columns of one K-chunk of the packed image: 128 bytes of bf16
+_MAX_MLPS = 4  # MLPs of one call, and the widest output layer, as csrc/fused_mlp.cu is compiled
+_MAX_OUT = 256
 
 
 def fused_mlps_reference(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) -> List[torch.Tensor]:
@@ -29,43 +48,121 @@ def fused_mlps_reference(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) ->
     return [m(x_2d) for m in mlps]
 
 
-def pack_mlp_params(mlp, dtype: torch.dtype):
-    """(wh, bh, sc, bi, wo, bo) as the kernels read them: hidden weights
-    (L, D, D) and the output weight (D, n_out) as [in][out] in ``dtype``;
-    biases and LayerNorm parameters in f32."""
+def pack_hidden_image(weights: torch.Tensor) -> torch.Tensor:
+    """The hidden weights (L, D, D) in the Linear layout (out, in), as the
+    flat image the bf16 kernels copy into shared memory: for each layer l and
+    K-chunk kc (columns 64 kc .. 64 kc + 63), 256 rows n of 128 bytes, whose
+    16-byte unit u (columns 64 kc + 8 u .. + 7) sits at unit u ^ (n % 8) (the
+    128-byte swizzle that wgmma's descriptors read)."""
+    num_layers, d, _ = weights.shape
+    w = weights.reshape(num_layers, d, d // _CHUNK, 8, 8).permute(0, 2, 1, 3, 4)  # l, kc, n, u, e
+    n = torch.arange(d, device=weights.device)
+    unit = torch.arange(8, device=weights.device)[None, :] ^ (n[:, None] % 8)  # (n, position) -> unit
+    index = unit[None, None, :, :, None].expand(num_layers, d // _CHUNK, d, 8, 8)
+    return torch.gather(w, 3, index).contiguous().reshape(-1)
+
+
+class MLPPack(NamedTuple):
+    """One MLP's parameters as the kernels read them.  bf16: ``w`` is the
+    hidden-weight image and ``wt`` None; f32: ``w`` is (L, D, D) as [in][out]
+    and ``wt`` as [out][in].  ``bh``, ``sc``, ``bi`` (L, D) and ``bo`` (n_out)
+    are f32; ``wo`` is (n_out, D) in the compute dtype."""
+
+    w: torch.Tensor
+    wt: Optional[torch.Tensor]
+    bh: torch.Tensor
+    sc: torch.Tensor
+    bi: torch.Tensor
+    wo: torch.Tensor
+    bo: torch.Tensor
+
+    @property
+    def num_layers(self) -> int:
+        return self.bh.shape[0]
+
+    @property
+    def n_out(self) -> int:
+        return self.wo.shape[0]
+
+
+def mlp_parameters(mlp) -> List[torch.Tensor]:
+    """The MLP's parameters in the order the Function takes them: the hidden
+    Linears' weights, their biases, the LayerNorms' scales and shifts, then
+    the output Linear's weight and bias."""
     linears = list(mlp.linears)
-    wh = torch.stack([lin.weight.t() for lin in linears[:-1]]).to(dtype).contiguous()
-    bh = torch.stack([lin.bias for lin in linears[:-1]]).float().contiguous()
-    sc = torch.stack([n.weight for n in mlp.norms]).float().contiguous()
-    bi = torch.stack([n.bias for n in mlp.norms]).float().contiguous()
-    wo = linears[-1].weight.t().to(dtype).contiguous()
-    bo = linears[-1].bias.float().contiguous()
-    return wh, bh, sc, bi, wo, bo
+    return ([lin.weight for lin in linears[:-1]] + [lin.bias for lin in linears[:-1]]
+            + [n.weight for n in mlp.norms] + [n.bias for n in mlp.norms]
+            + [linears[-1].weight, linears[-1].bias])
+
+
+_PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def pack_mlp_params(mlp, dtype: torch.dtype) -> MLPPack:
+    """The MLP's :class:`MLPPack` in ``dtype``, cached until a parameter
+    changes: the cache key is every parameter's ``data_ptr`` and
+    ``_version``, which an in-place update (an optimizer step) bumps."""
+    params = mlp_parameters(mlp)
+    key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
+    cached = _PACKS.get(mlp)
+    if cached is not None and cached[0] == key:
+        return cached[1]
+    linears = list(mlp.linears)
+    with torch.no_grad():
+        wt = torch.stack([lin.weight for lin in linears[:-1]]).to(dtype)
+        if dtype == torch.bfloat16:
+            w, wt = pack_hidden_image(wt), None
+        else:
+            w, wt = wt.transpose(1, 2).contiguous(), wt.contiguous()
+        pack = MLPPack(
+            w=w,
+            wt=wt,
+            bh=torch.stack([lin.bias for lin in linears[:-1]]).float().contiguous(),
+            sc=torch.stack([n.weight for n in mlp.norms]).float().contiguous(),
+            bi=torch.stack([n.bias for n in mlp.norms]).float().contiguous(),
+            wo=linears[-1].weight.to(dtype).contiguous(),
+            bo=linears[-1].bias.float().contiguous(),
+        )
+    _PACKS[mlp] = (key, pack)
+    return pack
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_library("fused_mlp")
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sihl_fused_mlp_fwd.argtypes = [i, p, i, p, p, p, p, i, p, p, i, p, p]
+    p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
+    for name in ("sihl_fused_mlp_width", "sihl_fused_mlp_max_mlps", "sihl_fused_mlp_max_out"):
+        getattr(lib, name).argtypes = []
+        getattr(lib, name).restype = i
+    lib.sihl_fused_mlp_fwd.argtypes = [i, p, p, i, i, i, p, p, p]
     lib.sihl_fused_mlp_fwd.restype = i
-    lib.sihl_fused_mlp_bwd_workspace.argtypes = [i, i, i, i]
-    lib.sihl_fused_mlp_bwd_workspace.restype = ctypes.c_size_t
-    lib.sihl_fused_mlp_bwd.argtypes = [i, p, i, p, p, p, p, p, i, p, i, p, p, p, p, p, p, p, p, p, p]
+    lib.sihl_fused_mlp_tile_bytes.argtypes = [i]
+    lib.sihl_fused_mlp_tile_bytes.restype = size
+    lib.sihl_fused_mlp_bwd_workspace.argtypes = [i, i, i, i, p]
+    lib.sihl_fused_mlp_bwd_workspace.restype = size
+    lib.sihl_fused_mlp_bwd.argtypes = [i, p, p, i, i, i, p, p, p, p, p, p, p, p]
     lib.sihl_fused_mlp_bwd.restype = i
-    lib.sihl_fused_mlp_width.argtypes = []
-    lib.sihl_fused_mlp_width.restype = i
+    lib.sihl_fused_mlp_dw_alone_workspace.argtypes = [i]
+    lib.sihl_fused_mlp_dw_alone_workspace.restype = size
+    lib.sihl_fused_mlp_dw_alone.argtypes = [p, p, i, p, p, p]
+    lib.sihl_fused_mlp_dw_alone.restype = i
     lib.sihl_cuda_error_string.argtypes = [i]
     lib.sihl_cuda_error_string.restype = ctypes.c_char_p
+    if (lib.sihl_fused_mlp_max_mlps(), lib.sihl_fused_mlp_max_out()) != (_MAX_MLPS, _MAX_OUT):
+        raise RuntimeError("csrc/fused_mlp.cu and ops/fused_mlp.py disagree on the call limits")
     return lib
 
 
 def _check_supported(x_2d: torch.Tensor, mlps, width: int) -> torch.dtype:
     if x_2d.dim() != 2 or x_2d.shape[1] != width:
         raise ValueError(f"the fused-MLP kernel takes (M, {width}) inputs, got {tuple(x_2d.shape)}")
+    if not 1 <= len(mlps) <= _MAX_MLPS:
+        raise ValueError(f"the fused-MLP kernel takes 1 to {_MAX_MLPS} MLPs, got {len(mlps)}")
     dtypes = {m.dtype for m in mlps}
     if len(dtypes) != 1 or next(iter(dtypes)) not in _KERNEL_DTYPES:
         raise ValueError(f"the fused-MLP kernel takes MLPs of one dtype in {list(_KERNEL_DTYPES)}, got {dtypes}")
+    if len({len(m.linears) for m in mlps}) != 1:
+        raise ValueError("the fused-MLP kernel takes MLPs of one depth")
     for m in mlps:
         linears = list(m.linears)
         if len(linears) < 2 or len(m.norms) != len(linears) - 1:
@@ -73,6 +170,8 @@ def _check_supported(x_2d: torch.Tensor, mlps, width: int) -> torch.dtype:
         for lin in linears[:-1]:
             if tuple(lin.weight.shape) != (width, width):
                 raise ValueError(f"hidden layers must be {width} wide, got {tuple(lin.weight.shape)}")
+        if not 1 <= linears[-1].weight.shape[0] <= _MAX_OUT:
+            raise ValueError(f"the output layer must have 1 to {_MAX_OUT} outputs")
         if any(p.device != x_2d.device for p in m.parameters()):
             raise ValueError("MLP parameters and input must be on one device")
     return next(iter(dtypes))
@@ -83,95 +182,146 @@ def _check_launch(lib, err: int, what: str) -> None:
         raise RuntimeError(f"fused-MLP {what} kernel launch failed: {lib.sihl_cuda_error_string(err).decode()}")
 
 
-def _forward_cuda(x: torch.Tensor, heads) -> List[torch.Tensor]:
-    """K1f: one launch per MLP of packed parameters ``heads``."""
+class Stash(NamedTuple):
+    """What the bf16 training forward keeps for the backward, as 64-row tile
+    images: x, and each MLP's hidden outputs h_0 .. h_{L-1}."""
+
+    x: torch.Tensor
+    h: List[torch.Tensor]
+
+
+def stash_for(x: torch.Tensor, packs: Sequence[MLPPack]) -> Optional[Stash]:
+    """Room for the stash of a bf16 forward over ``x`` (None in f32, whose
+    backward recomputes its own)."""
+    if x.dtype != torch.bfloat16:
+        return None
+    per_layer = _library().sihl_fused_mlp_tile_bytes(x.shape[0])
+    room = dict(dtype=torch.uint8, device=x.device)
+    return Stash(torch.empty(per_layer, **room), [torch.empty(pk.num_layers * per_layer, **room) for pk in packs])
+
+
+def _pointer_table(packs: Sequence[MLPPack], ios: Sequence[torch.Tensor], stash: Optional[Stash]):
+    """Per MLP the addresses (w, wt, bh, sc, bi, wo, bo, io, h), and the output widths."""
+    values = []
+    for i, (pk, io) in enumerate(zip(packs, ios)):
+        values += [pk.w.data_ptr(), pk.wt.data_ptr() if pk.wt is not None else 0, pk.bh.data_ptr(),
+                   pk.sc.data_ptr(), pk.bi.data_ptr(), pk.wo.data_ptr(), pk.bo.data_ptr(), io.data_ptr(),
+                   stash.h[i].data_ptr() if stash is not None else 0]
+    ptrs = (ctypes.c_longlong * len(values))(*values)
+    n_outs = (ctypes.c_int * len(packs))(*[pk.n_out for pk in packs])
+    return ptrs, n_outs
+
+
+def _forward_cuda(x: torch.Tensor, packs: Sequence[MLPPack], stash: Optional[Stash] = None) -> List[torch.Tensor]:
+    """K1f: one launch over every MLP of packed parameters ``packs``; in a
+    bf16 training forward it also fills ``stash`` for the backward."""
     lib = _library()
     m = x.shape[0]
-    outs = []
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        for wh, bh, sc, bi, wo, bo in heads:
-            out = torch.empty((m, wo.shape[1]), dtype=x.dtype, device=x.device)
-            if m:
-                err = lib.sihl_fused_mlp_fwd(
-                    _KERNEL_DTYPES[x.dtype], x.data_ptr(), m, wh.data_ptr(), bh.data_ptr(),
-                    sc.data_ptr(), bi.data_ptr(), wh.shape[0], wo.data_ptr(), bo.data_ptr(),
-                    wo.shape[1], out.data_ptr(), stream,
-                )
-                _check_launch(lib, err, "forward")
-                fused_mlps.launches += 1
-            outs.append(out)
+    outs = [torch.empty((m, pk.n_out), dtype=x.dtype, device=x.device) for pk in packs]
+    if m:
+        ptrs, n_outs = _pointer_table(packs, outs, stash)
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = lib.sihl_fused_mlp_fwd(_KERNEL_DTYPES[x.dtype], x.data_ptr(),
+                                         stash.x.data_ptr() if stash is not None else None, m,
+                                         packs[0].num_layers, len(packs), ptrs, n_outs, stream)
+        _check_launch(lib, err, "forward")
+        fused_mlps.launches += 1
     return outs
 
 
-def fused_mlps_backward(x: torch.Tensor, heads, gs) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """K1b: the backward of the MLPs of packed parameters ``heads`` over the
-    CUDA input ``x`` (M, D), given each output's cotangent ``gs`` in the
-    compute dtype.  Returns dx (M, D) in the compute dtype, summed over the
-    MLPs, and the gradient of every packed parameter, cast to its dtype (as
-    ``_fused_bwd`` casts them)."""
+def fused_mlps_backward(x: torch.Tensor, packs: Sequence[MLPPack], gs,
+                        stash: Optional[Stash] = None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """K1b: the backward of the MLPs of packed parameters ``packs`` over the
+    CUDA input ``x`` (M, D), given each output's cotangent ``gs`` (M, n_out)
+    in the compute dtype and, in bf16, the ``stash`` their forward filled.
+    Returns dx (M, D) in the compute dtype, summed over the MLPs, and per MLP
+    the f32 gradients (dwh (L, D, D) in the Linear layout, dbh, dsc, dbi
+    (L, D), dwo (n_out, D), dbo (n_out))."""
     lib = _library()
     m, d = x.shape
+    num_layers, num = packs[0].num_layers, len(packs)
+    if x.dtype == torch.bfloat16 and m and stash is None:
+        raise ValueError("the bf16 fused-MLP backward needs the stash of its forward")
     f32 = dict(dtype=torch.float32, device=x.device)
-    is_bf16 = _KERNEL_DTYPES[x.dtype]
-    dx = torch.empty_like(x)
-    grads = []
     if m == 0:
-        for head in heads:
-            grads += [torch.zeros_like(p) for p in head]
-        return dx, grads
-    workspace = torch.empty(
-        max(lib.sihl_fused_mlp_bwd_workspace(is_bf16, m, wh.shape[0], wo.shape[1])
-            for wh, _, _, _, wo, _ in heads),
-        dtype=torch.uint8, device=x.device,
-    )
-    dx_acc = torch.empty((m, d), **f32) if len(heads) > 1 else None
+        grads = []
+        for pk in packs:
+            grads += [torch.zeros((num_layers, d, d), **f32), torch.zeros((num_layers, d), **f32),
+                      torch.zeros((num_layers, d), **f32), torch.zeros((num_layers, d), **f32),
+                      torch.zeros((pk.n_out, d), **f32), torch.zeros((pk.n_out,), **f32)]
+        return torch.empty_like(x), grads
+    is_bf16 = _KERNEL_DTYPES[x.dtype]
+    gs = [g.to(x.dtype).contiguous() for g in gs]
+    ptrs, n_outs = _pointer_table(packs, gs, stash)
+    workspace = torch.empty(lib.sihl_fused_mlp_bwd_workspace(is_bf16, m, num_layers, num, n_outs),
+                            dtype=torch.uint8, device=x.device)
+    dw = torch.empty((num, num_layers + 1, d, d), **f32)
+    dcols = torch.empty((num, num_layers, 3, d), **f32)  # LN scale, LN shift, hidden bias
+    dbo = torch.empty((num, _MAX_OUT), **f32)
+    dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        for idx, ((wh, bh, sc, bi, wo, bo), g) in enumerate(zip(heads, gs)):
-            num_layers, n_out = wh.shape[0], wo.shape[1]
-            wht = wh.transpose(1, 2).contiguous()
-            dwh = torch.empty((num_layers, d, d), **f32)
-            dcols = torch.empty((num_layers, 3, d), **f32)  # LN scale, LN shift, hidden bias
-            dwo = torch.empty((d, n_out), **f32)
-            dbo = torch.empty((n_out,), **f32)
-            first, last = idx == 0, idx == len(heads) - 1
-            err = lib.sihl_fused_mlp_bwd(
-                is_bf16, x.data_ptr(), m, wh.data_ptr(), wht.data_ptr(), bh.data_ptr(),
-                sc.data_ptr(), bi.data_ptr(), num_layers, wo.data_ptr(), n_out, g.data_ptr(),
-                workspace.data_ptr(), dwh.data_ptr(), dcols.data_ptr(), dwo.data_ptr(),
-                dbo.data_ptr(), None if first else dx_acc.data_ptr(),
-                None if last else dx_acc.data_ptr(), dx.data_ptr() if last else None, stream,
-            )
-            _check_launch(lib, err, "backward")
-            fused_mlps_backward.launches += 1
-            grads += [dwh.to(wh.dtype), dcols[:, 2], dcols[:, 0], dcols[:, 1], dwo.to(wo.dtype), dbo]
+        err = lib.sihl_fused_mlp_bwd(is_bf16, x.data_ptr(), stash.x.data_ptr() if stash is not None else None,
+                                     m, num_layers, num, ptrs, n_outs,
+                                     workspace.data_ptr(), dw.data_ptr(), dcols.data_ptr(), dbo.data_ptr(),
+                                     dx.data_ptr(), stream)
+    _check_launch(lib, err, "backward")
+    fused_mlps_backward.launches += 1
+    grads = []
+    for i, pk in enumerate(packs):
+        grads += [dw[i, :num_layers], dcols[i, :, 2], dcols[i, :, 0], dcols[i, :, 1],
+                  dw[i, num_layers, : pk.n_out], dbo[i, : pk.n_out]]
     return dx, grads
 
 
 fused_mlps_backward.launches = 0  # kernel launches since the last reset
 
 
+def dw_gemm_alone(h: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The bf16 backward's dW GEMM on its own, for tests: dy^T h (D, D) in
+    f32 for CUDA bf16 (M, D) inputs, through the same tile images, kernel
+    and fixed-order reduction as :func:`fused_mlps_backward`."""
+    lib = _library()
+    m, d = h.shape
+    h, dy = h.contiguous(), dy.contiguous()
+    out = torch.empty((d, d), dtype=torch.float32, device=h.device)
+    workspace = torch.empty(lib.sihl_fused_mlp_dw_alone_workspace(m), dtype=torch.uint8, device=h.device)
+    with torch.cuda.device(h.device):
+        stream = torch.cuda.current_stream(h.device).cuda_stream
+        err = lib.sihl_fused_mlp_dw_alone(h.data_ptr(), dy.data_ptr(), m, workspace.data_ptr(), out.data_ptr(), stream)
+    _check_launch(lib, err, "dW")
+    return out
+
+
 class _FusedMLPs(torch.autograd.Function):
-    """K1f forward, K1b backward, over the packed parameters of every MLP."""
+    """K1f forward, K1b backward.  Inputs: x, the MLPs, the compute dtype,
+    whether a backward will follow, then every MLP's :func:`mlp_parameters`."""
 
     @staticmethod
-    def forward(ctx, x, *flat):
-        heads = [flat[i : i + _PARAMS_PER_MLP] for i in range(0, len(flat), _PARAMS_PER_MLP)]
-        ctx.save_for_backward(x, *flat)
-        return tuple(_forward_cuda(x, heads))
+    def forward(ctx, x, mlps, dtype, training, *params):
+        packs = [pack_mlp_params(mlp, dtype) for mlp in mlps]
+        ctx.packs = packs
+        ctx.stash = stash_for(x, packs) if training else None
+        ctx.save_for_backward(x, *params)
+        return tuple(_forward_cuda(x, packs, ctx.stash))
 
     @staticmethod
     def backward(ctx, *gs):
-        x, *flat = ctx.saved_tensors
-        heads = [flat[i : i + _PARAMS_PER_MLP] for i in range(0, len(flat), _PARAMS_PER_MLP)]
-        gs = [
-            torch.zeros((x.shape[0], head[4].shape[1]), dtype=x.dtype, device=x.device)
-            if g is None else g.to(x.dtype).contiguous()
-            for g, head in zip(gs, heads)
-        ]
-        dx, grads = fused_mlps_backward(x, heads, gs)
-        return (dx, *grads)
+        x, *params = ctx.saved_tensors
+        packs = ctx.packs
+        gs = [torch.zeros((x.shape[0], pk.n_out), dtype=x.dtype, device=x.device) if g is None else g
+              for g, pk in zip(gs, packs)]
+        dx, grads = fused_mlps_backward(x, packs, gs, ctx.stash)
+        out = []
+        for i, pk in enumerate(packs):
+            dwh, dbh, dsc, dbi, dwo, dbo = grads[6 * i : 6 * i + 6]
+            num_layers = pk.num_layers
+            out += [dwh[l].to(x.dtype) for l in range(num_layers)]  # rounded as the compute-dtype weight
+            out += [dbh[l] for l in range(num_layers)] + [dsc[l] for l in range(num_layers)]
+            out += [dbi[l] for l in range(num_layers)] + [dwo.to(x.dtype), dbo]
+        out = [g.to(p.dtype) for g, p in zip(out, params)]
+        return (dx, None, None, None, *out)
 
 
 def _fused_mlps_cuda(x_2d: torch.Tensor, mlps) -> List[torch.Tensor]:
@@ -179,8 +329,9 @@ def _fused_mlps_cuda(x_2d: torch.Tensor, mlps) -> List[torch.Tensor]:
     x = x_2d.to(dtype).contiguous()
     if x.data_ptr() % 16:  # the kernels read x in 16-byte vectors
         x = x.clone()
-    flat = [t for mlp in mlps for t in pack_mlp_params(mlp, dtype)]
-    return list(_FusedMLPs.apply(x, *flat))
+    params = [p for mlp in mlps for p in mlp_parameters(mlp)]
+    training = torch.is_grad_enabled() and (x.requires_grad or any(p.requires_grad for p in params))
+    return list(_FusedMLPs.apply(x, tuple(mlps), dtype, training, *params))
 
 
 def fused_mlps(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) -> List[torch.Tensor]:

@@ -124,13 +124,84 @@ def test_fused_mlp_backward_kernel_matches_plain_autograd_on_card(outs):
             weights = [torch.randn(m, n, generator=gen).cuda() for n in outs]
             before = fused_mlp.fused_mlps_backward.launches
             got = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
-            assert fused_mlp.fused_mlps_backward.launches == before + len(outs)
+            assert fused_mlp.fused_mlps_backward.launches == before + 1  # one launch for all MLPs
             want = mlp_gradients(fused_mlp.fused_mlps_reference, x, mlps, weights)
             torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
             for g, w in zip(got[1:], want[1:]):
                 assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
                 err = float((g - w).abs().max())
                 assert err <= tol * max(float(w.abs().max()), 1e-6), (tuple(g.shape), m, tdt, err)
+
+
+RAGGED_ROWS = (1, 63, 64, 65, 127, 129, 1600)
+OUTPUTS = [(1,), (1, 1), (80, 4), (8, 5), (80, 169)]
+OUTPUT_IDS = ["loc", "loc_iou", "cls_box", "quad_class", "cls_kernel"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outs", OUTPUTS, ids=OUTPUT_IDS)
+def test_fused_mlp_kernel_at_ragged_rows_on_card(outs):
+    """K1f at row counts around the 64- and 128-row tiles, one launch per
+    call, against the plain chain at the tolerances above.  The largest,
+    ragged at 128, fills the card with 128-row tiles (two consumer
+    warpgroups a block)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    for tdt, atol in ((torch.bfloat16, 5e-2), (torch.float32, 1e-3)):
+        with compute_dtype_scope(tdt):
+            mlps = [_random_mlp(n, gen) for n in outs]
+        for m in RAGGED_ROWS + (16961,):
+            x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
+            with torch.no_grad():
+                before = fused_mlp.fused_mlps.launches
+                got = fused_mlp.fused_mlps(x, mlps)
+                assert fused_mlp.fused_mlps.launches == before + 1
+                ref = fused_mlp.fused_mlps_reference(x, mlps)
+            for g, r in zip(got, ref):
+                torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outs", OUTPUTS, ids=OUTPUT_IDS)
+def test_fused_mlp_backward_kernel_at_ragged_rows_on_card(outs):
+    """K1b at row counts around the 64-row tile, against autograd of the
+    plain chain at the tolerances of the test above; two calls give bitwise
+    equal gradients (fixed-order sums, no atomics)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(8)
+    for tdt, tol in ((torch.bfloat16, 1e-1), (torch.float32, 1e-3)):
+        with compute_dtype_scope(tdt):
+            mlps = [_random_mlp(n, gen) for n in outs]
+        for m in RAGGED_ROWS:
+            x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
+            weights = [torch.randn(m, n, generator=gen).cuda() for n in outs]
+            before = fused_mlp.fused_mlps_backward.launches
+            got = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
+            again = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
+            assert fused_mlp.fused_mlps_backward.launches == before + 2
+            want = mlp_gradients(fused_mlp.fused_mlps_reference, x, mlps, weights)
+            for g, a in zip(got, again):
+                assert torch.equal(g, a), "two K1b calls differ"
+            torch.testing.assert_close(got[0].float(), want[0].float(), atol=tol, rtol=tol)
+            for g, w in zip(got[1:], want[1:]):
+                assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+                err = float((g - w).abs().max())
+                assert err <= tol * max(float(w.abs().max()), 1e-6), (tuple(g.shape), m, tdt, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 64, 65, 1600, 14400])
+def test_fused_mlp_weight_gradient_gemm_on_card(m):
+    """The bf16 backward's dW GEMM alone (tile images, split-M wgmma,
+    fixed-order reduction) against dy^T h in f32: the same bf16 products,
+    summed in another order."""
+    _need_card()
+    gen = torch.Generator().manual_seed(m)
+    h = torch.randn(m, 256, generator=gen).to("cuda", torch.bfloat16)
+    dy = torch.randn(m, 256, generator=gen).to("cuda", torch.bfloat16)
+    got = fused_mlp.dw_gemm_alone(h, dy)
+    want = dy.float().T @ h.float()
+    torch.testing.assert_close(got, want, atol=1e-3 * max(1.0, m ** 0.5), rtol=1e-4)
 
 
 @pytest.mark.cuda
