@@ -36,7 +36,13 @@ raises on failure:
 12-15. the same four for the quadrilateral detector: the f32 serving slice
    (indices, scores and quads against the CPU), three bf16 requests, the f32
    training slice against f64 on the CPU, and ten bf16 steps on 16 images at
-   640 px with 5-20 quads each.
+   640 px with 5-20 quads each;
+16. probes: the backbone-conv probes of ``sihl_tpu_torch.tools`` at their
+   full shapes (the flagship's stage-1/2 convs at batch 16, 160 x 160): the
+   1x1 conv 64 -> 256 with and without BatchNorm's sums (P4), the 1x1 weight
+   gradient at three shapes (P5) and the 3x3 conv 64 -> 64 (P2); each
+   probe's run holds its kernel against the plain version and the library
+   call (cuDNN) and times all three.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -46,7 +52,6 @@ import copy
 import json
 import math
 import statistics
-import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -60,8 +65,10 @@ from sihl_tpu_torch.heads import InstanceSegmentation, ObjectDetection, Quadrila
 from sihl_tpu_torch.layers import FPN, BiFPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
-from sihl_tpu_torch.ops import boxes, dynconv, fused_mlp, fusion, stem, topk
+from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, stem, topk
 from sihl_tpu_torch.policy import compute_dtype_scope
+from sihl_tpu_torch.tools import probe_conv1x1, probe_conv3x3, probe_wrt_filter
+from sihl_tpu_torch.tools.probe_timing import card_name, graph_ms, median_ms, within_one_bf16_step
 from sihl_tpu_torch.training import Trainer
 from sihl_tpu_torch.training.trainer import _losses
 
@@ -92,14 +99,6 @@ OPTIMIZER = dict(
 # (bf16 on tensor cores, f32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
-
-
-def card_name() -> str:
-    """The first card's name and power limit, as nvidia-smi reports them."""
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def build_flagship(generator: torch.Generator, device=None) -> SihlModel:
@@ -232,21 +231,6 @@ def quad_batch(batch: int, seed: int = 0, device="cuda"):
     return images.contiguous().to(device), {
         "classes": torch.from_numpy(classes).to(device), "quads": torch.from_numpy(quads).to(device),
     }
-
-
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` runs of ``fn``'s device time, from CUDA events."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -602,34 +586,6 @@ def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, trai
     results["dynconv_decode_backward@keypoint"].append(
         k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, torch.float32, path=False))
     return results
-
-
-def within_one_bf16_step(got: torch.Tensor, want: torch.Tensor, slack=0.0) -> bool:
-    """Every element of got within one bf16 step of want (the spacing of
-    bf16 values at the larger of the two magnitudes), plus ``slack``."""
-    got, want = got.float(), want.float()
-    mag = torch.maximum(got.abs(), want.abs())
-    step = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, 1.0))) - 7)
-    return bool(((got - want).abs() <= step + slack).all())
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
-    graph, replayed between CUDA events (median of 5 replays).  For calls
-    shorter than their host-side launch, which a per-call event pair would
-    time instead."""
-    fn()
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(reps):
-            fn()
-    graph.replay()
-    return median_ms(graph.replay, reps=5, warmup=1) / reps
 
 
 # BiFPN's fusions at 640 px, per layer: (inputs, side of the map)
@@ -1053,6 +1009,9 @@ COUNTERS = {
     "dynconv_decode_backward": dynconv.dynamic_pointwise_decode_backward,
     "weighted_sum": fusion.fused_weighted_sum,
     "stem_conv_stats": stem.stem_conv_stats,
+    "matmul_stats": conv_probes.matmul_stats,
+    "weight_grad_1x1": conv_probes.weight_grad_1x1,
+    "conv3x3": conv_probes.conv3x3,
 }
 
 
@@ -1124,6 +1083,52 @@ def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
     return launches
 
 
+def probes_phase() -> list:
+    """Phase 16: the three probe scripts' runs at their full shapes, with
+    every count set to 0 just before and read just after; each kernel must
+    launch.  Returns the kernels' summary entries (path "probe")."""
+    reset_counts()
+    p4 = probe_conv1x1.run()
+    p5 = probe_wrt_filter.run()
+    p2 = probe_conv3x3.run()
+    launches = read_counts(("matmul_stats", "weight_grad_1x1", "conv3x3"))
+    print(f"  probes: kernel launches {launches}")
+    for name, n in launches.items():
+        if n == 0:
+            raise AssertionError(f"the probe path never launched the {name} kernel")
+
+    def entry(name, replaces, n, cases, kernel="kernel", plain="plain", library="library"):
+        """``cases``: (legs, bound, max_abs_err) of each shape the probe ran;
+        times and bounds are summed over them."""
+        if n == 0:
+            raise AssertionError(f"the probe path never launched {name}")
+        bounds = [b for _, b, _ in cases]
+        return dict(
+            name=name, path="probe", route="cuda", source="sihl_tpu_torch/ops/csrc/conv_probes.cu",
+            replaces=replaces, launches=n, max_abs_err=max(err for _, _, err in cases),
+            ms=sum(legs[kernel]["ms"] for legs, _, _ in cases),
+            plain_ms=sum(legs[plain]["ms"] for legs, _, _ in cases),
+            bound_ms=sum(b["bound_ms"] for b in bounds),
+            bound_by=max(bounds, key=lambda b: b["bound_ms"])["bound_by"],
+            library_ms=sum(legs[library]["ms"] for legs, _, _ in cases),
+        )
+
+    legs4, err4 = p4["legs"], p4["errors"]
+    if legs4["kernel"]["launches"] + legs4["kernel_stats"]["launches"] > launches["matmul_stats"]:
+        raise AssertionError("matmul_stats: the legs counted more launches than the wrapper")
+    return [
+        entry("matmul_stats", "tools/probe_conv1x1_pallas.py:79", legs4["kernel"]["launches"],
+              [(legs4, p4["bound"]["plain"], err4["kernel_y"])], library="library_conv"),
+        entry("matmul_stats@stats", "tools/probe_conv1x1_pallas.py:79", legs4["kernel_stats"]["launches"],
+              [(legs4, p4["bound"]["stats"], max(err4["kernel_y"], err4["kernel_sum"], err4["kernel_sumsq"]))],
+              kernel="kernel_stats", plain="plain_stats", library="library_conv_stats"),
+        entry("weight_grad_1x1", "tools/probe_wrt_filter.py:78", launches["weight_grad_1x1"],
+              [(r["legs"], r["bound"], r["errors"]["kernel"]) for r in p5.values()]),
+        entry("conv3x3", "tools/probe_conv3x3_pallas.py:89", launches["conv3x3"],
+              [(p2["legs"], p2["bound"], p2["errors"]["kernel"])]),
+    ]
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1153,15 +1158,16 @@ def main() -> None:
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(6) as pool:
+    with ThreadPoolExecutor(7) as pool:
         builds = [pool.submit(timed, fn) for fn in (
-            fused_mlp._library, topk._library, dynconv._library, stem._library, upsample_add_once,
-            weighted_sum_once,
+            fused_mlp._library, topk._library, dynconv._library, stem._library, conv_probes._library,
+            upsample_add_once, weighted_sum_once,
         )]
-        t_mlp, t_topk, t_dynconv, t_stem, t_triton, t_triton6 = (b.result() for b in builds)
+        t_mlp, t_topk, t_dynconv, t_stem, t_probes, t_triton, t_triton6 = (b.result() for b in builds)
     print(f"build (in parallel, {time.perf_counter() - t0:.1f} s): fused_mlp K1f + K1b (CUDA C++, "
           f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; dynconv K5f + K5b "
           f"(CUDA C++, sm_90a) {t_dynconv:.1f} s; stem_conv_stats K4 (CUDA C++, sm_90a) {t_stem:.1f} s; "
+          f"conv_probes P4 + P5 + P2 (CUDA C++, sm_90a) {t_probes:.1f} s; "
           f"upsample_add K3 (Triton) {t_triton:.1f} s; weighted_sum K6 (Triton) {t_triton6:.1f} s")
 
     # phase 3: kernels against their plain versions
@@ -1215,6 +1221,9 @@ def main() -> None:
     launches["quad_train"] = train(
         build_quad, quad_batch(BATCH), ("fused_mlp", "fused_mlp_backward", "weighted_sum", "stem_conv_stats"),
         label="quad training")
+
+    # phase 16: the backbone-conv probes
+    probes = probes_phase()
 
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)
@@ -1272,6 +1281,7 @@ def main() -> None:
             # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick
             **({k: sum(c[k] for c in cases) for k in ("call_ms", "cublas_ms")} if "call_ms" in cases[0] else {}),
         ))
+    summary += probes
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s after the device check")
     print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {

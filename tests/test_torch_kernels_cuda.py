@@ -16,7 +16,7 @@ import torch
 import torch.nn.functional as F
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import dynconv, fused_mlp, stem, topk
+from sihl_tpu_torch.ops import conv_probes, dynconv, fused_mlp, stem, topk
 from sihl_tpu_torch.ops.fusion import (
     fused_upsample_add,
     fused_upsample_add_reference,
@@ -24,6 +24,7 @@ from sihl_tpu_torch.ops.fusion import (
     fused_weighted_sum_reference,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
+from sihl_tpu_torch.tools.probe_timing import order_slack, within_sum_order
 
 
 def _need_card():
@@ -406,6 +407,96 @@ def test_dynconv_decode_kernel_refuses_what_it_does_not_take():
         dynconv.dynamic_pointwise_decode(mf, grid, centers, dyn.bfloat16(), 8, 1)
     with pytest.raises(ValueError, match="channels_last"):
         dynconv.dynamic_pointwise_decode(mf.contiguous(), grid, centers, dyn, 8, 1)
+
+
+def _bf16(gen, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).to("cuda", torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 63, 65, 1000, 4097])
+def test_matmul_stats_kernel_matches_plain_version_on_card(m):
+    """P4 at ragged row counts: y within one bf16 step of the plain f32
+    product (plus what f32 order moves a sum of 64 products that cancel),
+    the same with and without the statistics; the sums within 1e-5 of the
+    sums of |y| and y^2 (f32 sums in another order); two calls bitwise equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(6)
+    x, w = _bf16(gen, m, 64, scale=0.5), _bf16(gen, 64, 256, scale=0.05)
+    yf = x.float() @ w.float()
+    slack = order_slack(64, x.float().abs() @ w.float().abs())
+    before = conv_probes.matmul_stats.launches
+    y = conv_probes.matmul_stats(x, w)
+    y1, s1, s2 = conv_probes.matmul_stats(x, w, stats=True)
+    _, s1b, s2b = conv_probes.matmul_stats(x, w, stats=True)
+    assert conv_probes.matmul_stats.launches == before + 3
+    assert y.shape == (m, 256) and y.dtype == torch.bfloat16
+    assert _within_one_bf16_step(y, yf, slack)
+    assert torch.equal(y, y1)
+    assert within_sum_order(s1, yf.sum(dim=0), yf.abs().sum(dim=0))
+    assert within_sum_order(s2, (yf * yf).sum(dim=0), (yf * yf).sum(dim=0))
+    assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,ci,co", [(1, 64, 256), (65, 64, 256), (1000, 128, 512), (4097, 256, 256)])
+def test_weight_grad_kernel_matches_plain_version_on_card(m, ci, co):
+    """P5 at ragged row counts: dW within 1e-5 of |x|^T |dy| of x^T dy in f32
+    (f32 sums in another order); two calls bitwise equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(7)
+    x, dy = _bf16(gen, m, ci, scale=0.1), _bf16(gen, m, co, scale=0.1)
+    before = conv_probes.weight_grad_1x1.launches
+    dw = conv_probes.weight_grad_1x1(x, dy)
+    assert conv_probes.weight_grad_1x1.launches == before + 1
+    assert dw.shape == (ci, co) and dw.dtype == torch.float32
+    assert within_sum_order(dw, x.float().T @ dy.float(), x.float().abs().T @ dy.float().abs())
+    assert torch.equal(dw, conv_probes.weight_grad_1x1(x, dy))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", [(1, 13, 13), (2, 13, 13), (1, 7, 45), (3, 32, 64)])
+def test_conv3x3_kernel_matches_plain_version_on_card(b, h, w):
+    """P2 on ragged images and a batch of one: y within one bf16 step of
+    the plain 9-tap f32 sum (plus what f32 order moves a sum of 576 products
+    that cancel)."""
+    _need_card()
+    gen = torch.Generator().manual_seed(8)
+    x, wt = _bf16(gen, b, h, w, 64, scale=0.5), _bf16(gen, 3, 3, 64, 64, scale=0.05)
+    before = conv_probes.conv3x3.launches
+    y = conv_probes.conv3x3(x, wt)
+    assert conv_probes.conv3x3.launches == before + 1
+    assert y.shape == x.shape and y.dtype == torch.bfloat16
+    want = conv_probes.conv3x3_reference(x.float(), wt.float())
+    slack = order_slack(576, conv_probes.conv3x3_reference(x.float().abs(), wt.float().abs()))
+    assert _within_one_bf16_step(y, want, slack)
+
+
+@pytest.mark.cuda
+def test_conv_probe_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    gen = torch.Generator().manual_seed(9)
+    x, w = _bf16(gen, 128, 64), _bf16(gen, 64, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        conv_probes.matmul_stats(x.float(), w)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_probes.matmul_stats(_bf16(gen, 64, 128).t(), w)
+    with pytest.raises(ValueError, match="shape"):
+        conv_probes.matmul_stats(_bf16(gen, 128, 32), w)
+    dy = _bf16(gen, 128, 256)
+    with pytest.raises(ValueError, match="bf16"):
+        conv_probes.weight_grad_1x1(x, dy.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_probes.weight_grad_1x1(x, _bf16(gen, 256, 128).t())
+    with pytest.raises(ValueError, match="multiple"):
+        conv_probes.weight_grad_1x1(x, _bf16(gen, 128, 128))
+    img, wt = _bf16(gen, 1, 8, 8, 64), _bf16(gen, 3, 3, 64, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        conv_probes.conv3x3(img.permute(0, 2, 1, 3), wt)
+    with pytest.raises(ValueError, match="bf16"):
+        conv_probes.conv3x3(img, wt.float())
+    with pytest.raises(ValueError, match="shape"):
+        conv_probes.conv3x3(_bf16(gen, 1, 8, 8, 32), wt)
 
 
 def test_card_tests_import_no_jax():
