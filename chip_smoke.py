@@ -42,7 +42,11 @@ raises on failure:
    1x1 conv 64 -> 256 with and without BatchNorm's sums (P4), the 1x1 weight
    gradient at three shapes (P5) and the 3x3 conv 64 -> 64 (P2); each
    probe's run holds its kernel against the plain version and the library
-   call (cuDNN) and times all three.
+   call (cuDNN) and times all three;
+17. stem variants: the stem-variant probe P3 at the flagship's stem shape
+   (16 images of 640 x 640 x 3 to (16, 320, 320, 64), bf16): the stem conv
+   split into its load, stage, product and full legs, each held against its
+   plain version, then timed beside K4, cuDNN's conv and the plain conv.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -65,9 +69,9 @@ from sihl_tpu_torch.heads import InstanceSegmentation, ObjectDetection, Quadrila
 from sihl_tpu_torch.layers import FPN, BiFPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
-from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, stem, topk
+from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, stem, stem_variants, topk
 from sihl_tpu_torch.policy import compute_dtype_scope
-from sihl_tpu_torch.tools import probe_conv1x1, probe_conv3x3, probe_wrt_filter
+from sihl_tpu_torch.tools import probe_conv1x1, probe_conv3x3, probe_stem_variants, probe_wrt_filter
 from sihl_tpu_torch.tools.probe_timing import card_name, graph_ms, median_ms, within_one_bf16_step
 from sihl_tpu_torch.training import Trainer
 from sihl_tpu_torch.training.trainer import _losses
@@ -1012,6 +1016,7 @@ COUNTERS = {
     "matmul_stats": conv_probes.matmul_stats,
     "weight_grad_1x1": conv_probes.weight_grad_1x1,
     "conv3x3": conv_probes.conv3x3,
+    "stem_variant": stem_variants.stem_variant,
 }
 
 
@@ -1129,6 +1134,33 @@ def probes_phase() -> list:
     ]
 
 
+def stem_variants_phase() -> list:
+    """Phase 17: the stem-variant probe's run at its full shape, with every
+    count set to 0 just before and read just after; each leg's kernel must
+    launch.  Returns one summary entry per leg (path "probe"): its timed
+    launches, its own function's bound, and cuDNN's bf16 conv of the whole
+    stem as the yardstick of every leg."""
+    reset_counts()
+    p3 = probe_stem_variants.run()
+    total = read_counts(("stem_variant",))["stem_variant"]
+    legs = p3["legs"]
+    print(f"  stem variants: kernel launches {total}")
+    if sum(legs[mode]["launches"] for mode in stem_variants.MODES) > total:
+        raise AssertionError("stem_variant: the legs counted more launches than the wrapper")
+    entries = []
+    for mode in stem_variants.MODES:
+        if legs[mode]["launches"] == 0:
+            raise AssertionError(f"the probe path never launched the stem_variant kernel's {mode} leg")
+        plain = "plain" if mode == "full" else f"plain_{mode}"
+        entries.append(dict(
+            name=f"stem_variants@{mode}", path="probe", route="cuda", source="sihl_tpu_torch/ops/csrc/stem_variants.cu",
+            replaces="tools/probe_stem_variants.py:180", launches=legs[mode]["launches"],
+            max_abs_err=p3["errors"][mode], ms=legs[mode]["ms"], plain_ms=legs[plain]["ms"],
+            **p3["leg_bounds"][mode], library_ms=legs["library"]["ms"], k4_ms=legs["k4"]["ms"],
+        ))
+    return entries
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1158,16 +1190,17 @@ def main() -> None:
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(7) as pool:
+    with ThreadPoolExecutor(8) as pool:
         builds = [pool.submit(timed, fn) for fn in (
             fused_mlp._library, topk._library, dynconv._library, stem._library, conv_probes._library,
-            upsample_add_once, weighted_sum_once,
+            stem_variants._library, upsample_add_once, weighted_sum_once,
         )]
-        t_mlp, t_topk, t_dynconv, t_stem, t_probes, t_triton, t_triton6 = (b.result() for b in builds)
+        t_mlp, t_topk, t_dynconv, t_stem, t_probes, t_variants, t_triton, t_triton6 = (b.result() for b in builds)
     print(f"build (in parallel, {time.perf_counter() - t0:.1f} s): fused_mlp K1f + K1b (CUDA C++, "
           f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; dynconv K5f + K5b "
           f"(CUDA C++, sm_90a) {t_dynconv:.1f} s; stem_conv_stats K4 (CUDA C++, sm_90a) {t_stem:.1f} s; "
           f"conv_probes P4 + P5 + P2 (CUDA C++, sm_90a) {t_probes:.1f} s; "
+          f"stem_variants P3 (CUDA C++, sm_90a) {t_variants:.1f} s; "
           f"upsample_add K3 (Triton) {t_triton:.1f} s; weighted_sum K6 (Triton) {t_triton6:.1f} s")
 
     # phase 3: kernels against their plain versions
@@ -1224,6 +1257,9 @@ def main() -> None:
 
     # phase 16: the backbone-conv probes
     probes = probes_phase()
+
+    # phase 17: the stem-variant probe
+    probes += stem_variants_phase()
 
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)

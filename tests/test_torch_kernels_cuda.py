@@ -6,6 +6,7 @@ mode). The file imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 """
 
+import itertools
 import os
 import subprocess
 import sys
@@ -16,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import conv_probes, dynconv, fused_mlp, stem, topk
+from sihl_tpu_torch.ops import conv_probes, dynconv, fused_mlp, stem, stem_variants, topk
 from sihl_tpu_torch.ops.fusion import (
     fused_upsample_add,
     fused_upsample_add_reference,
@@ -497,6 +498,50 @@ def test_conv_probe_kernels_refuse_what_they_do_not_take():
         conv_probes.conv3x3(img, wt.float())
     with pytest.raises(ValueError, match="shape"):
         conv_probes.conv3x3(_bf16(gen, 1, 8, 8, 32), wt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,w", list(itertools.product((1, 3), (32, 70, 640), (32, 70, 640))))
+def test_stem_variant_kernels_match_plain_versions_on_card(b, h, w, full_f32_convs):
+    """P3's four legs on square and ragged images (70 / 2 = 35 outputs is
+    no multiple of the 8 x 16 tile): load and stage bit for bit against
+    their plain versions; product and full within one bf16 step plus what
+    f32 order moves a sum of 147 products that cancel; two full calls
+    bitwise equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(10)
+    x = torch.randn(b, h, w, 3, generator=gen).to("cuda", torch.bfloat16)
+    wt = _bf16(gen, 7, 7, 3, 64, scale=0.1)
+    slack = order_slack(147, stem_variants.stem_variant_reference(x.float().abs(), wt.float().abs(), "full"))
+    outs = {}
+    for mode in stem_variants.MODES:
+        before = stem_variants.stem_variant.launches
+        y = outs[mode] = stem_variants.stem_variant(x, wt, mode)
+        assert stem_variants.stem_variant.launches == before + 1
+        assert y.shape == (b, h // 2, w // 2, 64) and y.dtype == torch.bfloat16
+        want = stem_variants.stem_variant_reference(x, wt, mode)
+        if mode in ("load", "stage"):
+            assert torch.equal(y, want), mode
+        else:
+            assert _within_one_bf16_step(y, want, slack[:, :1, :1] if mode == "product" else slack), mode
+    assert torch.equal(outs["full"], stem_variants.stem_variant(x, wt, "full"))
+
+
+@pytest.mark.cuda
+def test_stem_variant_kernel_refuses_what_it_does_not_take():
+    _need_card()
+    gen = torch.Generator().manual_seed(11)
+    x, wt = _bf16(gen, 1, 16, 16, 3), _bf16(gen, 7, 7, 3, 64)
+    with pytest.raises(ValueError, match="bf16"):
+        stem_variants.stem_variant(x.float(), wt, "full")
+    with pytest.raises(ValueError, match="contiguous"):
+        stem_variants.stem_variant(_bf16(gen, 1, 3, 16, 16).permute(0, 2, 3, 1), wt, "full")  # NCHW memory
+    with pytest.raises(ValueError, match="shape"):
+        stem_variants.stem_variant(_bf16(gen, 1, 16, 16, 4), wt, "full")
+    with pytest.raises(ValueError, match="shape"):
+        stem_variants.stem_variant(_bf16(gen, 1, 15, 16, 3), wt, "load")
+    with pytest.raises(ValueError, match="mode"):
+        stem_variants.stem_variant(x, wt, "dma")
 
 
 def test_card_tests_import_no_jax():
