@@ -46,7 +46,14 @@ raises on failure:
 17. stem variants: the stem-variant probe P3 at the flagship's stem shape
    (16 images of 640 x 640 x 3 to (16, 320, 320, 64), bf16): the stem conv
    split into its load, stage, product and full legs, each held against its
-   plain version, then timed beside K4, cuDNN's conv and the plain conv.
+   plain version, then timed beside K4, cuDNN's conv and the plain conv;
+18. MLP pipeline: the fused-MLP pipeline probe P1 at the flagship's dense
+   training shape (x (136,400, 256) bf16 through the loc and iou MLPs, 4 x
+   256 -> 1, no stash) in its five modes: base (K1f itself), nops,
+   mxured, pingpong and pp+mxured, each held against its plain version,
+   pingpong bit for bit against base and pp+mxured against mxured, every
+   mode but nops within 2e-2 of base; then timed beside the plain versions
+   and the same products alone on cuBLAS.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -69,10 +76,11 @@ from sihl_tpu_torch.heads import InstanceSegmentation, ObjectDetection, Quadrila
 from sihl_tpu_torch.layers import FPN, BiFPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
-from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, stem, stem_variants, topk
+from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, mlp_pipeline, stem, stem_variants, topk
 from sihl_tpu_torch.policy import compute_dtype_scope
-from sihl_tpu_torch.tools import probe_conv1x1, probe_conv3x3, probe_stem_variants, probe_wrt_filter
-from sihl_tpu_torch.tools.probe_timing import card_name, graph_ms, median_ms, within_one_bf16_step
+from sihl_tpu_torch.tools import (probe_conv1x1, probe_conv3x3, probe_mlp_pipeline, probe_stem_variants,
+                                  probe_wrt_filter)
+from sihl_tpu_torch.tools.probe_timing import card_name, cublas_products_ms, graph_ms, median_ms, within_one_bf16_step
 from sihl_tpu_torch.training import Trainer
 from sihl_tpu_torch.training.trainer import _losses
 
@@ -276,35 +284,6 @@ def mlp_grads(fn, x, mlps, weights):
     loss = sum((o.float() * w).sum() for o, w in zip(outputs, weights))
     loss.backward()
     return [o.detach() for o in outputs], [x.grad] + [p.grad for m in mlps for p in m.parameters()]
-
-
-def cublas_products_ms(m: int, outs, dtype: torch.dtype, backward: bool) -> float:
-    """A yardstick of tensor-core speed, never called by the port: the same
-    layer products alone on cuBLAS (torch.matmul at the call's shapes, from
-    a CUDA graph).  Forward: per MLP, NUM_LAYERS hidden (m, D) x (D, D)
-    products and the output (m, D) x (D, n_out).  Backward: per MLP, the
-    chain's dX and dW products of every layer (what autograd of the plain
-    chain multiplies), without K1b's recompute of the forward."""
-    gen = torch.Generator("cuda").manual_seed(m)
-    a = torch.randn(m, WIDTH, device="cuda", generator=gen).to(dtype)
-    w = torch.randn(WIDTH, WIDTH, device="cuda", generator=gen).to(dtype)
-    heads = [(torch.randn(WIDTH, n, device="cuda", generator=gen).to(dtype),
-              torch.randn(m, n, device="cuda", generator=gen).to(dtype)) for n in outs]
-
-    def products():
-        for wo, g in heads:
-            if backward:
-                torch.matmul(g, wo.t())
-                torch.matmul(a.t(), g)
-                for _ in range(NUM_LAYERS):
-                    torch.matmul(a, w.t())
-                    torch.matmul(a.t(), a)
-            else:
-                for _ in range(NUM_LAYERS):
-                    torch.matmul(a, w)
-                torch.matmul(a, wo)
-
-    return graph_ms(products)
 
 
 def k1f_case(gen, cuda_gen, label, m, outs, dtype, atol, rtol) -> dict:
@@ -1017,6 +996,7 @@ COUNTERS = {
     "weight_grad_1x1": conv_probes.weight_grad_1x1,
     "conv3x3": conv_probes.conv3x3,
     "stem_variant": stem_variants.stem_variant,
+    "mlp_pipeline": mlp_pipeline.mlp_pipeline,
 }
 
 
@@ -1161,6 +1141,40 @@ def stem_variants_phase() -> list:
     return entries
 
 
+def mlp_pipeline_phase() -> list:
+    """Phase 18: the fused-MLP pipeline probe's run at its full shape, with
+    every count set to 0 just before and read just after: K1f must launch
+    for base and the variant kernels for the other modes.  Returns one
+    summary entry per mode (path "probe"): its timed launches, its plain
+    version's time, the bound of the MLPs' work, and the same products
+    alone on cuBLAS as the yardstick of every mode."""
+    reset_counts()
+    p1 = probe_mlp_pipeline.run()
+    total = read_counts(("fused_mlp", "mlp_pipeline"))
+    legs = p1["legs"]
+    print(f"  mlp pipeline: kernel launches {total}")
+    if legs["base"]["launches"] > total["fused_mlp"] or \
+            sum(legs[mode]["launches"] for mode in mlp_pipeline.MODES[1:]) > total["mlp_pipeline"]:
+        raise AssertionError("mlp_pipeline: the legs counted more launches than the wrappers")
+    # pingpong's gain rests on the order of its barrier arrivals, which a
+    # compiler change can undo without changing the output
+    print(f"  mlp pipeline: pingpong / base {legs['pingpong']['ms'] / legs['base']['ms']:.4f}, "
+          f"pp+mxured / mxured {legs['pp+mxured']['ms'] / legs['mxured']['ms']:.4f} (below 1: the turns pay)")
+    entries = []
+    for mode in mlp_pipeline.MODES:
+        if legs[mode]["launches"] == 0:
+            raise AssertionError(f"the probe path never launched the kernel of the mlp_pipeline mode {mode}")
+        entries.append(dict(
+            name=f"mlp_pipeline@{mode}", path="probe", route="cuda",
+            source=f"sihl_tpu_torch/ops/csrc/{'fused_mlp' if mode == 'base' else 'mlp_pipeline'}.cu",
+            replaces="tools/probe_mlp_pipeline.py:114", launches=legs[mode]["launches"],
+            max_abs_err=p1["errors"][mode], ms=legs[mode]["ms"],
+            plain_ms=legs[probe_mlp_pipeline.PLAIN[mode]]["ms"], **p1["bound"],
+            library_ms=legs["library"]["ms"],
+        ))
+    return entries
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1190,17 +1204,19 @@ def main() -> None:
         torch.cuda.synchronize()
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(8) as pool:
+    with ThreadPoolExecutor(9) as pool:
         builds = [pool.submit(timed, fn) for fn in (
             fused_mlp._library, topk._library, dynconv._library, stem._library, conv_probes._library,
-            stem_variants._library, upsample_add_once, weighted_sum_once,
+            stem_variants._library, mlp_pipeline._library, upsample_add_once, weighted_sum_once,
         )]
-        t_mlp, t_topk, t_dynconv, t_stem, t_probes, t_variants, t_triton, t_triton6 = (b.result() for b in builds)
+        t_mlp, t_topk, t_dynconv, t_stem, t_probes, t_variants, t_pipeline, t_triton, t_triton6 = (
+            b.result() for b in builds)
     print(f"build (in parallel, {time.perf_counter() - t0:.1f} s): fused_mlp K1f + K1b (CUDA C++, "
           f"sm_90a) {t_mlp:.1f} s; row_kth K2 (CUDA C++, sm_90a) {t_topk:.1f} s; dynconv K5f + K5b "
           f"(CUDA C++, sm_90a) {t_dynconv:.1f} s; stem_conv_stats K4 (CUDA C++, sm_90a) {t_stem:.1f} s; "
           f"conv_probes P4 + P5 + P2 (CUDA C++, sm_90a) {t_probes:.1f} s; "
           f"stem_variants P3 (CUDA C++, sm_90a) {t_variants:.1f} s; "
+          f"mlp_pipeline P1 (CUDA C++, sm_90a, with K1f's device code) {t_pipeline:.1f} s; "
           f"upsample_add K3 (Triton) {t_triton:.1f} s; weighted_sum K6 (Triton) {t_triton6:.1f} s")
 
     # phase 3: kernels against their plain versions
@@ -1260,6 +1276,9 @@ def main() -> None:
 
     # phase 17: the stem-variant probe
     probes += stem_variants_phase()
+
+    # phase 18: the fused-MLP pipeline probe
+    probes += mlp_pipeline_phase()
 
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)

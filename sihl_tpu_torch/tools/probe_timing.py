@@ -1,7 +1,9 @@
 """What the probe scripts and ``chip_smoke.py`` share: the card's name,
-CUDA-event timing, the card's bound for a piece of work, the tolerances of
-bf16 outputs and f32 sums, and the line each probe leg prints."""
+CUDA-event timing, the cuBLAS yardstick of the fused-MLP products, the
+card's bound for a piece of work, the tolerances of bf16 outputs and f32
+sums, and the line each probe leg prints."""
 
+import math
 import statistics
 import subprocess
 
@@ -13,6 +15,7 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
 PEAK_F32_OPS_PER_S = 67e12
 GRAPH_BELOW_MS = 0.05  # calls shorter than this are timed in a CUDA graph
+FLIP_SHARE = 0.1  # the most elements within_rounding_flips lets differ
 
 
 def card_name() -> str:
@@ -57,6 +60,36 @@ def graph_ms(fn, reps: int = 20) -> float:
     return median_ms(graph.replay, reps=5, warmup=1) / reps
 
 
+def cublas_products_ms(m: int, outs, dtype: torch.dtype, backward: bool) -> float:
+    """A yardstick of tensor-core speed for the fused-MLP kernels, never
+    called by the port: the same layer products alone on cuBLAS
+    (torch.matmul at the call's shapes, from a CUDA graph).  Forward: per
+    MLP, four hidden (m, 256) x (256, 256) products and the output (m, 256)
+    x (256, n_out).  Backward: per MLP, the chain's dX and dW products of
+    every layer (what autograd of the plain chain multiplies), without
+    K1b's recompute of the forward."""
+    gen = torch.Generator("cuda").manual_seed(m)
+    a = torch.randn(m, 256, device="cuda", generator=gen).to(dtype)
+    w = torch.randn(256, 256, device="cuda", generator=gen).to(dtype)
+    heads = [(torch.randn(256, n, device="cuda", generator=gen).to(dtype),
+              torch.randn(m, n, device="cuda", generator=gen).to(dtype)) for n in outs]
+
+    def products():
+        for wo, g in heads:
+            if backward:
+                torch.matmul(g, wo.t())
+                torch.matmul(a.t(), g)
+                for _ in range(4):
+                    torch.matmul(a, w.t())
+                    torch.matmul(a.t(), a)
+            else:
+                for _ in range(4):
+                    torch.matmul(a, w)
+                torch.matmul(a, wo)
+
+    return graph_ms(products)
+
+
 def device_ms(fn) -> float:
     """``fn``'s device time: CUDA events around each call, or a CUDA graph
     where one call takes under ``GRAPH_BELOW_MS``."""
@@ -80,6 +113,23 @@ def within_one_bf16_step(got: torch.Tensor, want: torch.Tensor, slack=0.0) -> bo
     mag = torch.maximum(got.abs(), want.abs())
     step = torch.exp2(torch.floor(torch.log2(torch.where(mag > 0, mag, 1.0))) - 7)
     return bool(((got - want).abs() <= step + slack).all())
+
+
+def within_rounding_flips(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """got equal to want but in at most ``FLIP_SHARE`` of the elements, and
+    nowhere more than one bf16 step at the largest magnitude of either.  For
+    bf16 outputs of a chain that both sides compute with f32 sums in another
+    order: an output moves only where a bf16 rounding on its way (its own,
+    or that of an input to a later sum) falls the other way."""
+    got, want = got.float(), want.float()
+    largest = max(float(got.abs().max()), float(want.abs().max()))
+    step = 2.0 ** (math.floor(math.log2(largest)) - 7) if largest > 0 else 0.0
+    return differing_share(got, want) <= FLIP_SHARE and float((got - want).abs().max()) <= step
+
+
+def differing_share(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The share of the elements in which got and want differ."""
+    return float((got.float() != want.float()).float().mean())
 
 
 def order_slack(terms: int, magnitude: torch.Tensor) -> torch.Tensor:

@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from sihl_tpu_torch.layers.mlp import MLP
-from sihl_tpu_torch.ops import conv_probes, dynconv, fused_mlp, stem, stem_variants, topk
+from sihl_tpu_torch.ops import conv_probes, dynconv, fused_mlp, mlp_pipeline, stem, stem_variants, topk
 from sihl_tpu_torch.ops.fusion import (
     fused_upsample_add,
     fused_upsample_add_reference,
@@ -25,7 +25,7 @@ from sihl_tpu_torch.ops.fusion import (
     fused_weighted_sum_reference,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
-from sihl_tpu_torch.tools.probe_timing import order_slack, within_sum_order
+from sihl_tpu_torch.tools.probe_timing import order_slack, within_rounding_flips, within_sum_order
 
 
 def _need_card():
@@ -542,6 +542,54 @@ def test_stem_variant_kernel_refuses_what_it_does_not_take():
         stem_variants.stem_variant(_bf16(gen, 1, 15, 16, 3), wt, "load")
     with pytest.raises(ValueError, match="mode"):
         stem_variants.stem_variant(x, wt, "dma")
+
+
+def _pipeline_inputs(seed: int, m: int):
+    heads, x = mlp_pipeline.probe_params(seed, m)
+    return torch.from_numpy(x).to("cuda", torch.bfloat16), mlp_pipeline.mlps_from_probe_params(heads, "cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1000, 1280])
+def test_mlp_pipeline_kernels_match_plain_versions_on_card(m):
+    """P1's variant kernels at a ragged row count (1,000 = 7 blocks of 128
+    and one that its warpgroups split 64 + 40) and at 10 whole blocks, with
+    the JAX probe's distributions: each equal to its plain version but in
+    at most a tenth of the outputs, and there within one bf16 step at the
+    largest output (1-3% of them differ; a different function such as
+    two-pass against one-pass variance moves more than half); pingpong bit
+    for bit K1f's (base) and pp+mxured mxured's, mxured not base's; each
+    mode's two calls bitwise equal; one launch per call."""
+    _need_card()
+    x, mlps = _pipeline_inputs(12, m)
+    outs = {}
+    for mode in mlp_pipeline.MODES:
+        counter = fused_mlp.fused_mlps if mode == "base" else mlp_pipeline.mlp_pipeline
+        before = counter.launches
+        got = outs[mode] = mlp_pipeline.mlp_pipeline(x, mlps, mode)
+        assert counter.launches == before + 1, mode
+        want = mlp_pipeline.mlp_pipeline_reference(x, mlps, mode)
+        assert all(g.shape == (m, 1) and g.dtype == torch.bfloat16 for g in got)
+        assert within_rounding_flips(torch.cat(got), torch.cat(want)), mode
+        assert all(torch.equal(a, b) for a, b in zip(got, mlp_pipeline.mlp_pipeline(x, mlps, mode))), mode
+    for mode, same in (("pingpong", "base"), ("pp+mxured", "mxured")):
+        assert all(torch.equal(a, b) for a, b in zip(outs[mode], outs[same])), mode
+    assert not all(torch.equal(a, b) for a, b in zip(outs["mxured"], outs["base"]))
+
+
+@pytest.mark.cuda
+def test_mlp_pipeline_kernels_refuse_what_they_do_not_take():
+    _need_card()
+    x, mlps = _pipeline_inputs(13, 256)
+    for mode in mlp_pipeline.MODES:
+        with pytest.raises(ValueError, match="bf16"):
+            mlp_pipeline.mlp_pipeline(x.float(), mlps, mode)
+        with pytest.raises(ValueError, match="contiguous"):
+            mlp_pipeline.mlp_pipeline(x.t().contiguous().t(), mlps, mode)
+        with pytest.raises(ValueError, match="256"):
+            mlp_pipeline.mlp_pipeline(x[:, :128].contiguous(), mlps, mode)
+    with pytest.raises(ValueError, match="mode"):
+        mlp_pipeline.mlp_pipeline(x, mlps, "halves")
 
 
 def test_card_tests_import_no_jax():
