@@ -19,7 +19,8 @@ raises on failure:
 2. build: compile every kernel from the checkout's sources, all at once;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    paths give it, with CUDA-event timings of both and the least time the
-   card could take for the same work (the bound);
+   card could take for the same work (the bound); K4's SASS must show
+   tensor-core instructions in its bf16 body;
 4. slice: one batch of two 640 px images, f32, served on the card and on the
    CPU (where the plain versions run) with the same weights;
 5. serving: three requests of 16 images at 640 px in bf16;
@@ -62,7 +63,9 @@ line is ``{"ok": true, "device": {...}}``.
 import copy
 import json
 import math
+import shutil
 import statistics
+import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -623,6 +626,23 @@ def k6_cases(cuda_gen) -> dict:
     return results
 
 
+def sass_mma_counts(library: str) -> dict:
+    """Tensor-core instructions (HMMA) in each kernel of a built library, by
+    its mangled name, from ``cuobjdump -sass``; empty without cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not shutil.which(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True, timeout=300).stdout
+    counts, kernel = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            kernel = line.split("Function :")[1].strip()
+            counts[kernel] = 0
+        elif kernel and "HMMA" in line:
+            counts[kernel] += 1
+    return counts
+
+
 def k4_cases(cuda_gen) -> dict:
     """K4 against its plain version (an f32 conv of the rounded operands,
     rounded once, then the sums) on every training path's stem call,
@@ -631,9 +651,21 @@ def k4_cases(cuda_gen) -> dict:
     sums of the same 147 products can differ by (2 * 147 * 2^-24 times the
     sum of their magnitudes); both sums within 1e-5 of the sums of |y| and y^2 (the plain
     version's on its own y, and K4's own y summed by PyTorch); two calls
-    bitwise equal.  cuDNN's conv alone is timed for information: no single
-    call computes the statistics too."""
+    bitwise equal.  The bf16 call runs K4's tensor-core body, the f32 call
+    its f32 FMA body; the built library's SASS must show HMMA in the
+    former.  cuDNN's conv alone is timed for information: no single call
+    computes the statistics too."""
     results = {"stem_conv_stats": []}
+    counts = sass_mma_counts(stem._library()._name)
+    if counts:
+        mma = sum(n for k, n in counts.items() if "stem_conv_stats_mma_kernelILi3E" in k)
+        fma = sum(n for k, n in counts.items() if "stem_conv_stats_kernelIfE" in k)
+        print(f"  K4 SASS (cuobjdump): {mma} HMMA in the bf16 body at 3 channels "
+              f"(stem_conv_stats_mma_kernel<3>), {fma} in the f32 body (stem_conv_stats_kernel<float>)")
+        if mma == 0:
+            raise AssertionError("stem_conv_stats: the bf16 body's SASS has no tensor-core instruction")
+    else:
+        print("  K4 SASS: cuobjdump not found, not read")
     x32 = torch.rand(BATCH, SIZE, SIZE, 3, device="cuda", generator=cuda_gen).permute(0, 3, 1, 2)
     weight = torch.randn(64, 3, 7, 7, device="cuda", generator=cuda_gen) * (1 / 147) ** 0.5
     for dtype in (torch.bfloat16, torch.float32):
@@ -664,19 +696,22 @@ def k4_cases(cuda_gen) -> dict:
         if max(sum_err, own_err) > 1e-5:
             raise AssertionError(f"stem_conv_stats {dtype}: sums off by {sum_err} (plain) / {own_err} (own y)")
         ms = median_ms(lambda: stem.stem_conv_stats(x, weight))
+        alone_ms = graph_ms(lambda: stem.stem_conv_stats(x, weight))
         plain_ms = median_ms(lambda: stem.stem_conv_stats_reference(x, weight))
         w_dt = weight.to(dtype)
         conv_ms = median_ms(lambda: torch.nn.functional.conv2d(x, w_dt, stride=2, padding=3))
         es = torch.finfo(dtype).bits // 8
         macs = y.numel() * 49 * 3
-        case = dict(path=dtype == torch.bfloat16, err=err, ms=ms, plain_ms=plain_ms,
+        case = dict(path=dtype == torch.bfloat16, err=err, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms,
                     **bound((x.numel() + y.numel()) * es + 2 * 64 * 4, 2 * macs, dtype))
         results["stem_conv_stats"].append(case)
-        print(f"  K4 stem_conv_stats {tuple(x.shape)} -> {tuple(y.shape)} {dtype}: y max_abs_err {err:.3g} "
+        body = "tensor-core body (bf16 mma.sync)" if dtype == torch.bfloat16 else "f32 FMA body"
+        print(f"  K4 stem_conv_stats {tuple(x.shape)} -> {tuple(y.shape)} {dtype}, {body}: y max_abs_err {err:.3g} "
               f"(largest {scale:.3g}); sums within {sum_err:.3g} of the plain version's and {own_err:.3g} of its "
-              f"own y's; two calls bitwise equal; kernel {ms:.4f} ms, plain (f32 conv, rounding, sums) {plain_ms:.4f} "
+              f"own y's; two calls bitwise equal; kernel {ms:.4f} ms a call ({alone_ms:.4f} alone, device time from a "
+              f"CUDA graph of 20 calls), plain (f32 conv, rounding, sums) {plain_ms:.4f} "
               f"ms, cuDNN's {dtype} conv alone {conv_ms:.4f} ms; bound {case['bound_ms']:.4f} ms ({case['bound_by']}; "
-              f"{2 * macs / 67e12 * 1e3:.4f} ms as f32 FMAs at 67 TFLOP/s)")
+              f"{2 * macs / PEAK_OPS_PER_S[dtype] * 1e3:.4f} ms of operations at the {body}'s peak rate)")
     return results
 
 
@@ -1124,7 +1159,10 @@ def stem_variants_phase() -> list:
     p3 = probe_stem_variants.run()
     total = read_counts(("stem_variant",))["stem_variant"]
     legs = p3["legs"]
-    print(f"  stem variants: kernel launches {total}")
+    k4 = legs["k4"]
+    print(f"  stem variants: kernel launches {total}; K4 / full {k4['ms'] / legs['full']['ms']:.4f} per call, "
+          f"{k4['alone_ms'] / legs['full']['ms']:.4f} alone (K4 {k4['ms']:.4f} ms per call, {k4['alone_ms']:.4f} "
+          f"alone: the full leg's conv with BatchNorm's sums)")
     if sum(legs[mode]["launches"] for mode in stem_variants.MODES) > total:
         raise AssertionError("stem_variant: the legs counted more launches than the wrapper")
     entries = []
@@ -1136,7 +1174,7 @@ def stem_variants_phase() -> list:
             name=f"stem_variants@{mode}", path="probe", route="cuda", source="sihl_tpu_torch/ops/csrc/stem_variants.cu",
             replaces="tools/probe_stem_variants.py:180", launches=legs[mode]["launches"],
             max_abs_err=p3["errors"][mode], ms=legs[mode]["ms"], plain_ms=legs[plain]["ms"],
-            **p3["leg_bounds"][mode], library_ms=legs["library"]["ms"], k4_ms=legs["k4"]["ms"],
+            **p3["leg_bounds"][mode], library_ms=legs["library"]["ms"], k4_ms=k4["ms"], k4_alone_ms=k4["alone_ms"],
         ))
     return entries
 
@@ -1333,8 +1371,9 @@ def main() -> None:
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
             library_ms=None,
-            # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick
+            # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick; K4: its device time alone
             **({k: sum(c[k] for c in cases) for k in ("call_ms", "cublas_ms")} if "call_ms" in cases[0] else {}),
+            **({"alone_ms": sum(c["alone_ms"] for c in cases)} if "alone_ms" in cases[0] else {}),
         ))
     summary += probes
     print(f"all phases passed in {time.perf_counter() - t_start:.1f} s after the device check")

@@ -68,7 +68,7 @@ KERNEL_CLASSES = (
     ("K3 upsample-add", ("upsample_add_kernel",)),
     ("K5f dynamic decode", ("decode_fwd_kernel",)),
     ("K5b dynamic decode backward", ("decode_bwd_tile_kernel", "reduce_parts_kernel")),
-    ("K4 stem conv + statistics", ("stem_conv_stats_kernel", "stem_stats_reduce_kernel")),
+    ("K4 stem conv + statistics", ("stem_conv_stats_kernel", "stem_conv_stats_mma_kernel", "stem_stats_reduce_kernel")),
     ("K6 weighted sum", ("weighted_sum_kernel",)),
 )
 

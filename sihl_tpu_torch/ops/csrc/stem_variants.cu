@@ -26,8 +26,8 @@
 // What bounds it on this card.  At the probe's shape (16 images of
 // 640 x 640 x 3 -> 16 x 320 x 320 x 64) the full conv moves 249 MB (x read
 // once, y written once: 0.0743 ms at 3.35 TB/s) and does 30.8 GFLOP (0.031
-// ms on the bf16 tensor cores, 0.46 ms as f32 FMAs, which K4 in stem.cu
-// runs): bytes, mostly y's 210 MB.  The question the legs answer is how far
+// ms on the bf16 tensor cores, 0.46 ms as f32 FMAs, which K4's f32 body in
+// stem.cu runs): bytes, mostly y's 210 MB.  The question the legs answer is how far
 // each part keeps the kernel from that: staging an unaligned 3-channel
 // halo, building a 147-deep operand in shared memory, or the products.
 //
@@ -53,6 +53,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "mma_sync.cuh"
 
 namespace {
 
@@ -92,55 +94,6 @@ constexpr int STORE_STEPS = PIX * W_CHUNKS / THREADS;              // 4
 static_assert(TC == 2 * WARPS && CO == 64 && PIX * W_CHUNKS % THREADS == 0, "the pass layouts above");
 static_assert(HROW % 2 == 0, "halo rows are whole 4-byte words");
 static_assert(PIX == 4 * WM && CO == 2 * WN, "warps tile the pixels and channels");
-
-// ---------------------------------------------------------------- PTX helpers
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 4 bytes from global to shared memory; src_bytes = 0 writes zeros and reads
-// nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b for a 16 x 16 bf16 A fragment, a 16 x 8 bf16 B fragment, f32 d.
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// Byte offset of 16-byte chunk `chunk` of row `row` in a tile whose rows are
-// 8 chunks (128 bytes) long, the chunk at (chunk ^ (row & 7)).
-__device__ __forceinline__ uint32_t swz(int row, int chunk) { return (uint32_t)(row * 8 + (chunk ^ (row & 7))) * 16u; }
-
-// Two bf16 (4 bytes) at column col of row row of a swizzled 64-wide tile.
-__device__ __forceinline__ void stage_pair(char* tile, int row, int col, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(tile + swz(row, col >> 3) + (col & 7) * 2) = v;
-}
 
 // ------------------------------------------------------------------- the legs
 

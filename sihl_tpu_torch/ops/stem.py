@@ -7,8 +7,10 @@ squares of its output after the output is rounded to its dtype: the batch
 statistics of the BatchNorm that follows.  It is forward only: the frozen
 stem (``ResNetFeatures._sg_levels >= 1``) takes it, and nothing
 differentiates through it.  A CUDA tensor goes to the hand-written kernel of
-``csrc/stem.cu`` (the file says how it is laid out and what bounds it); a
-CPU tensor to :func:`stem_conv_stats_reference`.
+``csrc/stem.cu``: a bf16 image to its tensor-core body, which reads the
+weights as :func:`weight_image`, an f32 image to its f32 FMA body (the file
+says how each is laid out and what bounds it).  A CPU tensor goes to
+:func:`stem_conv_stats_reference`.
 """
 
 import ctypes
@@ -47,6 +49,21 @@ def supported(x_shape, w_shape) -> bool:
     )
 
 
+def weight_image(weight: torch.Tensor) -> torch.Tensor:
+    """The bf16 kernel's weights: (64, C, 7, 7) to (7 * 8 * CP, 64) bf16,
+    where CP, the channels of a pixel as the kernel stages it, is 4 for
+    C <= 4 and 8 above (a pair of taps or one tap is then 16 bytes, one row
+    of the tensor cores' operand).  Row k = (ky * 8 + kx) * CP + c holds
+    ``weight[:, c, ky, kx]``; the rows of an eighth tap kx = 7 and of the
+    channels past C are zero.  That is the HWIO image (7, 7, C, 64) padded to
+    (7, 8, CP, 64) and flattened.  The weights round to bf16 first, as the
+    conv reads them.  Runs on any device."""
+    o, c, _, _ = weight.shape
+    staged = 4 if c <= 4 else 8
+    hwio = weight.to(torch.bfloat16).permute(2, 3, 1, 0)
+    return F.pad(hwio, (0, 0, 0, staged - c, 0, 1)).reshape(-1, o).contiguous()
+
+
 def stem_conv_stats_reference(x: torch.Tensor, weight: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain PyTorch version: the conv of the image and the weights rounded
     to ``x``'s dtype, summed in f32 (f64 for f64 inputs) and rounded once to
@@ -65,7 +82,7 @@ def _library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.sihl_stem_conv_stats.argtypes = [i, p, i, i, i, i, p, p, p, p, p, p]
     lib.sihl_stem_conv_stats.restype = i
-    lib.sihl_stem_workspace_floats.argtypes = [i, i, i]
+    lib.sihl_stem_workspace_floats.argtypes = [i, i, i, i]
     lib.sihl_stem_workspace_floats.restype = ctypes.c_longlong
     lib.sihl_cuda_error_string.argtypes = [i]
     lib.sihl_cuda_error_string.restype = ctypes.c_char_p
@@ -86,18 +103,21 @@ def _stem_conv_stats_cuda(x: torch.Tensor, weight: torch.Tensor):
         raise ValueError("the stem kernel indexes a batch's rows with 32-bit offsets")
     if weight.device != x.device:
         raise ValueError(f"weights on {weight.device}, image on {x.device}")
+    if x.data_ptr() % 4:
+        raise ValueError("the stem kernel reads x in 4-byte words: x must start 4-byte aligned")
     lib = _library()
     b, c, h, w = x.shape
-    # (7, 7, C, 64) f32, rounded to the image's dtype first, as the conv reads them
-    wk = weight.to(x.dtype).permute(2, 3, 1, 0).float().contiguous()
+    is_bf16 = _KERNEL_DTYPES[x.dtype]
+    # bf16: the tensor-core body's weight image; f32: (7, 7, C, 64) f32
+    wk = weight_image(weight) if is_bf16 else weight.float().permute(2, 3, 1, 0).contiguous()
     y = torch.empty((b, OUT_CHANNELS, h // 2, w // 2), dtype=x.dtype, device=x.device,
                     memory_format=torch.channels_last)
     sums = torch.empty((2, OUT_CHANNELS), dtype=torch.float32, device=x.device)
-    partials = torch.empty(lib.sihl_stem_workspace_floats(b, h, w), dtype=torch.float32, device=x.device)
+    partials = torch.empty(lib.sihl_stem_workspace_floats(is_bf16, b, h, w), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.sihl_stem_conv_stats(
-            _KERNEL_DTYPES[x.dtype], x.data_ptr(), b, h, w, c, wk.data_ptr(), y.data_ptr(),
+            is_bf16, x.data_ptr(), b, h, w, c, wk.data_ptr(), y.data_ptr(),
             partials.data_ptr(), sums[0].data_ptr(), sums[1].data_ptr(), stream,
         )
     if err:

@@ -7,8 +7,11 @@ legs of ``ops.stem_variants.stem_variant``:
   stage     load, and build each tile's 147-deep patch operand
   product   the products and the epilogue on one fixed patch per image
   full      the whole conv on the tensor cores, rounded once from f32 sums
-  k4        ``ops.stem.stem_conv_stats``, the shipped kernel (the full conv
-            and BatchNorm's sums, on f32 FMAs)
+  k4        ``ops.stem.stem_conv_stats``, the shipped kernel: the full conv
+            and BatchNorm's sums, its bf16 body on the tensor cores; timed
+            per call like the legs, and alone (``k4 alone``: device time
+            from a CUDA graph of 20 calls, without the host work of its
+            wrapper, which builds the weight image each call)
   library   PyTorch's bf16 conv on a channels_last tensor (cuDNN), the yardstick
   plain     the plain PyTorch version of ``full``: K4's plain version, whose
             BatchNorm sums it drops but still computes (and plain_load,
@@ -31,7 +34,8 @@ import torch.nn.functional as F
 
 from sihl_tpu_torch.ops import stem
 from sihl_tpu_torch.ops.stem_variants import MODES, TAPS, stem_variant, stem_variant_reference
-from sihl_tpu_torch.tools.probe_timing import bound, card_name, device_ms, leg_line, order_slack, within_one_bf16_step
+from sihl_tpu_torch.tools.probe_timing import (bound, card_name, device_ms, graph_ms, leg_line, order_slack,
+                                               within_one_bf16_step)
 
 SEED = 0  # the JAX probe's numpy seed
 CO, C = 64, 3
@@ -42,7 +46,8 @@ def run(device="cuda", batch: int = 16, size: int = 640) -> dict:
     time them.
 
     Returns ``{"legs": {name: {"ms", "tflops", "gbps", "launches"}},
-    "bound", "leg_bounds": {mode: ...}, "flops", "bytes", "errors"}``;
+    "bound", "leg_bounds": {mode: ...}, "flops", "bytes", "errors"}``, k4's
+    leg with ``"alone_ms"`` too;
     ``bound`` is the full conv's, ``leg_bounds`` each kernel leg's own
     function's; ``ms`` and the rates are None on the CPU, where nothing is
     timed."""
@@ -110,6 +115,9 @@ def run(device="cuda", batch: int = 16, size: int = 640) -> dict:
         if timed:
             launches = results[name]["launches"] if name in MODES else None
             print(leg_line(name, ms, flops, num_bytes, work_bound, launches), flush=True)
+    if timed:
+        alone = results["k4"]["alone_ms"] = graph_ms(legs["k4"])
+        print(leg_line("k4 alone", alone, flops, num_bytes, work_bound), flush=True)
     return dict(legs=results, bound=work_bound, leg_bounds=leg_bounds, flops=flops, bytes=num_bytes, errors=errors)
 
 

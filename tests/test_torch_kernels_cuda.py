@@ -297,10 +297,16 @@ def test_stem_kernel_matches_plain_version_on_card(dtype, full_f32_convs):
     digits than a bf16 step); the sums
     within 1e-5 of the sums of |y| and y^2, against the plain version's and
     against K4's own y summed by PyTorch; two calls bitwise equal.  Shapes:
-    the ragged H/2 = 18 and W/2 = 19 edges, one channel, eight channels."""
+    the ragged H/2 = 18 and W/2 = 19 edges, one channel, eight channels,
+    the even channel counts 2 and 4 at ragged edges (the bf16 body's halo
+    rows have no lead element there), seven channels (staged as eight, with
+    a lead element), and (4, 3, 640, 646): more 8 x 16 tiles than the bf16
+    body's resident blocks, so its persistent loop and per-tile partials
+    run."""
     _need_card()
     gen = torch.Generator().manual_seed(8)
-    for b, c, h, w in ((2, 3, 36, 38), (1, 1, 64, 64), (2, 8, 20, 22)):
+    for b, c, h, w in ((2, 3, 36, 38), (1, 1, 64, 64), (2, 8, 20, 22), (2, 2, 36, 38), (1, 4, 50, 70),
+                       (1, 7, 26, 34), (4, 3, 640, 646)):
         x = torch.rand(b, h, w, c, generator=gen).to("cuda", dtype).permute(0, 3, 1, 2)
         weight = (torch.randn(64, c, 7, 7, generator=gen) * (1 / (49 * c)) ** 0.5).cuda()
         before = stem.stem_conv_stats.launches
@@ -335,6 +341,10 @@ def test_stem_kernel_refuses_what_it_does_not_take():
         stem.stem_conv_stats(x, weight)
     with pytest.raises(ValueError, match="takes"):
         stem.stem_conv_stats(x.half().contiguous(memory_format=torch.channels_last), weight)
+    # a channels_last view that starts 2 bytes past a 4-byte boundary
+    shifted = torch.zeros(16 * 16 * 3 + 1, device="cuda", dtype=torch.bfloat16)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        stem.stem_conv_stats(shifted.view(1, 16, 16, 3).permute(0, 3, 1, 2), weight)
 
 
 def _decode_inputs(gen, b, i, h, w, c, k, dtype):

@@ -38,7 +38,7 @@ def _sums(y: np.ndarray):
     return y.sum(axis=(0, 1, 2)), (y * y).sum(axis=(0, 1, 2))
 
 
-@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("c", [1, 3, 8])
 @pytest.mark.parametrize("dtype_name", ["float32", "bfloat16"])
 def test_stem_conv_stats_matches_jax_kernel(dtype_name, c):
     jdt, tdt = DTYPES[dtype_name]
@@ -64,6 +64,26 @@ def test_stem_conv_stats_matches_jax_kernel(dtype_name, c):
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
         for got, want in zip((want_s, want_q), _sums(want_y)):
             np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-3)
+
+
+@pytest.mark.parametrize("c", [1, 3, 5, 8])
+def test_weight_image_k_order_and_zero_rows(c):
+    """The bf16 kernel's weight image against a loop over the taps: row
+    (ky * 8 + kx) * CP + c, CP = 4 for C <= 4 and 8 above, holds the bf16
+    weights of (c, ky, kx) for the 64 outputs; the rows of the eighth tap
+    kx = 7 and of the channels past C are zero."""
+    w = np.random.RandomState(20 + c).randn(64, c, 7, 7).astype(np.float32)
+    cp = 4 if c <= 4 else 8
+    want = np.zeros((7 * 8 * cp, 64), np.float32)
+    for ky in range(7):
+        for kx in range(7):
+            for ch in range(c):
+                want[(ky * 8 + kx) * cp + ch] = w[:, ch, ky, kx]
+    got = stem_ops.weight_image(torch.from_numpy(w))
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape and got.is_contiguous()
+    np.testing.assert_array_equal(got.float().numpy(), torch.from_numpy(want).bfloat16().float().numpy())
+    taps = got.reshape(7, 8, cp, 64)
+    assert not taps[:, 7].any() and not taps[:, :, c:].any()
 
 
 def test_supported_gates():
