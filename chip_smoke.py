@@ -524,17 +524,36 @@ def k5b_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) 
         assert g.shape == w.shape and g.dtype == w.dtype == dtype
         err = max(err, float((g.float() - w.float()).abs().max()))
         torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=rtol)
-    ms = median_ms(lambda: dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k))
+
+    def call():
+        return dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k)
+
+    ms = median_ms(call)
+    alone_ms = graph_ms(call)
     plain_ms = median_ms(lambda: torch.autograd.grad(outputs, inputs, gout, retain_graph=True))
     del outputs
     num_bytes, ops, exps = decode_work(batch, instances, c, k, dtype, backward=True)
-    case = dict(path=path, err=err, ms=ms, plain_ms=plain_ms, **bound(num_bytes, ops, torch.float32))
+    case = dict(path=path, err=err, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms, **bound(num_bytes, ops, torch.float32))
     print(f"  K5b dynconv_decode_backward {label} {batch}x{instances} instances at {MASK_SIZE}x{MASK_SIZE}, "
           f"c={c}, k={k}, {dtype} inputs: d(features) and d(weights) max_abs_err {err:.3g} (atol 2e-3, "
-          f"rtol {rtol:.3g}); two calls bitwise equal; kernel {ms:.4f} ms, plain (autograd of the chain) "
-          f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {num_bytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.2f} GFLOP f32, {exps / 1e6:.0f} M exponentials beside them)")
+          f"rtol {rtol:.3g}); two calls bitwise equal; kernel {ms:.4f} ms a call ({alone_ms:.4f} alone, device "
+          f"time from a CUDA graph of 20 calls), plain (autograd of the chain) {plain_ms:.4f} ms, bound "
+          f"{case['bound_ms']:.4f} ms ({case['bound_by']}: {num_bytes / 1e6:.1f} MB, {ops / 1e9:.2f} GFLOP f32, "
+          f"{exps / 1e6:.0f} M exponentials beside them)")
     return case
+
+
+def k5b_cases(cuda_gen) -> dict:
+    """K5b at the instance training path's decode (bf16 and f32 inputs) and
+    at the keypoint head's shape (c = 32, k = 17, f32; off this slice's
+    paths)."""
+    results = {"dynconv_decode_backward": [
+        k5b_case(cuda_gen, "training", BATCH, MASK_POSITIVES, MASK_CHANNELS, 1, dtype, path=dtype == torch.bfloat16)
+        for dtype in (torch.bfloat16, torch.float32)
+    ]}
+    results["dynconv_decode_backward@keypoint"] = [
+        k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, torch.float32, path=False)]
+    return results
 
 
 def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets) -> dict:
@@ -564,13 +583,9 @@ def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, trai
     c, bf16 = MASK_CHANNELS, torch.bfloat16
     results["dynconv_decode"].append(k5f_case(cuda_gen, "serving", BATCH, MAX_INSTANCES, c, 1, bf16))
     results["dynconv_decode@train"].append(k5f_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, bf16))
-    for dtype in (bf16, torch.float32):
-        results["dynconv_decode_backward"].append(
-            k5b_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, dtype, path=dtype == bf16))
     results["dynconv_decode@keypoint"].append(
         k5f_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, bf16, path=False))
-    results["dynconv_decode_backward@keypoint"].append(
-        k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, torch.float32, path=False))
+    results.update(k5b_cases(cuda_gen))
     return results
 
 
@@ -1371,7 +1386,7 @@ def main() -> None:
             bound_ms=sum(c["bound_ms"] for c in cases),
             bound_by=max(cases, key=lambda c: c["bound_ms"])["bound_by"],
             library_ms=None,
-            # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick; K4: its device time alone
+            # K1f / K1b: the call as the path makes it, and the cuBLAS yardstick; K4, K5b: device time alone
             **({k: sum(c[k] for c in cases) for k in ("call_ms", "cublas_ms")} if "call_ms" in cases[0] else {}),
             **({"alone_ms": sum(c["alone_ms"] for c in cases)} if "alone_ms" in cases[0] else {}),
         ))

@@ -40,14 +40,42 @@
 //     through the three layers (dsilu = s * (1 + x * (1 - s))), accumulates
 //     d(features) over the group's instances in registers, and writes the
 //     per-pixel factors of every weight gradient (inputs, h1, h2, dx1, dx2,
-//     the output cotangent) to its row of shared memory.  Then thread p sums
-//     the products of gradient entry p's two columns over the tile's rows,
-//     in row order, into a per-tile partial.  d(features) goes to a
-//     per-group partial.
+//     the output cotangent) to its row of shared memory.  The rows then
+//     hold L = [f, rx, ry, one | h1 | h2] and R = [dx1 | dx2 | go], and the
+//     instance's weight gradient over the tile is three blocks of L^T R
+//     (the TPU kernel's tmat products): [f, rx, ry, one]^T dx1 ((c + 3) x
+//     c: W1, b1), [h1, one]^T dx2 ((c + 1) x c: W2, b2) and [h2, one]^T go
+//     ((c + 1) x k: W3, b3), which _split lays out one after the other.
+//     reduce_weight_grads cuts them into register tiles (4 x 4 at c = 8,
+//     4 x 8 at c = 32; ragged edges masked): a tile's job loads its 4 + 4
+//     (or 4 + 8) columns of a row and does 16 (32) FMAs, where one entry at
+//     a time took 2 loads for each FMA.  At c = 8 there are only 15 jobs
+//     (k = 1), so each goes to a whole warp and all 8 warps work: lane l
+//     sums rows l, l + 32, ... in row order, and the warp sums its 32
+//     lanes' tiles by a fixed butterfly of shuffles (warp_sum_values), so
+//     no shared buffer of partials is needed.  At c = 32 there are 99 jobs
+//     (k = 17) for 128 threads, and a thread sums all the tile's rows of
+//     its job in row order.  The result is a per-tile partial.  d(features)
+//     goes to a per-group partial.
 //  2. reduce_parts_kernel sums the weight-gradient partials over tiles, and
 //     the d(features) partials over groups, each in a fixed order, and
 //     casts to the inputs' dtypes.
-// No float atomics: the gradients are bitwise the same from call to call.
+// No float atomics, and every order depends on the tile size alone, never
+// on the grid or the card: the gradients are bitwise the same from call to
+// call.
+//
+// Shared-memory banks.  The row stride is odd (row_stride), so the 32 lanes
+// of a warp that each write their own row hit distinct banks.  At c = 8 the
+// lanes of a warp read one column of 32 consecutive rows at once: distinct
+// banks, since (r1 - r2) * stride is never a multiple of 32 for 0 < |r1 -
+// r2| < 32 when the stride is odd.  At c = 32 the lanes read one row at
+// once, at their jobs' columns: jobs run through R-tiles fastest, so within
+// one block the columns of one load span fewer than 32 (distinct columns on
+// distinct banks, repeated ones broadcast); in a warp whose jobs straddle
+// two blocks, two columns may lie 32 apart, a 2-way conflict on that load.
+// 16-byte loads would need a stride that is a
+// multiple of 4, which makes the per-thread row writes of the recompute
+// conflict, so the loads stay 4-byte.
 // The gradients of the grid and the centres are not computed (the caller
 // treats them as constants, as _decode_vjp_bwd returns zeros for them).
 
@@ -178,31 +206,124 @@ decode_fwd_kernel(const void* __restrict__ mf,        // (B, S, C): channels_las
   }
 }
 
-// The two shared-memory columns whose product, summed over pixels, is
-// entry p of an instance's weight gradient (in _split's layout).
+// The weight-gradient reduction's tiling: a job is a TA x TB tile of one
+// block of L^T R (L-indices by R-indices), summed over the tile's rows by
+// CHUNKS lanes of one warp, lane l over rows l, l + CHUNKS, ...  At c = 8
+// a whole warp takes a job (15 jobs of 4 x 4 at k = 1 for 8 warps); at
+// c = 32 a thread does (99 jobs of 4 x 8 at k = 17 for 128 threads).
 template <int C>
-__device__ __forceinline__ void grad_columns(int p, int k, int& lc, int& rc) {
+struct GradTiles {
+  static constexpr int TA = 4, TB = C == 8 ? 4 : 8, CHUNKS = C == 8 ? 32 : 1;
+};
+
+// One job of an instance's weight gradient: the tile's first L- and
+// R-indices (a0, b0) and how many it holds (na, nb); its block's height nl
+// (L-index nl - 1 is the constant one), width nr, first L and R columns in
+// the row, and first entry in _split's layout (entry of (a, b): entry +
+// a * nr + b).
+struct GradJob {
+  int a0, b0, na, nb, nl, nr, lfirst, rfirst, entry;
+};
+
+// The blocks, in _split's order: W1 and b1 = [f, rx, ry, one]^T dx1,
+// W2 and b2 = [h1, one]^T dx2, W3 and b3 = [h2, one]^T go.  False past the
+// last job.
+template <int C>
+__device__ __forceinline__ bool grad_job(int j, int k, GradJob& g) {
   using R = Row<C>;
-  constexpr int ONE = R::ONE, H1 = R::H1, H2 = R::H2, DX1 = R::DX1, DX2 = R::DX2, GO = R::GO;
-  constexpr int B1 = (C + 2) * C, W2 = B1 + C, B2 = W2 + C * C, W3 = B2 + C;
-  if (p < B1) {             // W1: rows of features and relative coordinates x dx1
-    lc = p / C;
-    rc = DX1 + p % C;
-  } else if (p < W2) {      // b1
-    lc = ONE;
-    rc = DX1 + (p - B1);
-  } else if (p < B2) {      // W2: h1 x dx2
-    lc = H1 + (p - W2) / C;
-    rc = DX2 + (p - W2) % C;
-  } else if (p < W3) {      // b2
-    lc = ONE;
-    rc = DX2 + (p - B2);
-  } else if (p < W3 + C * k) {  // W3: h2 x the output cotangent
-    lc = H2 + (p - W3) / k;
-    rc = GO + (p - W3) % k;
-  } else {                  // b3
-    lc = ONE;
-    rc = GO + (p - W3 - C * k);
+  constexpr int TA = GradTiles<C>::TA, TB = GradTiles<C>::TB;
+  int entry = 0;
+  auto take = [&](int nl, int nr, int lfirst, int rfirst) {
+    const int lt = (nl + TA - 1) / TA, rt = (nr + TB - 1) / TB;
+    if (j >= lt * rt) {
+      j -= lt * rt;
+      entry += nl * nr;
+      return false;
+    }
+    const int a0 = j / rt * TA, b0 = j % rt * TB;
+    g = {a0, b0, min(TA, nl - a0), min(TB, nr - b0), nl, nr, lfirst, rfirst, entry};
+    return true;
+  };
+  return take(C + 3, C, 0, R::DX1) || take(C + 1, C, R::H1, R::DX2) || take(C + 1, k, R::H2, R::GO);
+}
+
+// Sum each of a lane's N values over the warp's 32 lanes, in a fixed order,
+// called with LIVE = N and MASK = 16: each step keeps half of the LIVE
+// values and adds the same half from the lane MASK apart, so that after
+// log2(N) steps lane l holds value l / (32 / N), summed over the lanes that
+// differ in those bits, and the last steps sum over the rest.  Templates,
+// not loops, so that every index into v is a constant and v stays in
+// registers.
+template <int LIVE, int MASK, int N>
+__device__ __forceinline__ float warp_sum_values(float (&v)[N]) {
+  if constexpr (LIVE > 1) {
+    constexpr int HALF = LIVE / 2;
+    const bool upper = threadIdx.x & MASK;
+#pragma unroll
+    for (int j = 0; j < HALF; ++j) {
+      const float send = upper ? v[j] : v[j + HALF];
+      v[j] = (upper ? v[j + HALF] : v[j]) + __shfl_xor_sync(0xffffffffu, send, MASK);
+    }
+    return warp_sum_values<HALF, MASK / 2>(v);
+  } else if constexpr (MASK >= 1) {
+    v[0] += __shfl_xor_sync(0xffffffffu, v[0], MASK);
+    return warp_sum_values<1, MASK / 2>(v);
+  } else {
+    return v[0];
+  }
+}
+
+// K5b, step 1's weight-gradient partial of one instance over one tile: every
+// entry of L^T R over the tile's live rows, into dst[0, P).
+template <int C>
+__device__ __forceinline__ void reduce_weight_grads(const float* rows, int rs, int live_rows, int k,
+                                                    float* __restrict__ dst) {
+  constexpr int TA = GradTiles<C>::TA, TB = GradTiles<C>::TB, CHUNKS = GradTiles<C>::CHUNKS;
+  constexpr int SLOTS = bwd_threads(C) / CHUNKS;  // jobs under way at once
+  const int chunk = threadIdx.x % CHUNKS;
+  GradJob g;
+  for (int job = threadIdx.x / CHUNKS; grad_job<C>(job, k, g); job += SLOTS) {
+    const float* lp = rows + g.lfirst + g.a0;
+    const float* rp = rows + g.rfirst + g.b0;
+    bool lload[TA], rload[TB];
+    float lconst[TA];
+#pragma unroll
+    for (int a = 0; a < TA; ++a) {  // a column of the row, the constant one, or past the block
+      lload[a] = g.a0 + a < g.nl - 1;
+      lconst[a] = g.a0 + a == g.nl - 1 ? 1.f : 0.f;
+    }
+#pragma unroll
+    for (int q = 0; q < TB; ++q) rload[q] = q < g.nb;
+    float acc[TA * TB];
+#pragma unroll
+    for (int e = 0; e < TA * TB; ++e) acc[e] = 0.f;
+#pragma unroll 4
+    for (int r = chunk; r < live_rows; r += CHUNKS) {
+      const float* lrow = lp + r * rs;
+      const float* rrow = rp + r * rs;
+      float lv[TA], rv[TB];
+#pragma unroll
+      for (int a = 0; a < TA; ++a) lv[a] = lload[a] ? lrow[a] : lconst[a];
+#pragma unroll
+      for (int q = 0; q < TB; ++q) rv[q] = rload[q] ? rrow[q] : 0.f;
+#pragma unroll
+      for (int a = 0; a < TA; ++a)
+#pragma unroll
+        for (int q = 0; q < TB; ++q) acc[a * TB + q] = fmaf(lv[a], rv[q], acc[a * TB + q]);
+    }
+    float* out = dst + g.entry + g.a0 * g.nr + g.b0;
+    if constexpr (CHUNKS == 32) {
+      constexpr int SHARE = 32 / (TA * TB);  // lanes left holding each sum
+      const float s = warp_sum_values<TA * TB, 16>(acc);
+      const int e = chunk / SHARE, a = e / TB, q = e % TB;
+      if (chunk % SHARE == 0 && a < g.na && q < g.nb) out[a * g.nr + q] = s;
+    } else {
+#pragma unroll
+      for (int a = 0; a < TA; ++a)
+#pragma unroll
+        for (int q = 0; q < TB; ++q)
+          if (a < g.na && q < g.nb) out[a * g.nr + q] = acc[a * TB + q];
+    }
   }
 }
 
@@ -362,13 +483,7 @@ decode_bwd_tile_kernel(const void* __restrict__ mf, const float* __restrict__ gr
       }
     }
     __syncthreads();  // the rows are complete; the weights are free
-    for (int p = t; p < p_count; p += TS) {
-      int lc, rc;
-      grad_columns<C>(p, k, lc, rc);
-      float acc = 0.f;
-      for (int r = 0; r < live_rows; ++r) acc = fmaf(rows[r * rs + lc], rows[r * rs + rc], acc);
-      dw_part[(((size_t)b * num_inst + inst) * tiles + tile) * p_count + p] = acc;
-    }
+    reduce_weight_grads<C>(rows, rs, live_rows, k, dw_part + (((size_t)b * num_inst + inst) * tiles + tile) * p_count);
     if (!RESIDENT && li + 1 < n) load_instance(dyn, is_bf16, (size_t)b * num_inst + inst + 1, p_count, w);
     __syncthreads();  // the rows are rewritten, and the weights read, for the next instance
   }

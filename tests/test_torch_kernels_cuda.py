@@ -358,8 +358,10 @@ def _decode_inputs(gen, b, i, h, w, c, k, dtype):
 
 
 # (b, i, h, w, c, k): instance masks, a ragged spatial tile and instance
-# group, and keypoint heatmaps
-DECODE_SHAPES = [(2, 37, 80, 80, 8, 1), (3, 5, 13, 11, 8, 1), (2, 11, 40, 40, 32, 17)]
+# group, more than one instance group with a ragged last tile and a ragged
+# tile of output columns, keypoint heatmaps, and c = 32 at one output
+DECODE_SHAPES = [(2, 37, 80, 80, 8, 1), (3, 5, 13, 11, 8, 1), (3, 33, 24, 24, 8, 5), (2, 11, 40, 40, 32, 17),
+                 (2, 3, 13, 11, 32, 1)]
 
 
 @pytest.mark.cuda
@@ -384,26 +386,31 @@ def test_dynconv_decode_kernel_matches_plain_version_on_card(b, i, h, w, c, k):
 @pytest.mark.parametrize("b,i,h,w,c,k", DECODE_SHAPES)
 def test_dynconv_decode_backward_kernel_matches_plain_autograd_on_card(b, i, h, w, c, k):
     """K5b's d(features) and d(weights) through autograd, within atol = rtol
-    = 2e-3 of autograd of the plain chain (f32 inputs), bitwise equal over
-    two calls, and no gradient for the grid and the centres."""
+    = 2e-3 of autograd of the plain chain for f32 inputs, and for bf16 inputs
+    within atol 2e-3 and rtol 2e-3 + 2^-7 (both sides round their f32 sums to
+    bf16, and a sum near a rounding boundary may round either way), bitwise
+    equal over two calls, and no gradient for the grid and the centres."""
     _need_card()
     gen = torch.Generator().manual_seed(4)
-    mf, grid, centers, dyn = _decode_inputs(gen, b, i, h, w, c, k, torch.float32)
-    weights = torch.randn(b, i, h, w, k, generator=gen).cuda()
-    grads = []
-    for fn in (dynconv.dynamic_pointwise_decode, dynconv.dynamic_pointwise_decode, dynconv.reference_decode):
-        leaves = [t.detach().requires_grad_(True) for t in (mf, grid, centers, dyn)]
-        before = dynconv.dynamic_pointwise_decode_backward.launches
-        (torch.tanh(fn(*leaves, c, k)) * weights).sum().backward()
-        if fn is dynconv.dynamic_pointwise_decode:
-            assert dynconv.dynamic_pointwise_decode_backward.launches == before + 1
-            assert leaves[1].grad is None and leaves[2].grad is None
-            assert leaves[0].grad.is_contiguous(memory_format=torch.channels_last)
-        grads.append((leaves[0].grad, leaves[3].grad))
-    (k_mf, k_dyn), (k2_mf, k2_dyn), (want_mf, want_dyn) = grads
-    assert torch.equal(k_mf, k2_mf) and torch.equal(k_dyn, k2_dyn)
-    torch.testing.assert_close(k_mf, want_mf, atol=2e-3, rtol=2e-3)
-    torch.testing.assert_close(k_dyn, want_dyn, atol=2e-3, rtol=2e-3)
+    for dtype in (torch.float32, torch.bfloat16):
+        mf, grid, centers, dyn = _decode_inputs(gen, b, i, h, w, c, k, dtype)
+        weights = torch.randn(b, i, h, w, k, generator=gen).cuda()
+        grads = []
+        for fn in (dynconv.dynamic_pointwise_decode, dynconv.dynamic_pointwise_decode, dynconv.reference_decode):
+            leaves = [t.detach().requires_grad_(True) for t in (mf, grid, centers, dyn)]
+            before = dynconv.dynamic_pointwise_decode_backward.launches
+            (torch.tanh(fn(*leaves, c, k)) * weights).sum().backward()
+            if fn is dynconv.dynamic_pointwise_decode:
+                assert dynconv.dynamic_pointwise_decode_backward.launches == before + 1
+                assert leaves[1].grad is None and leaves[2].grad is None
+                assert leaves[0].grad.is_contiguous(memory_format=torch.channels_last)
+            grads.append((leaves[0].grad, leaves[3].grad))
+        (k_mf, k_dyn), (k2_mf, k2_dyn), (want_mf, want_dyn) = grads
+        assert torch.equal(k_mf, k2_mf) and torch.equal(k_dyn, k2_dyn)
+        assert k_mf.dtype == k_dyn.dtype == dtype
+        rtol = 2e-3 + (2**-7 if dtype == torch.bfloat16 else 0.0)
+        torch.testing.assert_close(k_mf.float(), want_mf.float(), atol=2e-3, rtol=rtol)
+        torch.testing.assert_close(k_dyn.float(), want_dyn.float(), atol=2e-3, rtol=rtol)
 
 
 @pytest.mark.cuda
