@@ -73,9 +73,9 @@
 // one block the columns of one load span fewer than 32 (distinct columns on
 // distinct banks, repeated ones broadcast); in a warp whose jobs straddle
 // two blocks, two columns may lie 32 apart, a 2-way conflict on that load.
-// 16-byte loads would need a stride that is a
-// multiple of 4, which makes the per-thread row writes of the recompute
-// conflict, so the loads stay 4-byte.
+// 16-byte loads would need a stride that is a multiple of 4, which makes
+// the per-thread row writes of the recompute conflict, so the loads stay
+// 4-byte.
 // The gradients of the grid and the centres are not computed (the caller
 // treats them as constants, as _decode_vjp_bwd returns zeros for them).
 
