@@ -43,7 +43,10 @@ raises on failure:
    1x1 conv 64 -> 256 with and without BatchNorm's sums (P4), the 1x1 weight
    gradient at three shapes (P5) and the 3x3 conv 64 -> 64 (P2); each
    probe's run holds its kernel against the plain version and the library
-   call (cuDNN) and times all three;
+   call (cuDNN) and times all three; P4's and P5's kernels must show
+   wgmma (HGMMA) and TMA instructions in their SASS; P4 and P5 are timed
+   alone (CUDA graphs) beside the host time of a call, and P5's products
+   and its partial sums apart;
 17. stem variants: the stem-variant probe P3 at the flagship's stem shape
    (16 images of 640 x 640 x 3 to (16, 320, 320, 64), bf16): the stem conv
    split into its load, stage, product and full legs, each held against its
@@ -63,6 +66,7 @@ line is ``{"ok": true, "device": {...}}``.
 import copy
 import json
 import math
+import re
 import shutil
 import statistics
 import subprocess
@@ -72,6 +76,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
@@ -641,20 +646,26 @@ def k6_cases(cuda_gen) -> dict:
     return results
 
 
-def sass_mma_counts(library: str) -> dict:
-    """Tensor-core instructions (HMMA) in each kernel of a built library, by
-    its mangled name, from ``cuobjdump -sass``; empty without cuobjdump."""
+SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")  # mma.sync, wgmma, TMA load / store, bulk copy
+
+
+def sass_counts(library: str) -> dict:
+    """Tensor-core (HMMA, HGMMA) and TMA (UTMALDG, UTMASTG, UBLKCP)
+    instructions in each kernel of a built library, by its mangled name:
+    ``{kernel: {opcode: count}}`` from ``cuobjdump -sass``; empty without
+    cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not shutil.which(tool):
         return {}
     sass = subprocess.run([tool, "-sass", library], capture_output=True, text=True, check=True, timeout=300).stdout
+    opcode = re.compile(r"\b(" + "|".join(SASS_OPCODES) + r")\b")
     counts, kernel = {}, None
     for line in sass.splitlines():
         if "Function :" in line:
             kernel = line.split("Function :")[1].strip()
-            counts[kernel] = 0
-        elif kernel and "HMMA" in line:
-            counts[kernel] += 1
+            counts[kernel] = dict.fromkeys(SASS_OPCODES, 0)
+        elif kernel and (found := opcode.search(line)):
+            counts[kernel][found.group(1)] += 1
     return counts
 
 
@@ -671,10 +682,10 @@ def k4_cases(cuda_gen) -> dict:
     former.  cuDNN's conv alone is timed for information: no single call
     computes the statistics too."""
     results = {"stem_conv_stats": []}
-    counts = sass_mma_counts(stem._library()._name)
+    counts = sass_counts(stem._library()._name)
     if counts:
-        mma = sum(n for k, n in counts.items() if "stem_conv_stats_mma_kernelILi3E" in k)
-        fma = sum(n for k, n in counts.items() if "stem_conv_stats_kernelIfE" in k)
+        mma = sum(n["HMMA"] for k, n in counts.items() if "stem_conv_stats_mma_kernelILi3E" in k)
+        fma = sum(n["HMMA"] for k, n in counts.items() if "stem_conv_stats_kernelIfE" in k)
         print(f"  K4 SASS (cuobjdump): {mma} HMMA in the bf16 body at 3 channels "
               f"(stem_conv_stats_mma_kernel<3>), {fma} in the f32 body (stem_conv_stats_kernel<float>)")
         if mma == 0:
@@ -1118,10 +1129,85 @@ def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
     return launches
 
 
+def check_tma_kernels_sass() -> None:
+    """P4's and P5's kernels (matmul_stats_kernel<STATS>, weight_grad_kernel<TI>)
+    must show wgmma (HGMMA) and a TMA instruction in their SASS."""
+    counts = sass_counts(conv_probes._library()._name)
+    if not counts:
+        print("  P4, P5 SASS: cuobjdump not found, not read")
+        return
+    tma = ("UTMALDG", "UTMASTG", "UBLKCP")
+    kernels = {k: n for k, n in counts.items() if "matmul_stats_kernel" in k or "weight_grad_kernel" in k}
+    if len(kernels) != 4:
+        raise AssertionError(f"conv_probes SASS: expected P4's two and P5's two kernels, found {sorted(kernels)}")
+    for k, n in sorted(kernels.items()):
+        print(f"  SASS (cuobjdump) {k}: " + ", ".join(f"{op} {n[op]}" for op in SASS_OPCODES))
+        if n["HGMMA"] == 0 or not any(n[op] for op in tma):
+            raise AssertionError(f"conv_probes: {k} shows no HGMMA or no TMA instruction in its SASS")
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Median host time of one call of ``fn`` (its checks, allocations and
+    launches), the card idle before each: what a call adds to the device
+    time when nothing else is queued."""
+    fn()
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return statistics.median(times) * 1e3
+
+
+def probe_alone_times(cuda_gen) -> None:
+    """P4 and P5 at the probes' shapes, apart from the probe scripts' event
+    timing of a call (which adds the host time before the first launch):
+    device time alone (a CUDA graph of 20 calls) beside cuDNN's call for the
+    same function timed the same way, and the host time of a call.  With
+    another tree's package first on the path (run from that tree, loading
+    this file by path), times that tree's kernels the same way."""
+    m = 16 * 160 * 160  # probe_conv1x1.run's rows: 16 images at 160 x 160
+    x = (torch.randn(m, 64, device="cuda", generator=cuda_gen) * 0.5).to(torch.bfloat16)
+    w = (torch.randn(64, 256, device="cuda", generator=cuda_gen) * 0.05).to(torch.bfloat16)
+    x_nchw, w4 = x.view(16, 160, 160, 64).permute(0, 3, 1, 2), w.t().reshape(256, 64, 1, 1).contiguous()
+    print(f"  P4 ({m}, 64) @ (64, 256): cuDNN's 1x1 conv alone {graph_ms(lambda: F.conv2d(x_nchw, w4)):.4f} ms")
+    for stats in (False, True):
+        fn = lambda: conv_probes.matmul_stats(x, w, stats=stats)  # noqa: E731
+        print(f"  P4 ({m}, 64) @ (64, 256){' with the sums' if stats else ''}: alone {graph_ms(fn):.4f} ms "
+              f"(device time, a CUDA graph of 20 calls); host time of a call {host_ms(fn):.4f} ms")
+    for name, batch, side, ci, co in probe_wrt_filter.SHAPES:
+        m = batch * side * side
+        x = (torch.randn(m, ci, device="cuda", generator=cuda_gen) * 0.1).to(torch.bfloat16)
+        dy = (torch.randn(m, co, device="cuda", generator=cuda_gen) * 0.1).to(torch.bfloat16)
+        x_img = x.view(batch, side, side, ci).permute(0, 3, 1, 2)
+        dy_img = dy.view(batch, side, side, co).permute(0, 3, 1, 2)
+        library_ms = graph_ms(lambda: torch.nn.grad.conv2d_weight(x_img, (co, ci, 1, 1), dy_img))
+        call = lambda: conv_probes.weight_grad_1x1(x, dy)  # noqa: E731
+        print(f"  P5 {name}: alone {graph_ms(call):.4f} ms, cuDNN's weight gradient alone {library_ms:.4f} ms "
+              f"(device times, CUDA graphs of 20 calls); host time of a call {host_ms(call):.4f} ms")
+
+
+def p5_split(cuda_gen) -> None:
+    """P5 at the probe's three shapes split into its products and its
+    partial sums, each device time from a CUDA graph of 20 launches."""
+    for name, batch, side, ci, co in probe_wrt_filter.SHAPES:
+        m = batch * side * side
+        x = (torch.randn(m, ci, device="cuda", generator=cuda_gen) * 0.1).to(torch.bfloat16)
+        dy = (torch.randn(m, co, device="cuda", generator=cuda_gen) * 0.1).to(torch.bfloat16)
+        products, reduction = conv_probes.weight_grad_phases(x, dy)
+        partials = products()
+        print(f"  P5 split {name}: products {graph_ms(products):.4f} ms ({partials.shape[0]} partials, "
+              f"{partials.numel() * 4 / 1e6:.1f} MB of f32 written), partial sums {graph_ms(reduction):.4f} ms "
+              f"(reading them; device times, CUDA graphs of 20 launches)")
+
+
 def probes_phase() -> list:
     """Phase 16: the three probe scripts' runs at their full shapes, with
     every count set to 0 just before and read just after; each kernel must
-    launch.  Returns the kernels' summary entries (path "probe")."""
+    launch.  Then P4's and P5's SASS and P5's split.  Returns the kernels'
+    summary entries (path "probe")."""
     reset_counts()
     p4 = probe_conv1x1.run()
     p5 = probe_wrt_filter.run()
@@ -1131,6 +1217,9 @@ def probes_phase() -> list:
     for name, n in launches.items():
         if n == 0:
             raise AssertionError(f"the probe path never launched the {name} kernel")
+    check_tma_kernels_sass()
+    probe_alone_times(torch.Generator("cuda").manual_seed(16))
+    p5_split(torch.Generator("cuda").manual_seed(16))
 
     def entry(name, replaces, n, cases, kernel="kernel", plain="plain", library="library"):
         """``cases``: (legs, bound, max_abs_err) of each shape the probe ran;

@@ -17,17 +17,18 @@ CUDA_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3"]
 
 
 @functools.cache
-def cuda_library(name: str) -> ctypes.CDLL:
-    """Compile ``csrc/<name>.cu`` (plain C interface, no PyTorch headers)
-    for sm_90a and load it; later calls reuse the loaded library.  Each
-    library has its own build directory, so several can build at once."""
+def cuda_library(name: str, source: Path = None) -> ctypes.CDLL:
+    """Compile ``csrc/<name>.cu``, or ``source`` (plain C interface, no
+    PyTorch headers), for sm_90a and load it; later calls reuse the loaded
+    library.  Each library has its own build directory, so several can
+    build at once."""
     from torch.utils.cpp_extension import load
 
     build_dir = BUILD_DIR / name
     build_dir.mkdir(parents=True, exist_ok=True)
     path = load(
         name=f"sihl_{name}",
-        sources=[str(CSRC_DIR / f"{name}.cu")],
+        sources=[str(source or CSRC_DIR / f"{name}.cu")],
         build_directory=str(build_dir),
         extra_cuda_cflags=CUDA_FLAGS,
         is_python_module=False,

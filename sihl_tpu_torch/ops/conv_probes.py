@@ -12,10 +12,15 @@ bf16 operands, f32 sums, each bf16 output rounded once.  A CUDA tensor goes
 to the hand-written kernels of ``csrc/conv_probes.cu`` (the file says how
 each is laid out and what bounds it); a CPU tensor goes to the plain
 PyTorch version beside each wrapper, which repeats the kernel's arithmetic
-in f32.  No model path calls these yet: the probe scripts of
+in f32.  P4 and P5 read and write their matrices by TMA, which takes
+16-byte-aligned addresses; the wrappers refuse others.  How P4 and P5 deal
+their work to blocks is planned here (:func:`matmul_stats_blocks`,
+:func:`weight_grad_plan`, :func:`weight_grad_blocks`), so that the CPU tests
+can check it.  No model path calls these yet: the probe scripts of
 ``sihl_tpu_torch.tools`` and ``chip_smoke.py`` do.
 """
 
+import contextlib
 import ctypes
 import functools
 from typing import Tuple, Union
@@ -26,21 +31,29 @@ import torch.nn.functional as F
 from sihl_tpu_torch.ops.build import cuda_library
 
 P4_IN, P4_OUT = 64, 256          # matmul_stats: x (M, 64) by w (64, 256)
-P5_CI_STEP, P5_CO_STEP = 64, 256  # weight_grad_1x1: ci and co multiples
+P5_CI_STEP, P5_CO_STEP = 64, 256  # weight_grad_1x1: ci and co multiples, and the co of a dW tile
+P5_CLUSTER = 4                    # weight_grad_1x1: blocks of a cluster (csrc/conv_probes.cu, p5::CL)
 P2_CHANNELS = 64                  # conv3x3: 64 -> 64
+ROWS = 64                         # P4's row tiles and P5's row chunks: one TMA box's rows
+MAX_ROWS = 2**31 - 1              # TMA's coordinates are 32-bit
 
 
 @functools.cache
 def _library() -> ctypes.CDLL:
-    lib = cuda_library("conv_probes")
+    return bind(cuda_library("conv_probes"))
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declares the C interface of a built ``csrc/conv_probes.cu`` (or of an
+    edited copy of it, as ``tools.probe_conv_variants`` builds)."""
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.sihl_probe_matmul_blocks.argtypes = [ll, i]
-    lib.sihl_probe_matmul_blocks.restype = ll
+    lib.sihl_probe_matmul_resident.argtypes = [i]
+    lib.sihl_probe_matmul_resident.restype = ll
     lib.sihl_probe_matmul_stats.argtypes = [i, p, p, ll, p, p, p, ll, p]
     lib.sihl_probe_matmul_stats.restype = i
-    lib.sihl_probe_weight_grad_splits.argtypes = [ll, i, i]
-    lib.sihl_probe_weight_grad_splits.restype = ll
-    lib.sihl_probe_weight_grad.argtypes = [p, p, ll, i, i, p, p, ll, p]
+    lib.sihl_probe_weight_grad_resident.argtypes = [i]
+    lib.sihl_probe_weight_grad_resident.restype = ll
+    lib.sihl_probe_weight_grad.argtypes = [p, p, ll, i, i, i, ll, p, p, i, p]
     lib.sihl_probe_weight_grad.restype = i
     lib.sihl_probe_conv3x3.argtypes = [p, p, i, i, i, p, p]
     lib.sihl_probe_conv3x3.restype = i
@@ -54,10 +67,19 @@ def _check(err: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {_library().sihl_cuda_error_string(err).decode()}")
 
 
-def _count(n: int, what: str) -> int:
-    """A block or split count from the library; 0 or less is minus a CUDA error."""
+@functools.cache
+def _resident(kernel: str, variant: int, device_index: int) -> int:
+    """Blocks of P4's kernel (``variant`` = stats), or clusters of P5's
+    (``variant`` = the tile's ci rows), that fit on card ``device_index`` at
+    once, asked of the library once per device and kernel: the query
+    (occupancy and a function attribute) would otherwise cost each call
+    host time."""
+    lib = _library()
+    with torch.cuda.device(device_index):
+        n = lib.sihl_probe_matmul_resident(variant) if kernel == "matmul_stats" else \
+            lib.sihl_probe_weight_grad_resident(variant)
     if n <= 0:
-        _check(-n, what)
+        _check(-n, kernel)
     return n
 
 
@@ -72,8 +94,27 @@ def _require(t: torch.Tensor, name: str, shape, what: str) -> None:
         raise ValueError(f"the {what} kernel takes {name} of shape {shape}, got {tuple(t.shape)}")
 
 
+def _require_tma(t: torch.Tensor, name: str, what: str) -> None:
+    """What TMA takes besides: a 16-byte-aligned address and fewer than
+    2^31 rows (its row strides here are multiples of 128 bytes)."""
+    if t.data_ptr() % 16:
+        raise ValueError(f"the {what} kernel takes a 16-byte-aligned {name} (TMA), got address {t.data_ptr():#x}")
+    if t.shape[0] > MAX_ROWS:
+        raise ValueError(f"the {what} kernel takes at most {MAX_ROWS} rows, got {t.shape[0]}")
+
+
 def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The current stream of t's card, as a raw pointer (without building a
+    Stream object: several microseconds of host time a call)."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _on(t: torch.Tensor):
+    """The device guard of a launch on t's card: none when that card is
+    already the current one (entering one costs microseconds a call)."""
+    if t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def _same_device(*ts: torch.Tensor) -> None:
@@ -98,6 +139,14 @@ def matmul_stats_reference(x: torch.Tensor, w: torch.Tensor, stats: bool = False
     return y, yf.sum(dim=0), (yf * yf).sum(dim=0)
 
 
+def matmul_stats_blocks(m: int, resident: int) -> int:
+    """P4's persistent blocks for m rows when ``resident`` fit on the card
+    at once: one per 64-row tile, at most ``resident``.  Block b takes tiles
+    b, b + blocks, b + 2 blocks, ... in that order (the kernel walks them so)
+    and writes the statistics' partial b."""
+    return min(-(-m // ROWS), resident)
+
+
 def _matmul_stats_cuda(x: torch.Tensor, w: torch.Tensor, stats: bool) -> MatmulOut:
     _require(x, "x", (None, P4_IN), "matmul_stats")
     _require(w, "w", (P4_IN, P4_OUT), "matmul_stats")
@@ -105,20 +154,23 @@ def _matmul_stats_cuda(x: torch.Tensor, w: torch.Tensor, stats: bool) -> MatmulO
     m = x.shape[0]
     if m < 1:
         raise ValueError("the matmul_stats kernel takes at least one row")
-    lib = _library()
-    with torch.cuda.device(x.device):
-        blocks = _count(lib.sihl_probe_matmul_blocks(m, int(stats)), "matmul_stats")
-        y = torch.empty((m, P4_OUT), dtype=torch.bfloat16, device=x.device)
-        partials = torch.empty((blocks, 2, P4_OUT) if stats else (0,), dtype=torch.float32, device=x.device)
-        sums = torch.empty((2, P4_OUT) if stats else (0,), dtype=torch.float32, device=x.device)
-        err = lib.sihl_probe_matmul_stats(int(stats), x.data_ptr(), w.data_ptr(), m, y.data_ptr(),
-                                          partials.data_ptr(), sums.data_ptr(), blocks, _stream(x))
+    _require_tma(x, "x", "matmul_stats")
+    _require_tma(w, "w", "matmul_stats")
+    blocks = matmul_stats_blocks(m, _resident("matmul_stats", int(stats), x.device.index))
+    y = torch.empty((m, P4_OUT), dtype=torch.bfloat16, device=x.device)
+    partials = sums = None
+    if stats:  # one scratch: the blocks' (2, 256) partials, then the two sums
+        scratch = torch.empty(((blocks + 1) * 2 * P4_OUT,), dtype=torch.float32, device=x.device)
+        partials, sums = scratch[: blocks * 2 * P4_OUT], scratch[blocks * 2 * P4_OUT :].view(2, P4_OUT)
+    with _on(x):
+        err = _library().sihl_probe_matmul_stats(
+            int(stats), x.data_ptr(), w.data_ptr(), m, y.data_ptr(), partials.data_ptr() if stats else None,
+            sums.data_ptr() if stats else None, blocks, _stream(x))
     _check(err, "matmul_stats")
     matmul_stats.launches += 1
     return (y, sums[0], sums[1]) if stats else y
 
 
-@torch.no_grad()
 def matmul_stats(x: torch.Tensor, w: torch.Tensor, stats: bool = False) -> MatmulOut:
     """The 1x1 conv 64 -> 256 over rows: y = x w for x (M, 64) and w
     (64, 256), bf16 on the card, y (M, 256) rounded once from f32 sums.
@@ -128,7 +180,8 @@ def matmul_stats(x: torch.Tensor, w: torch.Tensor, stats: bool = False) -> Matmu
     if x.device.type == "cuda":
         return _matmul_stats_cuda(x, w, stats)
     if x.device.type == "cpu":
-        return matmul_stats_reference(x, w, stats)
+        with torch.no_grad():
+            return matmul_stats_reference(x, w, stats)
     raise ValueError(f"matmul_stats runs on CUDA or CPU tensors, got {x.device}")
 
 
@@ -143,7 +196,47 @@ def weight_grad_1x1_reference(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor
     return x.float().T @ dy.float()
 
 
-def _weight_grad_1x1_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+def _tile_rows(ci: int) -> int:
+    """The ci rows of P5's dW tiles: 128 where ci allows (each byte of dy is
+    then read for ci / 128 tiles, not ci / 64), else 64."""
+    return 128 if ci % 128 == 0 else P5_CI_STEP
+
+
+def weight_grad_plan(m: int, ci: int, co: int, clusters: int) -> Tuple[int, int]:
+    """P5's plan for x (m, ci) and dy (m, co) when ``clusters`` clusters of
+    four blocks fit on the card at once: ``(ti, splits)``.  dW is cut into
+    ti x 256 tiles and the rows into ``splits`` runs of 64-row chunks, four
+    to a cluster (which adds them into one partial), as many clusters as
+    fill the card with one per tile and group of four splits, at least one
+    and at most one for every four chunks."""
+    ti = _tile_rows(ci)
+    tiles = (ci // ti) * (co // P5_CO_STEP)
+    groups = max(1, min(-(-m // (ROWS * P5_CLUSTER)), clusters // tiles))
+    return ti, P5_CLUSTER * groups
+
+
+def weight_grad_blocks(m: int, ci: int, co: int, ti: int, splits: int) -> list:
+    """What each block of P5's kernel takes, in block order, as the kernel
+    computes it: ``(ci0, co0, split, first_chunk, end_chunk)``, the dW tile
+    at rows ci0 .. ci0 + ti - 1 and columns co0 .. co0 + 255 over the 64-row
+    chunks [first_chunk, end_chunk).  Block b is rank b % 4 of cluster
+    b // 4; cluster k takes tile k % tiles (ci fastest, so the clusters of
+    one group of splits sit next to each other) and splits 4 (k // tiles)
+    .. 4 (k // tiles) + 3, rank r the r-th; the splits of a tile follow each
+    other through the rows, and split s adds into partial s // 4."""
+    i_tiles, chunks = ci // ti, -(-m // ROWS)
+    tiles = i_tiles * (co // P5_CO_STEP)
+    plan = []
+    for b in range(tiles * splits):
+        cluster, rank = divmod(b, P5_CLUSTER)
+        tile, split = cluster % tiles, P5_CLUSTER * (cluster // tiles) + rank
+        plan.append(((tile % i_tiles) * ti, (tile // i_tiles) * P5_CO_STEP, split,
+                     chunks * split // splits, chunks * (split + 1) // splits))
+    return plan
+
+
+def _weight_grad_args(x: torch.Tensor, dy: torch.Tensor):
+    """Checks P5's inputs; returns (m, ci, co, ti, splits)."""
     _require(x, "x", (None, None), "weight_grad_1x1")
     m, ci = x.shape
     _require(dy, "dy", (m, None), "weight_grad_1x1")
@@ -152,27 +245,65 @@ def _weight_grad_1x1_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     if m < 1 or ci < 1 or co < 1 or ci % P5_CI_STEP or co % P5_CO_STEP:
         raise ValueError(f"the weight_grad_1x1 kernel takes rows >= 1, ci a multiple of {P5_CI_STEP} and co "
                          f"of {P5_CO_STEP}, got ({m}, {ci}) and ({m}, {co})")
-    lib = _library()
-    with torch.cuda.device(x.device):
-        splits = _count(lib.sihl_probe_weight_grad_splits(m, ci, co), "weight_grad_1x1")
-        partials = torch.empty((splits, ci, co), dtype=torch.float32, device=x.device)
-        dw = torch.empty((ci, co), dtype=torch.float32, device=x.device)
-        err = lib.sihl_probe_weight_grad(x.data_ptr(), dy.data_ptr(), m, ci, co, partials.data_ptr(),
-                                         dw.data_ptr(), splits, _stream(x))
+    _require_tma(x, "x", "weight_grad_1x1")
+    _require_tma(dy, "dy", "weight_grad_1x1")
+    clusters = _resident("weight_grad_1x1", _tile_rows(ci), x.device.index)
+    return (m, ci, co) + weight_grad_plan(m, ci, co, clusters)
+
+
+def _weight_grad_outputs(x: torch.Tensor, args):
+    """P5's partials (one a cluster of four splits) and its dW."""
+    _, ci, co, _, splits = args
+    return (torch.empty((splits // P5_CLUSTER, ci, co), dtype=torch.float32, device=x.device),
+            torch.empty((ci, co), dtype=torch.float32, device=x.device))
+
+
+def _weight_grad_launch(x, dy, args, partials, dw, phases: int) -> None:
+    m, ci, co, ti, splits = args
+    with _on(x):
+        err = _library().sihl_probe_weight_grad(x.data_ptr(), dy.data_ptr(), m, ci, co, ti, splits,
+                                                partials.data_ptr(), dw.data_ptr(), phases, _stream(x))
     _check(err, "weight_grad_1x1")
+
+
+def _weight_grad_1x1_cuda(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    args = _weight_grad_args(x, dy)
+    partials, dw = _weight_grad_outputs(x, args)
+    _weight_grad_launch(x, dy, args, partials, dw, 3)
     weight_grad_1x1.launches += 1
     return dw
 
 
-@torch.no_grad()
+def weight_grad_phases(x: torch.Tensor, dy: torch.Tensor):
+    """P5's two launches apart, for timing them one by one on the card:
+    ``(products, reduction)``, two callables over one scratch, the first
+    writing the partials and the second summing them into the dW it
+    returns.  They do not count as launches of :func:`weight_grad_1x1`."""
+    if x.device.type != "cuda":
+        raise ValueError(f"weight_grad_phases times the card's kernels, got {x.device}")
+    args = _weight_grad_args(x, dy)
+    partials, dw = _weight_grad_outputs(x, args)
+
+    def products() -> torch.Tensor:
+        _weight_grad_launch(x, dy, args, partials, dw, 1)
+        return partials
+
+    def reduction() -> torch.Tensor:
+        _weight_grad_launch(x, dy, args, partials, dw, 2)
+        return dw
+
+    return products, reduction
+
+
 def weight_grad_1x1(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The 1x1 conv's weight gradient over rows: dW = x^T dy, (ci, co) f32,
     for x (M, ci) and dy (M, co), bf16 on the card with ci a multiple of 64
-    and co of 256."""
+    and co of 256.  No gradient flows through it."""
     if x.device.type == "cuda":
         return _weight_grad_1x1_cuda(x, dy)
     if x.device.type == "cpu":
-        return weight_grad_1x1_reference(x, dy)
+        with torch.no_grad():
+            return weight_grad_1x1_reference(x, dy)
     raise ValueError(f"weight_grad_1x1 runs on CUDA or CPU tensors, got {x.device}")
 
 

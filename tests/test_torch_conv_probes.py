@@ -130,3 +130,69 @@ def test_probe_conv3x3_legs_agree_on_cpu():
     assert set(result["legs"]) == {"library", "kernel", "plain"}
     assert result["errors"]["kernel"] == 0.0
     assert result["flops"] == 2 * 13 * 13 * 64 * 64 * 9
+
+
+# The work plans of the P4 and P5 kernels (what the wrappers hand each
+# block), at the probes' shapes and at ragged row counts, for the H100's 132
+# blocks (one an SM) and for fewer.
+P5_CASES = [(409_600, 64, 256), (102_400, 128, 512), (102_400, 256, 256), (1, 64, 256), (63, 192, 768),
+            (65, 128, 512), (64 * 132 * 6 + 37, 192, 768), (100_003, 256, 256)]
+
+
+@pytest.mark.parametrize("clusters", [33, 2])
+@pytest.mark.parametrize("m,ci,co", P5_CASES)
+def test_weight_grad_plan_covers_every_tile_and_chunk_once(m, ci, co, clusters):
+    """Every (dW tile, 64-row chunk) pair is some block's exactly once; each
+    tile's splits take the chunks in order, back to back; a cluster's four
+    blocks share one tile and take four consecutive splits, which add into
+    one partial; the tiles cover dW; no more clusters than fit at once
+    unless dW has more tiles."""
+    ti, splits = conv_probes.weight_grad_plan(m, ci, co, clusters)
+    assert ti == (128 if ci % 128 == 0 else 64)
+    plan = conv_probes.weight_grad_blocks(m, ci, co, ti, splits)
+    tiles = (ci // ti) * (co // 256)
+    chunks = -(-m // 64)
+    assert splits % 4 == 0 and 4 <= splits <= max(4, chunks + 3)
+    assert len(plan) == tiles * splits and len(plan) // 4 <= max(clusters, tiles)
+    for k in range(len(plan) // 4):
+        members = plan[4 * k : 4 * k + 4]
+        assert len({(ci0, co0) for ci0, co0, *_ in members}) == 1
+        assert [split for _, _, split, _, _ in members] == list(range(members[0][2], members[0][2] + 4))
+        assert members[0][2] % 4 == 0  # one partial a cluster
+    covered = {}
+    for ci0, co0, split, first, end in plan:
+        assert ci0 % ti == 0 and co0 % 256 == 0 and ci0 < ci and co0 < co
+        covered.setdefault((ci0, co0), []).append((split, first, end))
+    assert len(covered) == tiles
+    for runs in covered.values():
+        assert [split for split, _, _ in runs] == list(range(splits))  # in block order
+        assert runs[0][1] == 0 and runs[-1][2] == chunks
+        assert all(a[2] == b[1] for a, b in zip(runs, runs[1:]))  # back to back
+        assert all(first <= end for _, first, end in runs)
+    # the clusters of one group of splits sit next to each other, ci fastest
+    assert [b[2] // 4 for b in plan] == sorted(b[2] // 4 for b in plan)
+
+
+@pytest.mark.parametrize("m", [1, 63, 65, 409_600, 64 * 132 * 3 + 5])
+def test_matmul_stats_blocks_take_every_tile_once(m):
+    """P4's persistent blocks: block b takes tiles b, b + blocks, ...; every
+    64-row tile is taken once and no block is idle."""
+    tiles = -(-m // 64)
+    for resident in (132, 5):
+        blocks = conv_probes.matmul_stats_blocks(m, resident)
+        assert 1 <= blocks <= min(tiles, resident)
+        taken = sorted(t for b in range(blocks) for t in range(b, tiles, blocks))
+        assert taken == list(range(tiles))
+
+
+def test_probe_conv_variants_edits_match_the_source():
+    """Every edit the variant probe makes to csrc/conv_probes.cu finds its
+    text there once, so the probe builds what it says it builds."""
+    from sihl_tpu_torch.tools import probe_conv_variants
+
+    source = (Path(conv_probes.__file__).parent / "csrc" / "conv_probes.cu").read_text()
+    edits = [e for v in (probe_conv_variants.P4_VARIANTS, probe_conv_variants.P5_VARIANTS) for es in v.values()
+             for e in es]
+    assert edits
+    for old, new in edits:
+        assert source.count(old) == 1 and old != new

@@ -432,12 +432,14 @@ def _bf16(gen, *shape, scale=1.0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m", [1, 63, 65, 1000, 4097])
+@pytest.mark.parametrize("m", [1, 63, 65, 1000, 4097, 64 * 132 * 3 + 5])
 def test_matmul_stats_kernel_matches_plain_version_on_card(m):
-    """P4 at ragged row counts: y within one bf16 step of the plain f32
-    product (plus what f32 order moves a sum of 64 products that cancel),
-    the same with and without the statistics; the sums within 1e-5 of the
-    sums of |y| and y^2 (f32 sums in another order); two calls bitwise equal."""
+    """P4 at ragged row counts and with more 64-row tiles than blocks fit on
+    the card at once (the last, 3 tiles a block and a ragged one): y within
+    one bf16 step of the plain f32 product (plus what f32 order moves a sum
+    of 64 products that cancel), the same with and without the statistics;
+    the sums within 1e-5 of the sums of |y| and y^2 (f32 sums in another
+    order); two calls bitwise equal."""
     _need_card()
     gen = torch.Generator().manual_seed(6)
     x, w = _bf16(gen, m, 64, scale=0.5), _bf16(gen, 64, 256, scale=0.05)
@@ -446,21 +448,26 @@ def test_matmul_stats_kernel_matches_plain_version_on_card(m):
     before = conv_probes.matmul_stats.launches
     y = conv_probes.matmul_stats(x, w)
     y1, s1, s2 = conv_probes.matmul_stats(x, w, stats=True)
-    _, s1b, s2b = conv_probes.matmul_stats(x, w, stats=True)
+    y2, s1b, s2b = conv_probes.matmul_stats(x, w, stats=True)
     assert conv_probes.matmul_stats.launches == before + 3
     assert y.shape == (m, 256) and y.dtype == torch.bfloat16
     assert _within_one_bf16_step(y, yf, slack)
-    assert torch.equal(y, y1)
+    assert torch.equal(y, y1) and torch.equal(y1, y2)
+    assert torch.equal(y, conv_probes.matmul_stats(x, w))
     assert within_sum_order(s1, yf.sum(dim=0), yf.abs().sum(dim=0))
     assert within_sum_order(s2, (yf * yf).sum(dim=0), (yf * yf).sum(dim=0))
     assert torch.equal(s1, s1b) and torch.equal(s2, s2b)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("m,ci,co", [(1, 64, 256), (65, 64, 256), (1000, 128, 512), (4097, 256, 256)])
+@pytest.mark.parametrize("ci,co", [(64, 256), (128, 512), (256, 256), (192, 768)])
+@pytest.mark.parametrize("m", [1, 63, 65, 64 * 132 * 6 + 37])
 def test_weight_grad_kernel_matches_plain_version_on_card(m, ci, co):
-    """P5 at ragged row counts: dW within 1e-5 of |x|^T |dy| of x^T dy in f32
-    (f32 sums in another order); two calls bitwise equal."""
+    """P5 at the probes' three channel counts and one whose dW tiles (3 x 3
+    of 64 x 256) are no power of two, with one row, less than a 64-row TMA
+    box, one row past a box, and enough rows that every block takes many
+    chunks: dW within 1e-5 of |x|^T |dy| of x^T dy in f32 (f32 sums in
+    another order); two calls bitwise equal."""
     _need_card()
     gen = torch.Generator().manual_seed(7)
     x, dy = _bf16(gen, m, ci, scale=0.1), _bf16(gen, m, co, scale=0.1)
@@ -469,6 +476,23 @@ def test_weight_grad_kernel_matches_plain_version_on_card(m, ci, co):
     assert conv_probes.weight_grad_1x1.launches == before + 1
     assert dw.shape == (ci, co) and dw.dtype == torch.float32
     assert within_sum_order(dw, x.float().T @ dy.float(), x.float().abs().T @ dy.float().abs())
+    assert torch.equal(dw, conv_probes.weight_grad_1x1(x, dy))
+
+
+@pytest.mark.cuda
+def test_weight_grad_phases_add_up_to_the_call_on_card():
+    """P5's two launches apart (what the smoke times one by one) give the
+    call's dW bitwise, and do not count as launches of the wrapper."""
+    _need_card()
+    gen = torch.Generator().manual_seed(11)
+    x, dy = _bf16(gen, 5000, 128, scale=0.1), _bf16(gen, 5000, 512, scale=0.1)
+    before = conv_probes.weight_grad_1x1.launches
+    products, reduction = conv_probes.weight_grad_phases(x, dy)
+    partials = products()
+    dw = reduction()
+    assert conv_probes.weight_grad_1x1.launches == before
+    assert partials.shape[1:] == (128, 512)
+    assert within_sum_order(dw, partials.sum(dim=0), partials.abs().sum(dim=0))
     assert torch.equal(dw, conv_probes.weight_grad_1x1(x, dy))
 
 
@@ -508,6 +532,16 @@ def test_conv_probe_kernels_refuse_what_they_do_not_take():
         conv_probes.weight_grad_1x1(x, _bf16(gen, 256, 128).t())
     with pytest.raises(ValueError, match="multiple"):
         conv_probes.weight_grad_1x1(x, _bf16(gen, 128, 128))
+    # TMA takes 16-byte-aligned addresses: a contiguous view one element in is refused
+    odd = _bf16(gen, 128 * 256 + 1)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.matmul_stats(odd[: 128 * 64].view(128, 64), w)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.matmul_stats(x, odd[: 64 * 256].view(64, 256))
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.weight_grad_1x1(odd[: 128 * 64].view(128, 64), dy)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.weight_grad_1x1(x, odd.view(128, 256))
     img, wt = _bf16(gen, 1, 8, 8, 64), _bf16(gen, 3, 3, 64, 64)
     with pytest.raises(ValueError, match="contiguous"):
         conv_probes.conv3x3(img.permute(0, 2, 1, 3), wt)
