@@ -43,10 +43,11 @@ raises on failure:
    1x1 conv 64 -> 256 with and without BatchNorm's sums (P4), the 1x1 weight
    gradient at three shapes (P5) and the 3x3 conv 64 -> 64 (P2); each
    probe's run holds its kernel against the plain version and the library
-   call (cuDNN) and times all three; P4's and P5's kernels must show
-   wgmma (HGMMA) and TMA instructions in their SASS; P4 and P5 are timed
-   alone (CUDA graphs) beside the host time of a call, and P5's products
-   and its partial sums apart;
+   call (cuDNN) and times all three; P4's, P5's and P2's kernels must show
+   wgmma (HGMMA) and TMA instructions in their SASS (read with the CUDA
+   toolkit's cuobjdump, which must be there); P4, P5 and P2 are timed alone
+   (CUDA graphs) beside cuDNN alone and the host time of a call, and P5's
+   products and its partial sums apart;
 17. stem variants: the stem-variant probe P3 at the flagship's stem shape
    (16 images of 640 x 640 x 3 to (16, 320, 320, 64), bf16): the stem conv
    split into its load, stage, product and full legs, each held against its
@@ -63,6 +64,7 @@ The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import json
 import math
@@ -956,37 +958,68 @@ MASK_BRANCH = ("heads.0.mask_lateral.", "heads.0.mask_head.")
 FUSION_WEIGHTS = "_fusions."
 
 
+@contextlib.contextmanager
+def full_f32():
+    """f32 matrix products and cuDNN convolutions in full f32 inside the
+    block, whatever the caller set: PyTorch's default runs cuDNN's f32
+    convolutions in TF32, which keeps about three decimal digits (ROADMAP.md,
+    queue C)."""
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled, allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flagship):
+    """The train slice's weights: a copy of ``model`` with level 1 frozen,
+    the residual branches damped (``damp_residual_branches``, drawn from
+    ``gen``) and the loc head's final bias at -5; and CPU models built by
+    ``build`` in f64 and f32 with the same weights and buffers.  Returns
+    ``(model, {torch.float64: ..., torch.float32: ...})``."""
+    model = copy.deepcopy(model)
+    model.backbone.set_frozen_levels(1)
+    damp_residual_branches(model, gen)
+    with torch.no_grad():
+        model.heads[0].loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
+    cpu_models = {}
+    for dtype in (torch.float64, torch.float32):
+        with compute_dtype_scope(dtype):
+            ref = build(torch.Generator().manual_seed(0), device="cpu")
+        ref.backbone.set_frozen_levels(1)
+        ref.load_state_dict(model.state_dict())
+        cpu_models[dtype] = ref
+    return model, cpu_models
+
+
 def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagship, batch=None,
                       label: str = "train slice") -> None:
     """Phases 6, 10 and 14: one f32 training step's loss, metrics, gradients and
     BatchNorm statistics on the card against an f64 step on the CPU (plain
     versions), on the same weights and batch, each gradient to relative L2
     ``GRADIENT_LIMITS`` of its part; an f32 step on the CPU shows how many
-    digits f32 keeps.  The weights are those of the serving slice with the
-    residual branches damped (``damp_residual_branches``) and the loc head's
-    final bias at -5 (the detector's initial value), so that the dense
-    location loss does not send every anchor nearly the same gradient.  ``build`` makes the
-    CPU models; ``batch`` is the images and targets (the flagship's two
-    images by default)."""
-    model = copy.deepcopy(model)
-    model.backbone.set_frozen_levels(1)
-    damp_residual_branches(model, gen)
-    with torch.no_grad():
-        model.heads[0].loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
+    digits f32 keeps.  The card's step runs in full f32 (``full_f32``), also
+    when this is called without ``main``, which turns TF32 off.  The weights
+    are those of the serving slice with the residual branches damped
+    (``damp_residual_branches``) and the loc head's final bias at -5 (the
+    detector's initial value), so that the dense location loss does not send
+    every anchor nearly the same gradient.  ``build`` makes the CPU models;
+    ``batch`` is the images and targets (the flagship's two images by
+    default)."""
+    model, cpu_models = train_slice_models(model, gen, build)
     images, targets = batch if batch is not None else training_batch(2, seed=1)
     cpu_images, cpu_targets = images.cpu(), {k: v.cpu() for k, v in targets.items()}
     references = {}
-    for dtype in (torch.float64, torch.float32):
-        with compute_dtype_scope(dtype):
-            ref = build(torch.Generator().manual_seed(0), device="cpu")
-        ref.backbone.set_frozen_levels(1)
-        ref.load_state_dict(model.state_dict())
+    for dtype, ref in cpu_models.items():
         t0 = time.perf_counter()
         references[dtype] = step_gradients(ref, cpu_images, cpu_targets)
         references[dtype] += (time.perf_counter() - t0,)
     c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
     f32_grads = references[torch.float32][2]
-    loss, metrics, grads, bufs = step_gradients(model, images, targets)
+    with full_f32():
+        loss, metrics, grads, bufs = step_gradients(model, images, targets)
 
     if not math.isclose(loss, c_loss, rel_tol=1e-4):
         raise AssertionError(f"loss {loss} on the card, {c_loss} on the CPU")
@@ -1009,9 +1042,23 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
           + f"; running statistics' largest relative error {stats_err:.3g} (the stem's, through K4, "
           f"{stem_stats_err:.3g}); the stem got no gradient; CPU f64 step {t_cpu:.1f} s, f32 step "
           f"{references[torch.float32][4]:.1f} s")
+    failed = grade_gradients(grads, c_grads, f32_grads, GRADIENT_LIMITS, skip=stem_params)
+    if failed:
+        raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
+    if stats_err > 1e-3 or stem_stats_err > 1e-5:
+        raise AssertionError(f"running statistics differ by {stats_err}, the stem's by {stem_stats_err} (relative)")
+
+
+def grade_gradients(grads: dict, c_grads: dict, f32_grads: dict, parts: dict, skip=()) -> list:
+    """Holds the card's gradients of each part in ``parts`` (its limit)
+    against the CPU's f64 ones, as ``check_train_slice`` does, and prints a
+    line a part; ``f32_grads`` are the CPU's own f32 step's, which set the
+    mask branch's and the fusion weights' limits.  Returns the gradients out
+    of bounds as (card error, CPU f32 error, name), worst first within a
+    part."""
     failed = []
-    for part, limit in GRADIENT_LIMITS.items():
-        names = [n for n in grads if n.split(".")[0] == part and n not in stem_params]
+    for part, limit in parts.items():
+        names = [n for n in grads if n.split(".")[0] == part and n not in skip]
         largest = max(float(torch.linalg.vector_norm(c_grads[n])) for n in names)
         # zero in exact arithmetic (f64 rounding, below 1e-9 of the part's
         # largest): a BatchNorm output that feeds only train-mode BatchNorms,
@@ -1038,10 +1085,7 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
         failed += [r for r, lim in zip(rows, limits) if r[0] > lim]
         if zero_err > 1e-5:
             failed.append((zero_err, None, f"{part}: a gradient that is zero in exact arithmetic"))
-    if failed:
-        raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
-    if stats_err > 1e-3 or stem_stats_err > 1e-5:
-        raise AssertionError(f"running statistics differ by {stats_err}, the stem's by {stem_stats_err} (relative)")
+    return failed
 
 
 COUNTERS = {
@@ -1130,16 +1174,18 @@ def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
 
 
 def check_tma_kernels_sass() -> None:
-    """P4's and P5's kernels (matmul_stats_kernel<STATS>, weight_grad_kernel<TI>)
-    must show wgmma (HGMMA) and a TMA instruction in their SASS."""
+    """P4's, P5's and P2's kernels (matmul_stats_kernel<STATS>,
+    weight_grad_kernel<TI>, conv3x3_kernel) must show wgmma (HGMMA) and a
+    TMA instruction in their SASS; without cuobjdump (the CUDA toolkit's),
+    the phase fails."""
     counts = sass_counts(conv_probes._library()._name)
     if not counts:
-        print("  P4, P5 SASS: cuobjdump not found, not read")
-        return
+        raise AssertionError("conv_probes SASS: cuobjdump not found, so the kernels' SASS cannot be read")
     tma = ("UTMALDG", "UTMASTG", "UBLKCP")
-    kernels = {k: n for k, n in counts.items() if "matmul_stats_kernel" in k or "weight_grad_kernel" in k}
-    if len(kernels) != 4:
-        raise AssertionError(f"conv_probes SASS: expected P4's two and P5's two kernels, found {sorted(kernels)}")
+    kernels = {k: n for k, n in counts.items()
+               if any(name in k for name in ("matmul_stats_kernel", "weight_grad_kernel", "conv3x3_kernel"))}
+    if len(kernels) != 5:
+        raise AssertionError(f"conv_probes SASS: expected P4's two, P5's two and P2's kernels, found {sorted(kernels)}")
     for k, n in sorted(kernels.items()):
         print(f"  SASS (cuobjdump) {k}: " + ", ".join(f"{op} {n[op]}" for op in SASS_OPCODES))
         if n["HGMMA"] == 0 or not any(n[op] for op in tma):
@@ -1162,7 +1208,7 @@ def host_ms(fn, reps: int = 20) -> float:
 
 
 def probe_alone_times(cuda_gen) -> None:
-    """P4 and P5 at the probes' shapes, apart from the probe scripts' event
+    """P4, P5 and P2 at the probes' shapes, apart from the probe scripts' event
     timing of a call (which adds the host time before the first launch):
     device time alone (a CUDA graph of 20 calls) beside cuDNN's call for the
     same function timed the same way, and the host time of a call.  With
@@ -1187,6 +1233,13 @@ def probe_alone_times(cuda_gen) -> None:
         call = lambda: conv_probes.weight_grad_1x1(x, dy)  # noqa: E731
         print(f"  P5 {name}: alone {graph_ms(call):.4f} ms, cuDNN's weight gradient alone {library_ms:.4f} ms "
               f"(device times, CUDA graphs of 20 calls); host time of a call {host_ms(call):.4f} ms")
+    x = (torch.randn(16, 160, 160, 64, device="cuda", generator=cuda_gen) * 0.5).to(torch.bfloat16)
+    w = (torch.randn(3, 3, 64, 64, device="cuda", generator=cuda_gen) * 0.05).to(torch.bfloat16)
+    x_nchw, w_oihw = x.permute(0, 3, 1, 2), w.permute(3, 2, 0, 1).contiguous()
+    library_ms = graph_ms(lambda: F.conv2d(x_nchw, w_oihw, padding=1))
+    call = lambda: conv_probes.conv3x3(x, w)  # noqa: E731
+    print(f"  P2 (16, 160, 160, 64) 3x3: alone {graph_ms(call):.4f} ms, cuDNN's bf16 channels_last conv alone "
+          f"{library_ms:.4f} ms (device times, CUDA graphs of 20 calls); host time of a call {host_ms(call):.4f} ms")
 
 
 def p5_split(cuda_gen) -> None:

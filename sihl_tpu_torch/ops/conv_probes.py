@@ -12,11 +12,12 @@ bf16 operands, f32 sums, each bf16 output rounded once.  A CUDA tensor goes
 to the hand-written kernels of ``csrc/conv_probes.cu`` (the file says how
 each is laid out and what bounds it); a CPU tensor goes to the plain
 PyTorch version beside each wrapper, which repeats the kernel's arithmetic
-in f32.  P4 and P5 read and write their matrices by TMA, which takes
-16-byte-aligned addresses; the wrappers refuse others.  How P4 and P5 deal
-their work to blocks is planned here (:func:`matmul_stats_blocks`,
-:func:`weight_grad_plan`, :func:`weight_grad_blocks`), so that the CPU tests
-can check it.  No model path calls these yet: the probe scripts of
+in f32.  The kernels read and write their arrays by TMA, which takes
+16-byte-aligned addresses; the wrappers refuse others.  How the kernels
+deal their work to blocks is planned here (:func:`matmul_stats_blocks`,
+:func:`weight_grad_plan`, :func:`weight_grad_blocks`,
+:func:`conv3x3_blocks`, :func:`conv3x3_plan`), so that the CPU tests can
+check it.  No model path calls these yet: the probe scripts of
 ``sihl_tpu_torch.tools`` and ``chip_smoke.py`` do.
 """
 
@@ -34,6 +35,8 @@ P4_IN, P4_OUT = 64, 256          # matmul_stats: x (M, 64) by w (64, 256)
 P5_CI_STEP, P5_CO_STEP = 64, 256  # weight_grad_1x1: ci and co multiples, and the co of a dW tile
 P5_CLUSTER = 4                    # weight_grad_1x1: blocks of a cluster (csrc/conv_probes.cu, p5::CL)
 P2_CHANNELS = 64                  # conv3x3: 64 -> 64
+P2_TILE = (2, 64)                 # conv3x3: output rows and columns of a tile (csrc/conv_probes.cu, p2::TR, p2::TC)
+P2_WARPGROUPS = 2                 # conv3x3: consumer warpgroups, taking a block's tiles in turn (p2::WGS)
 ROWS = 64                         # P4's row tiles and P5's row chunks: one TMA box's rows
 MAX_ROWS = 2**31 - 1              # TMA's coordinates are 32-bit
 
@@ -55,7 +58,9 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.sihl_probe_weight_grad_resident.restype = ll
     lib.sihl_probe_weight_grad.argtypes = [p, p, ll, i, i, i, ll, p, p, i, p]
     lib.sihl_probe_weight_grad.restype = i
-    lib.sihl_probe_conv3x3.argtypes = [p, p, i, i, i, p, p]
+    lib.sihl_probe_conv3x3_resident.argtypes = []
+    lib.sihl_probe_conv3x3_resident.restype = ll
+    lib.sihl_probe_conv3x3.argtypes = [p, p, i, i, i, p, ll, p]
     lib.sihl_probe_conv3x3.restype = i
     lib.sihl_cuda_error_string.argtypes = [i]
     lib.sihl_cuda_error_string.restype = ctypes.c_char_p
@@ -69,15 +74,19 @@ def _check(err: int, what: str) -> None:
 
 @functools.cache
 def _resident(kernel: str, variant: int, device_index: int) -> int:
-    """Blocks of P4's kernel (``variant`` = stats), or clusters of P5's
-    (``variant`` = the tile's ci rows), that fit on card ``device_index`` at
-    once, asked of the library once per device and kernel: the query
-    (occupancy and a function attribute) would otherwise cost each call
-    host time."""
+    """Blocks of P4's kernel (``variant`` = stats) or of P2's, or clusters
+    of P5's (``variant`` = the tile's ci rows), that fit on card
+    ``device_index`` at once, asked of the library once per device and
+    kernel: the query (occupancy and a function attribute) would otherwise
+    cost each call host time."""
     lib = _library()
     with torch.cuda.device(device_index):
-        n = lib.sihl_probe_matmul_resident(variant) if kernel == "matmul_stats" else \
-            lib.sihl_probe_weight_grad_resident(variant)
+        if kernel == "matmul_stats":
+            n = lib.sihl_probe_matmul_resident(variant)
+        elif kernel == "conv3x3":
+            n = lib.sihl_probe_conv3x3_resident()
+        else:
+            n = lib.sihl_probe_weight_grad_resident(variant)
     if n <= 0:
         _check(-n, kernel)
     return n
@@ -323,6 +332,38 @@ def conv3x3_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+def conv3x3_tiles(b: int, h: int, w: int) -> Tuple[int, int, int]:
+    """P2's output tiles of a (b, h, w) image batch: ``(tiles, tile rows,
+    tile columns)``, tiles of ``P2_TILE`` pixels over each image, the last
+    row and column of tiles ragged."""
+    rows, cols = -(-h // P2_TILE[0]), -(-w // P2_TILE[1])
+    return b * rows * cols, rows, cols
+
+
+def conv3x3_blocks(b: int, h: int, w: int, resident: int) -> int:
+    """P2's persistent blocks when ``resident`` fit on the card at once: one
+    per tile, at most ``resident``."""
+    return min(conv3x3_tiles(b, h, w)[0], resident)
+
+
+def conv3x3_plan(b: int, h: int, w: int, blocks: int) -> list:
+    """What each block of P2's kernel takes, in block order, as the kernel
+    walks it: a list of ``(image, row0, col0, warpgroup)`` per block.  Block
+    k takes tiles k, k + blocks, k + 2 blocks, ... of the walk (columns
+    fastest, then rows, then images); its n-th tile goes to consumer
+    warpgroup n % 2, and covers output rows row0 .. row0 + 1 and columns
+    col0 .. col0 + 63, clipped at the image."""
+    tiles, rows, cols = conv3x3_tiles(b, h, w)
+    plan = []
+    for k in range(blocks):
+        mine = []
+        for n, t in enumerate(range(k, tiles, blocks)):
+            image, rem = divmod(t, rows * cols)
+            mine.append((image, (rem // cols) * P2_TILE[0], (rem % cols) * P2_TILE[1], n % P2_WARPGROUPS))
+        plan.append(mine)
+    return plan
+
+
 def _conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _require(x, "x", (None, None, None, P2_CHANNELS), "conv3x3")
     _require(w, "w", (3, 3, P2_CHANNELS, P2_CHANNELS), "conv3x3")
@@ -330,10 +371,12 @@ def _conv3x3_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     b, h, wd, _ = x.shape
     if min(b, h, wd) < 1:
         raise ValueError(f"the conv3x3 kernel takes a non-empty image, got {tuple(x.shape)}")
-    lib = _library()
+    _require_tma(x, "x", "conv3x3")
+    _require_tma(w, "w", "conv3x3")
+    blocks = conv3x3_blocks(b, h, wd, _resident("conv3x3", 0, x.device.index))
     y = torch.empty_like(x)
-    with torch.cuda.device(x.device):
-        err = lib.sihl_probe_conv3x3(x.data_ptr(), w.data_ptr(), b, h, wd, y.data_ptr(), _stream(x))
+    with _on(x):
+        err = _library().sihl_probe_conv3x3(x.data_ptr(), w.data_ptr(), b, h, wd, y.data_ptr(), blocks, _stream(x))
     _check(err, "conv3x3")
     conv3x3.launches += 1
     return y

@@ -64,17 +64,26 @@
 // (B, H, W, 64) NHWC bf16 by w (3, 3, 64, 64) HWIO bf16, y NHWC bf16 rounded
 // once from the f32 sum over the 9 taps and 64 channels.  Bound: 104.9 MB
 // (0.031 ms at 3.35 TB/s) and 30.2 GFLOP (0.031 ms at 989 TFLOP/s) at
-// batch 16, 160 x 160: balanced.  Design: the TPU probe fed pre-haloed row
-// slabs because its BlockSpec blocks cannot overlap; here a block stages
-// the 6 x 34 pixel halo of its 4 x 32 output tile from the unpadded input,
-// zero-filling what lies outside the image (the SAME padding), and keeps
-// all nine taps' weights (72 KB) in shared memory for its life, walking
-// tiles in a loop.  Each warp owns one output row of the tile by 32
-// channels and accumulates the 9 K = 64 products in mma.sync (m16n8k16)
-// registers from ldmatrix; every 16-byte chunk of a staged row sits at
-// (chunk ^ (row & 7)), so the eight rows one ldmatrix phase reads fall in
-// eight bank groups.  y goes out through shared memory as 16-byte stores,
-// masked at the image's edge.
+// batch 16, 160 x 160: balanced, so the tensor cores must run at about half
+// their peak while the bytes stream.  Design: the TPU probe fed pre-haloed
+// row slabs because its BlockSpec blocks cannot overlap; here persistent
+// blocks (one an SM) walk output tiles of 2 rows by 64 columns.  A producer
+// warp brings each tile's 4 x 66 pixel halo by one 4-D TMA box of x
+// (channels, columns, rows, images) that starts a row and a column before
+// the tile: TMA's zeros outside the image are the SAME padding, so no load
+// is masked.  The halos go into a three-stage mbarrier ring, so that the
+// next two land while this one is multiplied.  All nine taps' weights
+// (72 KB) arrive once by TMA and stay as wgmma's MN-major B operand.  A
+// pixel's 64 channels are one 128-byte row of the swizzle pattern, so tap
+// (ky, kx) of an output row is the halo's 64 consecutive rows from pixel
+// (row + ky, kx): a K-major A descriptor that starts inside a pattern
+// (wgmma swizzles by address, as TMA does).  No im2col copy: the
+// taps re-read the halo in shared memory.  Two consumer warpgroups take a
+// block's tiles in turn (one multiplies while the other stores), each a
+// tile's 2 x 9 x 4 m64n64k16 products into f32 registers, then y rounded
+// once into its staging buffer as a TMA box, stored by one thread and
+// clipped at the image's edge.  At W = 160 the third column tile holds 32
+// pixels: a sixth of the products are padding.
 
 #include <cuda.h>  // CUtensorMap and its enums only: the encoder lives in libcuda, looked up at run time
 #include <cuda_bf16.h>
@@ -83,7 +92,6 @@
 
 namespace {
 
-constexpr int THREADS = 256;             // P2: 8 warps
 constexpr int WG = 128;                  // threads of a warpgroup
 constexpr int BOX = 8192;                // one TMA box: 64 rows of 64 bf16 (128 bytes), 128-byte swizzle
 
@@ -93,59 +101,12 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes from global to shared memory; src_bytes = 0 writes zeros and reads
-// nothing (src must still be a valid address).
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, uint32_t src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(src_bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory"); }
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t r[4], uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-// d += a b for a 16 x 16 bf16 A fragment, a 16 x 8 bf16 B fragment, f32 d.
-__device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Byte offset of 16-byte chunk `chunk` of row `row` in a staged tile whose
-// rows are `row_chunks` chunks long (a multiple of 8).
-__device__ __forceinline__ uint32_t swz(int row, int chunk, int row_chunks) {
-  return (uint32_t)(row * row_chunks + (chunk ^ (row & 7))) * 16u;
-}
-
-// B fragments of two n-tiles (k0..k0+15 by n0..n0+15) of a [k][n] tile:
-// b[0], b[1] for columns n0..n0+7, b[2], b[3] for n0+8..n0+15.
-__device__ __forceinline__ void load_b(uint32_t b[4], uint32_t base, int k0, int n0, int row_chunks, int lane) {
-  const int j = lane >> 3;
-  ldmatrix_x4_trans(b, base + swz(k0 + (lane & 7) + (j & 1) * 8, (n0 >> 3) + (j >> 1), row_chunks));
-}
-
-// Two bf16 values (4 bytes) at column col of row row of a staged tile.
-__device__ __forceinline__ void stage_pair(char* tile, int row, int col, int row_chunks, uint32_t v) {
-  *reinterpret_cast<uint32_t*>(tile + swz(row, col >> 3, row_chunks) + (col & 7) * 2) = v;
-}
-
-// -- mbarriers, TMA and wgmma (P4, P5) --
+// -- mbarriers, TMA and wgmma --
 
 __device__ __forceinline__ uint32_t align_1024(uint32_t addr) { return (addr + 1023u) & ~1023u; }
 
@@ -209,6 +170,25 @@ __device__ __forceinline__ void tma_store_rows(const CUtensorMap* map, uint32_t 
   asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %1, %2}], [%3];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map)),
                "r"(0), "r"(row), "r"(src)
+               : "memory");
+}
+// The box of a 4-D `map` whose first element is (c0, c1, c2, c3) into shared
+// dst, reported to bar; elements outside the tensor (coordinates below 0 or
+// past its end) arrive as zeros (and count).
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, int c0, int c1, int c2, int c3,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4, %5}], "
+      "[%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+// Shared src into the box of a 4-D `map` at (c0, c1, c2, c3); elements
+// outside the tensor are not written.
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2, int c3) {
+  asm volatile("cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(
+                   reinterpret_cast<uint64_t>(map)),
+               "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
                : "memory");
 }
 __device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
@@ -353,6 +333,24 @@ __device__ __forceinline__ void wgmma_n128(float (&d)[2][32], uint64_t da, uint6
         "+f"(d[1][8]), "+f"(d[1][9]), "+f"(d[1][10]), "+f"(d[1][11]), "+f"(d[1][12]), "+f"(d[1][13]), "+f"(d[1][14]), "+f"(d[1][15]),
         "+f"(d[1][16]), "+f"(d[1][17]), "+f"(d[1][18]), "+f"(d[1][19]), "+f"(d[1][20]), "+f"(d[1][21]), "+f"(d[1][22]), "+f"(d[1][23]),
         "+f"(d[1][24]), "+f"(d[1][25]), "+f"(d[1][26]), "+f"(d[1][27]), "+f"(d[1][28]), "+f"(d[1][29]), "+f"(d[1][30]), "+f"(d[1][31])
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// d (+)= A . B for one 64 x 64 x 16 step; A and B from shared memory through
+// their descriptors, TA / TB = 1 for an MN-major operand.  The accumulator
+// layout as wgmma's below, with one 64-column chunk.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
@@ -766,97 +764,137 @@ int launch(const CUtensorMap& x_map, const CUtensorMap& dy_map, long long m, int
 
 namespace p2 {
 
-constexpr int C = 64;                 // input and output channels
-constexpr int TR = 4, TC = 32;        // output rows and columns per tile
-constexpr int HR = TR + 2, HC = TC + 2;
-constexpr int C_CHUNKS = C / 8;       // 8
-constexpr int W_BYTES = 9 * C * C * 2;       // 72 KB
-constexpr int SLAB_BYTES = HR * HC * C * 2;  // 25.5 KB, also the y tile (16 KB)
-constexpr int SMEM = W_BYTES + SLAB_BYTES;
-// 8 warps as 4 (output rows) x 2 (channel halves): a warp owns one output
-// row of 32 pixels by 32 channels
-constexpr int WN = 32, MT = TC / 16, NT = WN / 8;
+constexpr int C = 64;                    // input and output channels: a pixel is one 128-byte swizzle row
+constexpr int TR = 2, TC = 64;           // output rows and columns of a tile; a row's TC pixels are one wgmma M
+constexpr int HR = TR + 2, HC = TC + 2;  // the halo's rows and columns
+constexpr int HALO = HR * HC * C * 2;    // 33 KB, one TMA box
+constexpr int W_BYTES = 9 * BOX;         // the nine taps' 64 x 64 matrices: 72 KB
+constexpr int STAGES = 3;                // halos in the ring
+constexpr int WGS = 2;                   // consumer warpgroups, taking the block's tiles in turn
+constexpr int THREADS = WGS * WG + 32;   // and a producer warp
+constexpr int Y_TILE = TR * TC * C * 2;  // a staged y tile: 16 KB
+constexpr int Y_BUFS = 1;                // staging buffers of each warpgroup
+constexpr int SMEM = 1024 + W_BYTES + STAGES * HALO + WGS * Y_BUFS * Y_TILE + (2 * STAGES + 1) * 8;
+static_assert(HALO % 1024 == 0 && Y_TILE % 1024 == 0, "every buffer starts a swizzle pattern");
+static_assert(SMEM <= 232448, "fits an SM's shared memory");
 
-__global__ void __launch_bounds__(THREADS, 2)
-conv3x3_kernel(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w, int b, int h, int wd,
-               __nv_bfloat16* __restrict__ y) {
-  extern __shared__ __align__(128) char smem[];
-  char* slab = smem + W_BYTES;
-  const uint32_t w_base = smem_addr(smem), s_base = smem_addr(slab);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int tr = warp >> 1, wn = (warp & 1) * WN;
+// Tile t of the walk: image bi, output rows r0 .. r0 + TR - 1, columns c0 .. c0 + TC - 1 (columns fastest).
+__device__ __forceinline__ void tile_origin(long long t, int tiles_h, int tiles_w, int& bi, int& r0, int& c0) {
+  const long long per_image = (long long)tiles_h * tiles_w;
+  bi = (int)(t / per_image);
+  const int rem = (int)(t % per_image);
+  r0 = (rem / tiles_w) * TR;
+  c0 = (rem % tiles_w) * TC;
+}
+
+// Block b takes tiles b, b + gridDim.x, ...; its n-th tile lands in ring
+// stage n % STAGES and goes to consumer warpgroup n % WGS.
+__global__ void __launch_bounds__(THREADS, 1)
+conv3x3_kernel(const __grid_constant__ CUtensorMap x_map, const __grid_constant__ CUtensorMap w_map,
+               const __grid_constant__ CUtensorMap y_map, int b, int h, int wd) {
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t base = align_1024(smem_addr(smem_raw));
+  const uint32_t w_s = base, x_s = w_s + W_BYTES, y_s = x_s + STAGES * HALO, bars = y_s + WGS * Y_BUFS * Y_TILE;
+  const uint32_t w_bar = bars + 8 * 2 * STAGES;  // after full[STAGES], empty[STAGES]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int tiles_h = (h + TR - 1) / TR, tiles_w = (wd + TC - 1) / TC;
   const long long tiles = (long long)b * tiles_h * tiles_w;
+  const int mine = (int)((tiles - blockIdx.x + gridDim.x - 1) / gridDim.x);
 
-  // the weights, (9 * 64) rows of 64 output channels; waited for with the first slab
-  for (int c = tid; c < 9 * C * C_CHUNKS; c += THREADS)
-    cp_async16(w_base + swz(c / C_CHUNKS, c % C_CHUNKS, C_CHUNKS), w + c * 8, 16);
-
-  for (long long t = blockIdx.x; t < tiles; t += gridDim.x) {
-    const int bi = (int)(t / (tiles_h * tiles_w)), rem = (int)(t % (tiles_h * tiles_w));
-    const int r0 = (rem / tiles_w) * TR, c0 = (rem % tiles_w) * TC;
-    for (int c = tid; c < HR * HC * C_CHUNKS; c += THREADS) {
-      const int p = c / C_CHUNKS, ch = c % C_CHUNKS;
-      const int ih = r0 - 1 + p / HC, iw = c0 - 1 + p % HC;
-      const bool in = ih >= 0 && ih < h && iw >= 0 && iw < wd;
-      const __nv_bfloat16* src = in ? x + (((size_t)bi * h + ih) * wd + iw) * C + ch * 8 : x;
-      cp_async16(s_base + swz(p, ch, C_CHUNKS), src, in ? 16 : 0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bars + 8 * s, 1);
+      mbar_init(bars + 8 * (STAGES + s), WG / 32);  // the consuming warpgroup's warps release it
     }
-    cp_async_commit();
-    cp_async_wait<0>();
-    __syncthreads();
-
-    float acc[MT][NT][4];
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-    const int j8 = lane >> 3;
-#pragma unroll
-    for (int ky = 0; ky < 3; ++ky)
-#pragma unroll
-      for (int kx = 0; kx < 3; ++kx) {
-        const uint32_t wt = w_base + (ky * 3 + kx) * C * C * 2;
-#pragma unroll
-        for (int k0 = 0; k0 < C; k0 += 16) {
-          uint32_t a[MT][4];
-#pragma unroll
-          for (int i = 0; i < MT; ++i) {
-            const int p = (tr + ky) * HC + i * 16 + (lane & 7) + (j8 & 1) * 8 + kx;
-            ldmatrix_x4(a[i], s_base + swz(p, (k0 >> 3) + (j8 >> 1), C_CHUNKS));
-          }
-#pragma unroll
-          for (int j = 0; j < NT; j += 2) {
-            uint32_t bf[4];
-            load_b(bf, wt, k0, wn + j * 8, C_CHUNKS, lane);
-#pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              mma_bf16(acc[i][j], a[i], bf[0], bf[1]);
-              mma_bf16(acc[i][j + 1], a[i], bf[2], bf[3]);
-            }
-          }
-        }
-      }
-    __syncthreads();  // the slab is read; it now holds the y tile, pixel q = row * TC + column
-#pragma unroll
-    for (int i = 0; i < MT; ++i)
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const int q = tr * TC + i * 16 + (lane >> 2), col = wn + j * 8 + (lane & 3) * 2;
-        stage_pair(slab, q, col, C_CHUNKS, pack_bf16(acc[i][j][0], acc[i][j][1]));
-        stage_pair(slab, q + 8, col, C_CHUNKS, pack_bf16(acc[i][j][2], acc[i][j][3]));
-      }
-    __syncthreads();
-    for (int c = tid; c < TR * TC * C_CHUNKS; c += THREADS) {
-      const int q = c / C_CHUNKS, ch = c % C_CHUNKS;
-      const int oh = r0 + q / TC, ow = c0 + q % TC;
-      if (oh < h && ow < wd)
-        *reinterpret_cast<uint4*>(y + (((size_t)bi * h + oh) * wd + ow) * C + ch * 8) =
-            *reinterpret_cast<const uint4*>(slab + swz(q, ch, C_CHUNKS));
-    }
-    __syncthreads();  // the y tile is out; the next slab may land
+    mbar_init(w_bar, 1);
+    mbar_init_fence();
   }
-  cp_async_wait<0>();
+  __syncthreads();
+
+  if (warp == WGS * WG / 32) {  // the producer: one thread keeps the ring full
+    if (lane == 0) {
+      mbar_expect_tx(w_bar, W_BYTES);
+      for (int t = 0; t < 9; ++t) tma_load(w_s + t * BOX, &w_map, 0, t * C, w_bar);
+      for (int n = 0; n < mine; ++n) {
+        const int s = n % STAGES;
+        int bi, r0, c0;
+        tile_origin(blockIdx.x + (long long)n * gridDim.x, tiles_h, tiles_w, bi, r0, c0);
+        mbar_wait(bars + 8 * (STAGES + s), ((n / STAGES) & 1) ^ 1);  // the first round passes at once
+        mbar_expect_tx(bars + 8 * s, HALO);
+        // the halo starts one row and one column before the tile: TMA's
+        // zeros outside the image are the SAME padding
+        tma_load_4d(x_s + s * HALO, &x_map, 0, c0 - 1, r0 - 1, bi, bars + 8 * s);
+      }
+    }
+    return;
+  }
+
+  const int wg = warp >> 2, q = lane & 3;
+  const int p0 = 16 * (warp & 3) + (lane >> 2);  // this thread's pixels p0 and p0 + 8 of each tile row
+  const bool leader = (threadIdx.x & (WG - 1)) == 0;  // starts and waits for the warpgroup's stores
+  mbar_wait(w_bar, 0);
+
+  for (int n = wg; n < mine; n += WGS) {
+    const int s = n % STAGES;
+    int bi, r0, c0;
+    tile_origin(blockIdx.x + (long long)n * gridDim.x, tiles_h, tiles_w, bi, r0, c0);
+    // A parity names one of two phases.  The stage's previous tile, n -
+    // STAGES, is the other warpgroup's, and its halo may land after this
+    // warpgroup's own later ones: wait until that tile has left the stage,
+    // so that the full barrier's phase before this tile's is complete and
+    // the parity names this tile's.  (The empty barrier's phase before
+    // that, tile n - 2 STAGES, was this warpgroup's own.)
+    if (n >= STAGES) mbar_wait(bars + 8 * (STAGES + s), ((n / STAGES) - 1) & 1);
+    mbar_wait(bars + 8 * s, (n / STAGES) & 1);
+    // tap (ky, kx) of output row r reads the halo's row r + ky from pixel
+    // kx on: 64 consecutive 128-byte rows of the box, a K-major A whose
+    // first row lies anywhere inside a 1024-byte swizzle pattern.  wgmma
+    // swizzles by the shared address itself, as TMA does when it writes the
+    // halo, so such a start needs nothing more: the descriptor's base-offset
+    // field stays 0 (with the start's row in the pattern, (addr >> 7) & 7,
+    // there, every tap of a one-tile test read wrong values on an H100).
+    const uint32_t halo = x_s + s * HALO;
+    float acc[TR][32];
+    zero_acc(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap)
+#pragma unroll
+      for (int ks = 0; ks < C / 16; ++ks)
+#pragma unroll
+        for (int r = 0; r < TR; ++r)
+          wgmma_n64<0, 1>(acc[r], sw128_desc(halo + ((r + tap / 3) * HC + tap % 3) * 128 + ks * 32, 16, 1024),
+                          sw128_desc(w_s + tap * BOX + ks * 2048, BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_acc(acc);
+    if (lane == 0) mbar_arrive(bars + 8 * (STAGES + s));  // the halo is read
+
+    // y rounded once into the warpgroup's staging buffer, laid out as the
+    // store's TMA box: row r's pixel p at 128-byte row r TC + p, its 16-byte
+    // unit u at u ^ (p % 8) (TMA's 128-byte swizzle).  The buffer is free
+    // once the store of the warpgroup's tile Y_BUFS before has read it.
+    const uint32_t buf = y_s + (wg * Y_BUFS + (n / WGS) % Y_BUFS) * Y_TILE;
+    if (leader) bulk_wait_read<Y_BUFS - 1>();
+    wg_bar(wg);
+#pragma unroll
+    for (int r = 0; r < TR; ++r)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r * TC + p0 + 8 * hh;
+          st_shared(buf + row * 128 + ((i ^ (row & 7)) << 4) + q * 4,
+                    pack_bf16(acc[r][4 * i + 2 * hh], acc[r][4 * i + 2 * hh + 1]));
+        }
+    fence_proxy_async();
+    wg_bar(wg);
+    if (leader) {
+      tma_store_4d(&y_map, buf, 0, c0, r0, bi);  // clipped at the image's edges
+      bulk_commit();
+    }
+  }
+  if (leader) bulk_wait_read<0>();  // the stores have read the staging buffers; they complete with the grid
 }
 
 }  // namespace p2
@@ -920,6 +958,22 @@ bool y_rows_map(CUtensorMap* map, void* y, long long rows) {
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, y, dims, strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
                 CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_NONE, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
          CUDA_SUCCESS;
+}
+
+// A map of the NHWC bf16 image at base, (b, h, wd, 64), as the 4-D array
+// (channels, columns, rows, images), moved in boxes of all 64 channels by
+// `cols` columns by `rows` rows of one image, 128-byte swizzle: a pixel is
+// one 128-byte row of the box.
+bool image_map(CUtensorMap* map, const void* base, int b, int h, int wd, int cols, int rows,
+               CUtensorMapL2promotion promotion) {
+  const EncodeTiled encode = encoder();
+  if (!encode) return false;
+  const cuuint64_t dims[4] = {64, (cuuint64_t)wd, (cuuint64_t)h, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {128, (cuuint64_t)wd * 128, (cuuint64_t)h * wd * 128};
+  const cuuint32_t box[4] = {64, (cuuint32_t)cols, (cuuint32_t)rows, 1}, steps[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides, box, steps,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, promotion,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <bool STATS>
@@ -996,18 +1050,29 @@ int sihl_probe_weight_grad(const void* x, const void* dy, long long m, int ci, i
   return phases & 2 ? sum_partials(partials, (int)(splits / p5::CL), (long long)ci * co, dw, st) : 0;
 }
 
+// Blocks of sihl_probe_conv3x3's kernel that fit on the card at once.  0 or
+// less is minus a cudaError_t.  Also allows the kernel its shared memory on
+// the current device, which sihl_probe_conv3x3 needs (the wrapper asks once
+// a device).
+long long sihl_probe_conv3x3_resident() { return resident_blocks(p2::conv3x3_kernel, p2::THREADS, p2::SMEM); }
+
 // x: (b, h, wd, 64) NHWC bf16; w: (3, 3, 64, 64) HWIO bf16; y: (b, h, wd, 64)
-// NHWC bf16, the stride-1 SAME conv.  One launch on `stream` without
-// synchronising; returns the first cudaError_t that is not cudaSuccess.
-int sihl_probe_conv3x3(const void* x, const void* w, int b, int h, int wd, void* y, void* stream) {
-  if (b < 1 || h < 1 || wd < 1) return (int)cudaErrorInvalidValue;
-  const long long resident = resident_blocks(p2::conv3x3_kernel, THREADS, p2::SMEM);
-  if (resident <= 0) return (int)-resident;
+// NHWC bf16, the stride-1 SAME conv; all 16-byte aligned.  Block k takes the
+// tiles of TR x TC output pixels k, k + blocks, ... (columns fastest, then
+// rows, then images); blocks at most the tile count.  One launch on `stream`
+// without synchronising; returns the first cudaError_t that is not
+// cudaSuccess.
+int sihl_probe_conv3x3(const void* x, const void* w, int b, int h, int wd, void* y, long long blocks, void* stream) {
   const long long tiles = (long long)b * ((h + p2::TR - 1) / p2::TR) * ((wd + p2::TC - 1) / p2::TC);
-  const unsigned blocks = (unsigned)(tiles < resident ? tiles : resident);
-  p2::conv3x3_kernel<<<blocks, THREADS, p2::SMEM, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w), b, h, wd,
-      static_cast<__nv_bfloat16*>(y));
+  if (b < 1 || h < 1 || wd < 1 || blocks < 1 || blocks > tiles || blocks >= (1ll << 31))
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap x_map, w_map, y_map;
+  if (!image_map(&x_map, x, b, h, wd, p2::HC, p2::HR, CU_TENSOR_MAP_L2_PROMOTION_L2_256B) ||
+      !bf16_map(&w_map, w, 9 * p2::C, p2::C) ||
+      !image_map(&y_map, y, b, h, wd, p2::TC, p2::TR, CU_TENSOR_MAP_L2_PROMOTION_NONE))
+    return (int)cudaErrorInvalidValue;
+  p2::conv3x3_kernel<<<(unsigned)blocks, p2::THREADS, p2::SMEM, static_cast<cudaStream_t>(stream)>>>(
+      x_map, w_map, y_map, b, h, wd);
   return (int)cudaGetLastError();
 }
 

@@ -1,6 +1,6 @@
-"""What holds P4 and P5 (``ops/csrc/conv_probes.cu``) back on the card: each
-kernel beside variants of itself, built from edited copies of its source,
-and the card's own copy rate for the same bytes.
+"""What holds P4, P5 and P2 (``ops/csrc/conv_probes.cu``) back on the card:
+each kernel beside variants of itself, built from edited copies of its
+source, and the card's own copy rate for the same bytes.
 
 P4, ``matmul_stats`` at the probe's shape (409,600, 64) @ (64, 256):
 
@@ -16,12 +16,22 @@ P5, ``weight_grad_1x1`` at the probe's three shapes:
   cluster2      clusters of two
   tiles64       dW tiles of 64 ci rows (the shipped build, launched so)
 
+P2, ``conv3x3`` at the probe's shape (16, 160, 160, 64) by (3, 3, 64, 64):
+
+  shipped       the source as it is
+  no_stores     y never leaves shared memory: the halo loads, the products
+                and the staging alone
+  no_products   no wgmma (y is zeros): the loads, the staging and the stores
+  ring2_bufs2   two halo stages and two staging buffers a warpgroup, not
+                three and one
+
 Beside them, PyTorch's copy of a tensor half the size of x and y together
 (so as many bytes read and written as P4 moves) and its zeroing of a tensor
-of y's size: what the card's own kernels reach on such bytes.  Every time
-is device time from a CUDA graph of 20 calls.  The variants that still
-compute y or dW are checked first: P4 bitwise against the shipped
-wrapper, P5 within 1e-5 of |x|^T |dy|.
+of y's size, and for P2 its copy of x (the bytes P2 must move): what the
+card's own kernels reach on such bytes.  Every time is device time from a
+CUDA graph of 20 calls.  The variants that still compute y or dW are
+checked first: P4 and P2 bitwise against the shipped wrapper, P5 within
+1e-5 of |x|^T |dy|.
 
 Run on a CUDA card:  python -m sihl_tpu_torch.tools.probe_conv_variants
 """
@@ -48,6 +58,17 @@ P4_VARIANTS = {
 }
 P5_CLUSTER = "constexpr int CL = 4;"
 P5_VARIANTS = {"cluster2": [(P5_CLUSTER, "constexpr int CL = 2;")]}
+P2_STORE = "tma_store_4d(&y_map, buf, 0, c0, r0, bi);"
+P2_PRODUCT = ("wgmma_n64<0, 1>(acc[r], sw128_desc(halo + ((r + tap / 3) * HC + tap % 3) * 128 + ks * 32, 16, 1024),\n"
+              "                          sw128_desc(w_s + tap * BOX + ks * 2048, BOX, 1024));")
+P2_STAGES = "constexpr int STAGES = 3;                // halos in the ring"
+P2_BUFS = "constexpr int Y_BUFS = 1;                // staging buffers of each warpgroup"
+P2_VARIANTS = {
+    "shipped": [],
+    "no_stores": [(P2_STORE, "(void)c0;")],
+    "no_products": [(P2_PRODUCT, "(void)halo;")],
+    "ring2_bufs2": [(P2_STAGES, P2_STAGES.replace("3;", "2;")), (P2_BUFS, P2_BUFS.replace("1;", "2;"))],
+}
 
 
 def build(name: str, edits) -> object:
@@ -113,11 +134,31 @@ def p5_times(name, lib, x, dy, cluster, ti) -> None:
           f"{tiles} tiles of {ti} ci rows)", flush=True)
 
 
+def p2_times(name, lib, x, w, want) -> None:
+    b, h, wd, _ = x.shape
+    blocks = conv_probes.conv3x3_blocks(b, h, wd, lib.sihl_probe_conv3x3_resident())
+    y = torch.empty_like(want)
+
+    def call():
+        return lib.sihl_probe_conv3x3(x.data_ptr(), w.data_ptr(), b, h, wd, y.data_ptr(), blocks, stream())
+
+    if call():
+        raise RuntimeError(f"P2 {name}: launch failed")
+    torch.cuda.synchronize()
+    checked = ""
+    if name not in ("no_stores", "no_products"):
+        if not torch.equal(y, want):
+            raise AssertionError(f"P2 {name}: y differs from the shipped kernel's")
+        checked = ", bitwise the shipped kernel's"
+    print(f"  P2 {name:13s} alone {graph_ms(call):.4f} ms{checked}", flush=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("probe_conv_variants: needs a CUDA card")
     print(f"probe_conv_variants: {card_name()}", flush=True)
-    variants = {**{f"p4_{k}": v for k, v in P4_VARIANTS.items() if v}, **{f"p5_{k}": v for k, v in P5_VARIANTS.items()}}
+    variants = {**{f"p4_{k}": v for k, v in P4_VARIANTS.items() if v}, **{f"p5_{k}": v for k, v in P5_VARIANTS.items()},
+                **{f"p2_{k}": v for k, v in P2_VARIANTS.items() if v}}
     with ThreadPoolExecutor(len(variants)) as pool:
         libs = dict(zip(variants, pool.map(lambda kv: build(*kv), variants.items())))
     shipped = conv_probes._library()
@@ -144,6 +185,16 @@ def main() -> None:
         p5_times("cluster2", libs["p5_cluster2"], x, dy, 2, ti)
         if ti == 128:
             p5_times("tiles64", shipped, x, dy, conv_probes.P5_CLUSTER, 64)
+
+    x = (torch.randn(16, 160, 160, 64, device="cuda", generator=gen) * 0.5).to(torch.bfloat16)
+    w = (torch.randn(3, 3, 64, 64, device="cuda", generator=gen) * 0.05).to(torch.bfloat16)
+    want = conv_probes.conv3x3(x, w)
+    for name in P2_VARIANTS:
+        p2_times(name, libs.get(f"p2_{name}", shipped), x, w, want)
+    copy_dst = torch.empty_like(x)
+    t_copy = graph_ms(lambda: copy_dst.copy_(x))
+    print(f"  PyTorch's copy of x ({x.numel() * 2 / 1e6:.1f} MB, the bytes P2 reads and writes) {t_copy:.4f} ms "
+          f"({4 * x.numel() / t_copy / 1e9:.3f} TB/s read and written)", flush=True)
 
 
 if __name__ == "__main__":

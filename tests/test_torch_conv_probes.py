@@ -185,14 +185,46 @@ def test_matmul_stats_blocks_take_every_tile_once(m):
         assert taken == list(range(tiles))
 
 
+@pytest.mark.parametrize("b,h,w", [(1, 1, 1), (1, 2, 64), (2, 13, 13), (1, 7, 45), (3, 32, 130), (16, 160, 160)])
+def test_conv3x3_plan_takes_every_output_pixel_once(b, h, w):
+    """P2's persistent blocks: every output pixel lies in exactly one tile
+    of one block, no tile lies wholly outside its image, the blocks' tile
+    counts differ by at most one, and each block's consumer warpgroups take
+    its tiles in turn."""
+    tiles, rows, cols = conv_probes.conv3x3_tiles(b, h, w)
+    assert (rows, cols) == (-(-h // 2), -(-w // 64))
+    for resident in (132, 5):
+        blocks = conv_probes.conv3x3_blocks(b, h, w, resident)
+        assert blocks == min(tiles, resident)
+        plan = conv_probes.conv3x3_plan(b, h, w, blocks)
+        assert len(plan) == blocks
+        counts = [len(mine) for mine in plan]
+        assert max(counts) - min(counts) <= 1 and sum(counts) == tiles
+        covered = np.zeros((b, h, w), np.int64)
+        for mine in plan:
+            assert [wg for *_, wg in mine] == [n % 2 for n in range(len(mine))]
+            for image, r0, c0, _ in mine:
+                assert 0 <= image < b and 0 <= r0 < h and 0 <= c0 < w
+                covered[image, r0 : r0 + 2, c0 : c0 + 64] += 1
+        assert (covered == 1).all()
+
+
+def test_conv3x3_tile_constants_match_the_source():
+    """The tile and warpgroup counts the plan uses are the kernel's."""
+    source = (Path(conv_probes.__file__).parent / "csrc" / "conv_probes.cu").read_text()
+    p2 = source[source.index("namespace p2 {"):]
+    assert f"constexpr int TR = {conv_probes.P2_TILE[0]}, TC = {conv_probes.P2_TILE[1]};" in p2
+    assert f"constexpr int WGS = {conv_probes.P2_WARPGROUPS};" in p2
+
+
 def test_probe_conv_variants_edits_match_the_source():
     """Every edit the variant probe makes to csrc/conv_probes.cu finds its
     text there once, so the probe builds what it says it builds."""
     from sihl_tpu_torch.tools import probe_conv_variants
 
     source = (Path(conv_probes.__file__).parent / "csrc" / "conv_probes.cu").read_text()
-    edits = [e for v in (probe_conv_variants.P4_VARIANTS, probe_conv_variants.P5_VARIANTS) for es in v.values()
-             for e in es]
+    edits = [e for v in (probe_conv_variants.P4_VARIANTS, probe_conv_variants.P5_VARIANTS,
+                         probe_conv_variants.P2_VARIANTS) for es in v.values() for e in es]
     assert edits
     for old, new in edits:
         assert source.count(old) == 1 and old != new

@@ -497,11 +497,14 @@ def test_weight_grad_phases_add_up_to_the_call_on_card():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("b,h,w", [(1, 13, 13), (2, 13, 13), (1, 7, 45), (3, 32, 64)])
+@pytest.mark.parametrize("b,h,w", [(1, 13, 13), (2, 13, 13), (1, 7, 45), (3, 32, 64), (1, 1, 1), (2, 1, 100),
+                                   (1, 9, 1), (16, 160, 160)])
 def test_conv3x3_kernel_matches_plain_version_on_card(b, h, w):
-    """P2 on ragged images and a batch of one: y within one bf16 step of
-    the plain 9-tap f32 sum (plus what f32 order moves a sum of 576 products
-    that cancel)."""
+    """P2 on ragged images and a batch of one; an image narrower and
+    shorter than one 2 x 64 tile, one row, one column; and the probe's
+    shape, with more tiles than blocks fit on the card at once: y within one
+    bf16 step of the plain 9-tap f32 sum (plus what f32 order moves a sum
+    of 576 products that cancel); two calls bitwise equal."""
     _need_card()
     gen = torch.Generator().manual_seed(8)
     x, wt = _bf16(gen, b, h, w, 64, scale=0.5), _bf16(gen, 3, 3, 64, 64, scale=0.05)
@@ -511,6 +514,25 @@ def test_conv3x3_kernel_matches_plain_version_on_card(b, h, w):
     assert y.shape == x.shape and y.dtype == torch.bfloat16
     want = conv_probes.conv3x3_reference(x.float(), wt.float())
     slack = order_slack(576, conv_probes.conv3x3_reference(x.float().abs(), wt.float().abs()))
+    assert _within_one_bf16_step(y, want, slack)
+    assert torch.equal(y, conv_probes.conv3x3(x, wt))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tap", range(9))
+def test_conv3x3_kernel_reads_each_tap_of_one_tile_on_card(tap):
+    """One tile (2 rows by 64 columns) with the weights of one tap alone:
+    y is the halo shifted by that tap times its matrix, so each tap's A
+    descriptor, which starts inside a swizzle pattern, is checked on its
+    own, the edges' zero padding with it."""
+    _need_card()
+    gen = torch.Generator().manual_seed(12)
+    x = _bf16(gen, 1, 2, 64, 64, scale=0.5)
+    wt = torch.zeros(3, 3, 64, 64, dtype=torch.bfloat16, device="cuda")
+    wt[tap // 3, tap % 3] = _bf16(gen, 64, 64, scale=0.05)
+    y = conv_probes.conv3x3(x, wt)
+    want = conv_probes.conv3x3_reference(x.float(), wt.float())
+    slack = order_slack(64, conv_probes.conv3x3_reference(x.float().abs(), wt.float().abs()))
     assert _within_one_bf16_step(y, want, slack)
 
 
@@ -549,6 +571,12 @@ def test_conv_probe_kernels_refuse_what_they_do_not_take():
         conv_probes.conv3x3(img, wt.float())
     with pytest.raises(ValueError, match="shape"):
         conv_probes.conv3x3(_bf16(gen, 1, 8, 8, 32), wt)
+    # TMA takes 16-byte-aligned addresses: x or w one element in is refused
+    odd = _bf16(gen, 8 * 8 * 64 + 1)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.conv3x3(odd.view(1, 8, 8, 64), wt)
+    with pytest.raises(ValueError, match="aligned"):
+        conv_probes.conv3x3(img, _bf16(gen, 9 * 64 * 64 + 1)[1:].view(3, 3, 64, 64))
 
 
 @pytest.mark.cuda
