@@ -19,8 +19,9 @@ raises on failure:
 2. build: compile every kernel from the checkout's sources, all at once;
 3. kernels: each kernel against its plain PyTorch version at the shapes the
    paths give it, with CUDA-event timings of both and the least time the
-   card could take for the same work (the bound); K4's SASS must show
-   tensor-core instructions in its bf16 body;
+   card could take for the same work (the bound); K4's and K5f's SASS must
+   show tensor-core instructions in their bf16 bodies, and K5f's no
+   f32 <-> bf16 conversion;
 4. slice: one batch of two 640 px images, f32, served on the card and on the
    CPU (where the plain versions run) with the same weights;
 5. serving: three requests of 16 images at 640 px in bf16;
@@ -121,6 +122,7 @@ OPTIMIZER = dict(
 # (bf16 on tensor cores, f32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+SFU_OPS_PER_CLOCK = 16  # special-function unit results (ex2, rcp) a clock per SM
 
 
 def build_flagship(generator: torch.Generator, device=None) -> SihlModel:
@@ -384,18 +386,21 @@ def k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol):
 
 
 def k2_case(label, work) -> dict:
-    """K2 on a (G, A) matrix of anchor-gt IoUs, bitwise against its plain version."""
+    """K2 on a (G, A) matrix of anchor-gt IoUs, bitwise against its plain
+    version; timed a call and alone (a CUDA graph of 20 calls)."""
     best, kth = topk.row_best_and_kth(work, TOPK)
     want_best, want_kth = topk._row_reference(work, TOPK)
     if not (torch.equal(best, want_best) and torch.equal(kth, want_kth)):
         raise AssertionError(f"row_best_and_kth {label} is not bitwise equal to its plain version")
     ms = median_ms(lambda: topk.row_best_and_kth(work, TOPK))
+    alone_ms = graph_ms(lambda: topk.row_best_and_kth(work, TOPK))
     plain_ms = median_ms(lambda: topk._row_reference(work, TOPK))
     g, a = work.shape
-    case = dict(path=True, err=0.0, ms=ms, plain_ms=plain_ms,
+    case = dict(path=True, err=0.0, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms,
                 **bound(g * a * 4 + 2 * g * 4, 2 * TOPK * g * a, torch.float32))
-    print(f"  K2 row_best_and_kth {label} {tuple(work.shape)} k={TOPK}: bitwise equal; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms")
+    print(f"  K2 row_best_and_kth {label} {tuple(work.shape)} k={TOPK}: bitwise equal; kernel {ms:.4f} ms a call "
+          f"({alone_ms:.4f} alone, device time from a CUDA graph of 20 calls), plain {plain_ms:.4f} ms, bound "
+          f"{case['bound_ms']:.4f} ms")
     return case
 
 
@@ -487,10 +492,61 @@ def decode_work(batch, instances, c, k, dtype, backward: bool):
     return num_bytes, 2 * macs * pixels, 2 * c * pixels
 
 
+def max_sm_clock_hz() -> float:
+    """The card's maximum SM clock, as nvidia-smi reports it."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return float(out.split()[0]) * 1e6
+
+
+def k5f_bound(batch, instances, c, k, dtype) -> dict:
+    """K5f's least time.  f32 inputs run the FMA body: bytes or f32 FMAs
+    (``decode_work``).  bf16 inputs run the tensor-core body: the largest of
+    its bytes at 3.35 TB/s; its SiLUs' special-function operations (an
+    exponential and a reciprocal each, 4c per pixel-instance) at SMs x 16 a
+    clock x the maximum SM clock; and its tensor-core products at 989
+    TFLOP/s, layer 1 once, layer 2 (and layer 3 at k > 1) three times for the
+    three bf16 parts of its f32 input.  ``old_bound_ms`` is the f32-FMA
+    figure, the yardstick before the tensor-core body."""
+    num_bytes, ops, exps = decode_work(batch, instances, c, k, dtype, backward=False)
+    old = bound(num_bytes, ops, torch.float32)
+    if dtype != torch.bfloat16:
+        return dict(old, old_bound_ms=old["bound_ms"], terms="")
+    pixels = batch * instances * MASK_SIZE * MASK_SIZE
+    clock = max_sm_clock_hz()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    t_bytes = num_bytes / PEAK_BYTES_PER_S * 1e3
+    t_sfu = 2 * exps / (sms * SFU_OPS_PER_CLOCK * clock) * 1e3
+    products = 2 * pixels * (c * c + 3 * c * c + (3 * c * k if k > 1 else 0))
+    t_mma = products / PEAK_OPS_PER_S[torch.bfloat16] * 1e3
+    terms = (f"max of bytes {t_bytes:.4f} ({num_bytes / 1e6:.1f} MB at 3.35 TB/s), SFU {t_sfu:.4f} "
+             f"({2 * exps / 1e6:.0f} M ex2 + rcp at {sms} SMs x {SFU_OPS_PER_CLOCK} x {clock / 1e9:.3f} GHz), "
+             f"tensor cores {t_mma:.4f} ({products / 1e9:.2f} GFLOP at 989 TFLOP/s)")
+    return dict(bound_ms=max(t_bytes, t_sfu, t_mma), bound_by="bytes" if t_bytes >= max(t_sfu, t_mma) else "operations",
+                old_bound_ms=old["bound_ms"], terms=terms)
+
+
+def check_decode_sass() -> None:
+    """K5f's tensor-core body (decode_fwd_mma_kernel<C, ONE_OUT>, its four
+    instances) must show mma.sync (HMMA) and no f32 <-> bf16 conversion
+    (F2F, F2FP) anywhere in its SASS, its loops included; without
+    cuobjdump (the CUDA toolkit's), the check fails."""
+    counts = sass_counts(dynconv._library()._name)
+    if not counts:
+        raise AssertionError("dynconv SASS: cuobjdump not found, so K5f's SASS cannot be read")
+    kernels = {k: n for k, n in counts.items() if "decode_fwd_mma_kernel" in k}
+    if len(kernels) != 4:
+        raise AssertionError(f"dynconv SASS: expected four instances of decode_fwd_mma_kernel, found {sorted(kernels)}")
+    for k, n in sorted(kernels.items()):
+        print(f"  K5f SASS (cuobjdump) {k}: HMMA {n['HMMA']}, MUFU {n['MUFU']}, F2F {n['F2F']}, F2FP {n['F2FP']}")
+        if n["HMMA"] == 0 or n["F2F"] or n["F2FP"]:
+            raise AssertionError(f"dynconv: {k} shows no HMMA, or a conversion instruction, in its SASS")
+
+
 def k5f_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) -> dict:
     """K5f against the plain einsum chain on the same inputs, f32 logits
     within atol = rtol = 1e-4 (tests/ops/test_dynconv.py holds the Pallas
-    kernel so)."""
+    kernel so); timed a call and alone (a CUDA graph of 20 calls)."""
     args = decode_inputs(cuda_gen, batch, instances, c, k, dtype)
     with torch.no_grad():
         got = dynconv.dynamic_pointwise_decode(*args, c, k)
@@ -499,13 +555,17 @@ def k5f_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) 
         err = float((got - want).abs().max())
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
         ms = median_ms(lambda: dynconv.dynamic_pointwise_decode(*args, c, k))
+        alone_ms = graph_ms(lambda: dynconv.dynamic_pointwise_decode(*args, c, k))
         plain_ms = median_ms(lambda: dynconv.reference_decode(*args, c, k))
-    num_bytes, ops, exps = decode_work(batch, instances, c, k, dtype, backward=False)
-    case = dict(path=path, err=err, ms=ms, plain_ms=plain_ms, **bound(num_bytes, ops, torch.float32))
+    lower = k5f_bound(batch, instances, c, k, dtype)
+    terms = lower.pop("terms")
+    old_bound_ms = lower.pop("old_bound_ms")
+    case = dict(path=path, err=err, ms=ms, alone_ms=alone_ms, plain_ms=plain_ms, **lower)
     print(f"  K5f dynconv_decode {label} {batch}x{instances} instances at {MASK_SIZE}x{MASK_SIZE}, c={c}, "
-          f"k={k}, {dtype} inputs: max_abs_err {err:.3g} (atol = rtol = 1e-4); kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, bound {case['bound_ms']:.4f} ms ({case['bound_by']}: {num_bytes / 1e6:.1f} MB, "
-          f"{ops / 1e9:.2f} GFLOP f32, {exps / 1e6:.0f} M exponentials beside them)")
+          f"k={k}, {dtype} inputs: max_abs_err {err:.3g} (atol = rtol = 1e-4); kernel {ms:.4f} ms a call "
+          f"({alone_ms:.4f} alone, device time from a CUDA graph of 20 calls), plain {plain_ms:.4f} ms, bound "
+          f"{case['bound_ms']:.4f} ms ({case['bound_by']}{'; ' + terms if terms else ''}); old f32-FMA "
+          f"yardstick {old_bound_ms:.4f} ms")
     return case
 
 
@@ -563,6 +623,22 @@ def k5b_cases(cuda_gen) -> dict:
     return results
 
 
+def k5f_k2_cases(cuda_gen) -> None:
+    """K2 at the detector's and the instance model's matchings (1,600 x
+    8,525 and 1,600 x 8,400) and K5f at the instance path's decodes (serving
+    16 x 100, training 16 x 256) and the keypoint shape (c = 32, k = 17),
+    bf16, each held against its plain version and timed a call and alone.
+    With another tree's package first on the path (run from that tree,
+    loading this file by path), times that tree's kernels the same way."""
+    _, targets = training_batch(BATCH)
+    for levels in (range(3, 8), range(3, 6)):
+        work = anchor_ious(levels, targets["boxes"], targets["classes"])
+        k2_case(f"levels {levels.start}-{levels.stop - 1}", work)
+    for label, instances, c, k in (("serving", MAX_INSTANCES, MASK_CHANNELS, 1),
+                                   ("training", MASK_POSITIVES, MASK_CHANNELS, 1), ("keypoint", MAX_INSTANCES, 32, 17)):
+        k5f_case(cuda_gen, label, BATCH, instances, c, k, torch.bfloat16)
+
+
 def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets) -> dict:
     """Phase 3, instance-segmentation shapes: K1f and K1b at the head's calls,
     K2 at its matching, K5f and K5b at its decodes and at the keypoint
@@ -588,6 +664,7 @@ def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, trai
     work = anchor_ious(range(3, 6), train_targets["boxes"], train_targets["classes"])
     results["row_kth@instance_train"].append(k2_case("levels 3-5", work))
     c, bf16 = MASK_CHANNELS, torch.bfloat16
+    check_decode_sass()
     results["dynconv_decode"].append(k5f_case(cuda_gen, "serving", BATCH, MAX_INSTANCES, c, 1, bf16))
     results["dynconv_decode@train"].append(k5f_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, bf16))
     results["dynconv_decode@keypoint"].append(
@@ -648,12 +725,14 @@ def k6_cases(cuda_gen) -> dict:
     return results
 
 
-SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "UBLKCP")  # mma.sync, wgmma, TMA load / store, bulk copy
+# mma.sync, wgmma, TMA load / store, bulk copy, special-function unit, f32 <-> bf16 conversions
+SASS_OPCODES = ("HMMA", "HGMMA", "UTMALDG", "UTMASTG", "UBLKCP", "MUFU", "F2F", "F2FP")
 
 
 def sass_counts(library: str) -> dict:
-    """Tensor-core (HMMA, HGMMA) and TMA (UTMALDG, UTMASTG, UBLKCP)
-    instructions in each kernel of a built library, by its mangled name:
+    """Tensor-core (HMMA, HGMMA), TMA (UTMALDG, UTMASTG, UBLKCP),
+    special-function (MUFU) and conversion (F2F, F2FP) instructions in each
+    kernel of a built library, by its mangled name:
     ``{kernel: {opcode: count}}`` from ``cuobjdump -sass``; empty without
     cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"

@@ -66,7 +66,7 @@ KERNEL_CLASSES = (
     ("K1b fused MLP backward", ("fused_mlp_bwd_", "dw_bf16_kernel", "dw_f32_kernel", "reduce_partials_kernel")),
     ("K2 row k-th threshold", ("row_best_kth_kernel",)),
     ("K3 upsample-add", ("upsample_add_kernel",)),
-    ("K5f dynamic decode", ("decode_fwd_kernel",)),
+    ("K5f dynamic decode", ("decode_fwd_kernel", "decode_fwd_mma_kernel")),
     ("K5b dynamic decode backward", ("decode_bwd_tile_kernel", "reduce_parts_kernel")),
     ("K4 stem conv + statistics", ("stem_conv_stats_kernel", "stem_conv_stats_mma_kernel", "stem_stats_reduce_kernel")),
     ("K6 weighted sum", ("weighted_sum_kernel",)),

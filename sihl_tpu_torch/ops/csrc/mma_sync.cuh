@@ -1,5 +1,6 @@
 // bf16 mma.sync, ldmatrix and cp.async helpers for sm_90a, shared by the
-// tensor-core kernels of stem.cu (K4's bf16 body) and stem_variants.cu (P3).
+// tensor-core kernels of stem.cu (K4's bf16 body), stem_variants.cu (P3) and
+// dynconv.cu (K5f's bf16 body).
 // Each source that includes this builds into its own library.
 
 #pragma once
@@ -41,6 +42,13 @@ __device__ __forceinline__ void mma_bf16(float d[4], const uint32_t a[4], uint32
       "{%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// d += a b for a 16 x 8 bf16 A fragment, an 8 x 8 bf16 B fragment, f32 d.
+__device__ __forceinline__ void mma_bf16_k8(float d[4], const uint32_t a[2], uint32_t b) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(b));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

@@ -13,8 +13,10 @@ predicted per instance:
 :class:`_DynamicDecode`: K5f in the forward and K5b
 (:func:`dynamic_pointwise_decode_backward`) in the backward, the
 hand-written kernels of ``csrc/dynconv.cu`` (the file says how they are laid
-out and what bounds them).  A CPU tensor goes to :func:`reference_decode`,
-the plain einsum chain, whose backward is autograd's.  The grid and the
+out and what bounds them; K5f runs bf16 inputs on the tensor cores and f32
+ones on FMAs, over the blocks of :func:`decode_plan`).  A CPU tensor goes to
+:func:`reference_decode`, the plain einsum chain, whose backward is
+autograd's.  The grid and the
 centres get no gradient on either path (they come from constant anchors).
 """
 
@@ -30,10 +32,31 @@ from sihl_tpu_torch.policy import upcast
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KERNEL_CHANNELS = (8, 32)
+# K5f's blocks (csrc/dynconv.cu): pixels a block (its strip) and the most
+# instances it stages, by channel count, for the bf16 tensor-core body
+# (MmaPlan<C>); the f32 FMA body takes 256 pixels and as many instances as
+# 48 KB of shared memory holds, at most 32.
+_MMA_STRIP = {8: 256, 32: 640}
+_MMA_MAX_GROUP = {8: 16, 32: 6}
+_FMA_STRIP, _FMA_MAX_GROUP, _FMA_SMEM_FLOATS = 256, 32, 12288
 
 
 def param_count(c: int, k: int) -> int:
     return (c + 2) * c + c + c * c + c + c * k + k
+
+
+def decode_plan(s: int, i: int, c: int, k: int, is_bf16: bool) -> Tuple[int, int, int, int]:
+    """K5f's grid over s pixels and i instances of an image: (strip, strips,
+    group, groups), block (x, y) taking pixels [x * strip, (x + 1) * strip)
+    and instances [y * group, (y + 1) * group), both cut at the end.  The
+    tensor-core body evens out its groups (100 instances as 7 groups of at
+    most 15, not 6 of 16 and one of 4)."""
+    if is_bf16:
+        strip, most = _MMA_STRIP[c], _MMA_MAX_GROUP[c]
+        group = -(-i // -(-i // most))
+    else:
+        strip, group = _FMA_STRIP, min(_FMA_MAX_GROUP, _FMA_SMEM_FLOATS // (param_count(c, k) + 2))
+    return strip, -(-s // strip), group, -(-i // group)
 
 
 def _split(dyn: torch.Tensor, c: int, k: int):
@@ -76,7 +99,7 @@ def reference_decode(mask_feats, grid, centers, dyn, c: int, num_out: int) -> to
 def _library() -> ctypes.CDLL:
     lib = cuda_library("dynconv")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.sihl_dynconv_fwd.argtypes = [i, i, p, p, p, p, i, i, i, i, p, p]
+    lib.sihl_dynconv_fwd.argtypes = [i, i, p, p, p, p, i, i, i, i, i, i, i, p, p]
     lib.sihl_dynconv_fwd.restype = i
     lib.sihl_dynconv_bwd_workspace.argtypes = [i, i, i, i, i]
     lib.sihl_dynconv_bwd_workspace.restype = ctypes.c_size_t
@@ -113,15 +136,19 @@ def _kernel_args(mask_feats, grid, centers, dyn, c: int, num_out: int):
 def _forward_cuda(mask_feats, grid, centers, dyn, c: int, num_out: int) -> torch.Tensor:
     """K5f: (B, I, H, W, num_out) f32 logits."""
     lib, grid, centers, dyn = _kernel_args(mask_feats, grid, centers, dyn, c, num_out)
+    is_bf16 = mask_feats.dtype == torch.bfloat16
+    if is_bf16 and (mask_feats.data_ptr() % 4 or dyn.data_ptr() % 4):
+        raise ValueError("the decode's bf16 kernel reads features and weights in pairs: pass them 4-byte aligned")
     b, _, h, w = mask_feats.shape
     i = dyn.shape[1]
     out = torch.empty((b, i, h, w, num_out), dtype=torch.float32, device=mask_feats.device)
     if out.numel():
+        _, strips, group, groups = decode_plan(h * w, i, c, num_out, is_bf16)
         with torch.cuda.device(mask_feats.device):
             stream = torch.cuda.current_stream(mask_feats.device).cuda_stream
             err = lib.sihl_dynconv_fwd(
-                _KERNEL_DTYPES[mask_feats.dtype], c, mask_feats.data_ptr(), grid.data_ptr(),
-                centers.data_ptr(), dyn.data_ptr(), b, h * w, i, num_out, out.data_ptr(), stream,
+                int(is_bf16), c, mask_feats.data_ptr(), grid.data_ptr(), centers.data_ptr(), dyn.data_ptr(),
+                b, h * w, i, num_out, strips, groups, group, out.data_ptr(), stream,
             )
         _check_launch(lib, err, "forward")
         dynamic_pointwise_decode.launches += 1

@@ -6,7 +6,11 @@ The decode's plain version (the path every CPU tensor takes) is held to
 (``dynconv._decode(..., True)``, as ``tests/ops/test_dynconv.py`` runs it):
 logits within 1e-5, and the gradients of the features and the dynamic
 weights within 1e-4 of ``jax.grad``.  The kernels themselves run only on a
-card (``tests/test_torch_kernels_cuda.py``).
+card (``tests/test_torch_kernels_cuda.py``); here K5f's tensor-core
+arithmetic (bf16 operands, the f32 grid and activations split exactly into
+three bf16 parts by bit masks, f32 sums) is emulated in plain PyTorch and
+held to the JAX chain, and its block plan is checked to cover every pixel
+and instance once.
 """
 
 import jax
@@ -74,6 +78,67 @@ def test_decode_gradients_match_jax(c, k, i, jax_decode):
     (torch.tanh(out) * torch.from_numpy(cot)).sum().backward()
     np.testing.assert_allclose(t_mf.grad.permute(0, 2, 3, 1).numpy(), np.asarray(want_mf), atol=1e-4, rtol=1e-4)
     np.testing.assert_allclose(t_dyn.grad.numpy(), np.asarray(want_dyn), atol=1e-4, rtol=1e-4)
+
+
+def _bf16_parts(x: torch.Tensor):
+    """f32 x as three bf16 values (f32 whose low 16 bits are zero) that sum
+    to it exactly, as K5f's tensor-core body splits h1 and h2: the top 16
+    bits of x, of what is left, and of what is left then."""
+    parts = []
+    for _ in range(3):
+        top = (x.view(torch.int32) & -65536).view(torch.float32)
+        parts.append(top)
+        x = x - top
+    return parts
+
+
+def _emulated_mma_decode(mf, grid, centers, dyn, c, k):
+    """K5f's bf16 body in plain f32 arithmetic: NHWC features and weights
+    that are bf16 values; layer 1 from b1 - center . W1c, with the grid term
+    as products of the grid's three bf16 parts and W1c, and the products of
+    layers 2 and 3 as sums over h's three bf16 parts (each part times a bf16
+    weight is exact in f32); layer 3 at k = 1 in f32."""
+    w1f, w1c, b1, w2, b2, w3, b3 = dynconv._split(dyn, c, k)
+    b1_eff = b1 - (centers[..., 0:1] * w1c[:, :, 0] + centers[..., 1:2] * w1c[:, :, 1])
+    parts = _bf16_parts(grid)
+    assert torch.equal(parts[0] + parts[1] + parts[2], grid)
+    x = torch.einsum("bhwc,bicd->bihwd", mf, w1f) + b1_eff[:, :, None, None]
+    x = x + sum(torch.einsum("hwe,bied->bihwd", p, w1c) for p in parts)
+    h1 = torch.nn.functional.silu(x)
+    parts = _bf16_parts(h1)
+    assert torch.equal(parts[0] + parts[1] + parts[2], h1)
+    h2 = torch.nn.functional.silu(sum(torch.einsum("bihwc,bicd->bihwd", p, w2) for p in parts) + b2[:, :, None, None])
+    if k == 1:
+        return torch.einsum("bihwc,bick->bihwk", h2, w3) + b3[:, :, None, None]
+    parts = _bf16_parts(h2)
+    assert torch.equal(parts[0] + parts[1] + parts[2], h2)
+    return sum(torch.einsum("bihwc,bick->bihwk", p, w3) for p in parts) + b3[:, :, None, None]
+
+
+@pytest.mark.parametrize("c,k,i", SHAPES)
+def test_tensor_core_decode_arithmetic_matches_jax(c, k, i):
+    """The bf16 body's arithmetic on bf16-valued inputs within atol = rtol =
+    1e-4 of the JAX chain on the same values (the card test's bound)."""
+    mf, grid, centers, dyn, _ = _inputs(c, k, i, seed=5)
+    mf, dyn = (torch.from_numpy(a).bfloat16().float().numpy() for a in (mf, dyn))
+    want = np.asarray(jax_dynconv.reference_decode(*map(jnp.asarray, (mf, grid, centers, dyn)), c, k))
+    got = _emulated_mma_decode(*map(torch.from_numpy, (mf, grid, centers, dyn)), c, k)
+    assert got.shape == want.shape == (2, i, 8, 8, k)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("is_bf16", [True, False], ids=["tensor_core", "fma"])
+@pytest.mark.parametrize("c,k", [(8, 1), (32, 17)])
+def test_decode_plan_covers_every_pixel_and_instance_once(c, k, is_bf16):
+    for s, i in ((1, 1), (15, 1), (16, 3), (143, 5), (256, 16), (257, 17), (6400, 100), (6400, 256), (323, 70)):
+        strip, strips, group, groups = dynconv.decode_plan(s, i, c, k, is_bf16)
+        pixels = [range(x * strip, min(s, (x + 1) * strip)) for x in range(strips)]
+        instances = [range(y * group, min(i, (y + 1) * group)) for y in range(groups)]
+        for blocks, n in ((pixels, s), (instances, i)):
+            assert all(len(r) for r in blocks)
+            assert sorted(j for r in blocks for j in r) == list(range(n))
+        if is_bf16:  # groups as even as they come: sizes differ by at most one group's remainder
+            assert group <= dynconv._MMA_MAX_GROUP[c] and groups == -(-i // dynconv._MMA_MAX_GROUP[c])
 
 
 def test_decode_checks_its_inputs():

@@ -206,12 +206,23 @@ def test_fused_mlp_weight_gradient_gemm_on_card(m):
     torch.testing.assert_close(got, want, atol=1e-3 * max(1.0, m ** 0.5), rtol=1e-4)
 
 
+def _assert_same(got: torch.Tensor, want: torch.Tensor) -> None:
+    """Bit for bit, NaN where the other is NaN."""
+    torch.testing.assert_close(got, want, atol=0, rtol=0, equal_nan=True)
+
+
 @pytest.mark.cuda
 def test_row_kth_kernel_matches_plain_version_on_card():
-    """K2 is bitwise equal to its plain version, with ties, zeros and zero rows."""
+    """K2 is bitwise equal to its plain version, with ties, zeros and zero
+    rows, at each template instance's edges (ROW_PLANS) and the widest row,
+    at k = 1, with a NaN in a row, and with fewer distinct values than k."""
     _need_card()
+    lib = topk._library()
+    widest = topk.ROW_PLANS[-1][0] * topk.ROW_PLANS[-1][1]
+    assert lib.sihl_row_kth_max_cols() == widest
+    edges = [(3, t * v + d, 9) for t, v in topk.ROW_PLANS[:-1] for d in (0, 1)]
     gen = torch.Generator().manual_seed(2)
-    for g, a, k in ((1600, 8525, 9), (7, 33, 9), (5, 1000, 1), (3, 4, 9)):
+    for g, a, k in [(1600, 8525, 9), (7, 33, 9), (5, 1000, 1), (3, 4, 9), (4, 8400, 1), (3, widest, 9)] + edges:
         x = torch.rand(g, a, generator=gen)
         x = torch.where(x < 0.3, 0.0, torch.round(x * 50) / 50)  # zeros and many ties
         x[0] = 0.0
@@ -222,6 +233,20 @@ def test_row_kth_kernel_matches_plain_version_on_card():
         want_best, want_kth = topk._row_reference(x, k)
         assert torch.equal(best, want_best) and torch.equal(kth, want_kth)
         assert float(kth[0]) == -1.0 or k == 1
+    x = torch.rand(4, 8525, generator=gen)
+    x[1, 4000] = float("nan")  # a NaN: the row's maximum and k-th value are NaN
+    x[2] = 0.0
+    x[2, :3] = torch.tensor([0.5, 0.5, 0.25])  # two distinct values above zero, fewer than k
+    x[3, :2] = float("inf")
+    x = x.cuda()
+    for k in (1, 2, 9):
+        best, kth = topk.row_best_and_kth(x, k)
+        want_best, want_kth = topk._row_reference(x, k)
+        _assert_same(best, want_best)
+        _assert_same(kth, want_kth)
+        assert bool(torch.isnan(kth[1])) and (k < 4 or float(kth[2]) == -1.0)
+    with pytest.raises(ValueError, match="columns"):
+        topk.row_best_and_kth(torch.zeros(2, widest + 1, device="cuda"), 9)
 
 
 @pytest.mark.cuda
@@ -359,16 +384,21 @@ def _decode_inputs(gen, b, i, h, w, c, k, dtype):
 
 # (b, i, h, w, c, k): instance masks, a ragged spatial tile and instance
 # group, more than one instance group with a ragged last tile and a ragged
-# tile of output columns, keypoint heatmaps, and c = 32 at one output
+# tile of output columns, keypoint heatmaps, and c = 32 at one output; one
+# instance and 63 or 25 pixels (a ragged 16-pixel tile, most of a strip's
+# warps idle); 323 pixels (not a multiple of 16 or of a strip) and 67
+# instances (the tensor-core body's groups 14, last 11); the serving decode
 DECODE_SHAPES = [(2, 37, 80, 80, 8, 1), (3, 5, 13, 11, 8, 1), (3, 33, 24, 24, 8, 5), (2, 11, 40, 40, 32, 17),
-                 (2, 3, 13, 11, 32, 1)]
+                 (2, 3, 13, 11, 32, 1), (1, 1, 9, 7, 8, 1), (1, 1, 5, 5, 32, 17), (2, 67, 17, 19, 8, 1),
+                 (16, 100, 80, 80, 8, 1)]
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("b,i,h,w,c,k", DECODE_SHAPES)
 def test_dynconv_decode_kernel_matches_plain_version_on_card(b, i, h, w, c, k):
     """K5f within atol = rtol = 1e-4 of the plain einsum chain (f32 logits),
-    for f32 and bf16 inputs."""
+    for f32 inputs (the FMA body) and bf16 inputs (the tensor-core body);
+    two calls bitwise equal."""
     _need_card()
     gen = torch.Generator().manual_seed(3)
     for dtype in (torch.float32, torch.bfloat16):
@@ -376,7 +406,9 @@ def test_dynconv_decode_kernel_matches_plain_version_on_card(b, i, h, w, c, k):
         before = dynconv.dynamic_pointwise_decode.launches
         with torch.no_grad():
             got = dynconv.dynamic_pointwise_decode(*args, c, k)
-        assert dynconv.dynamic_pointwise_decode.launches == before + 1
+            again = dynconv.dynamic_pointwise_decode(*args, c, k)
+        assert dynconv.dynamic_pointwise_decode.launches == before + 2
+        assert torch.equal(got, again)
         want = dynconv.reference_decode(*args, c, k)
         assert got.shape == (b, i, h, w, k) and got.dtype == torch.float32
         torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
@@ -425,6 +457,14 @@ def test_dynconv_decode_kernel_refuses_what_it_does_not_take():
         dynconv.dynamic_pointwise_decode(mf, grid, centers, dyn.bfloat16(), 8, 1)
     with pytest.raises(ValueError, match="channels_last"):
         dynconv.dynamic_pointwise_decode(mf.contiguous(), grid, centers, dyn, 8, 1)
+    mf, grid, centers, dyn = _decode_inputs(gen, 1, 2, 8, 8, 8, 1, torch.bfloat16)
+    shifted = torch.empty(mf.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:]
+    shifted = shifted.view(1, 8, 8, 8).permute(0, 3, 1, 2).copy_(mf)  # channels_last, 2 bytes off a word
+    with pytest.raises(ValueError, match="aligned"):
+        dynconv.dynamic_pointwise_decode(shifted, grid, centers, dyn, 8, 1)
+    shifted = torch.empty(dyn.numel() + 1, dtype=torch.bfloat16, device="cuda")[1:].view_as(dyn).copy_(dyn)
+    with pytest.raises(ValueError, match="aligned"):
+        dynconv.dynamic_pointwise_decode(mf, grid, centers, shifted, 8, 1)
 
 
 def _bf16(gen, *shape, scale=1.0):

@@ -15,7 +15,7 @@ import torch
 
 from sihl_tpu.ops.pallas.topk import _row_reference as jax_row_reference
 from sihl_tpu.ops.pallas.topk import _rows_pallas
-from sihl_tpu_torch.ops.topk import row_best_and_kth
+from sihl_tpu_torch.ops.topk import ROW_PLANS, row_best_and_kth, row_plan
 
 import torch_parity  # noqa: F401  (one thread per worker)
 
@@ -49,3 +49,17 @@ def test_row_best_and_kth_refusals():
         row_best_and_kth(torch.zeros(3), 9)
     with pytest.raises(ValueError, match="CUDA or CPU"):
         row_best_and_kth(torch.zeros(2, 3, device="meta"), 9)
+
+
+# each instance's edges, the matchings' rows (8,400 and 8,525) and the
+# widest row the shared-memory kernel took (57,856 columns)
+@pytest.mark.parametrize("a", [1, 255, 2048, 2049, 8400, 8525, 9216, 9217, 20480, 20481, 57856, 58368])
+def test_row_plan_covers_every_column_once(a):
+    """The kernel's thread t holds entries j * threads + t for j < values:
+    every column of the row once, in the narrowest instance that holds it."""
+    threads, values = row_plan(a)
+    columns = sorted(j * threads + t for j in range(values) for t in range(threads) if j * threads + t < a)
+    assert columns == list(range(a))
+    assert all(a > t * v for t, v in ROW_PLANS[: ROW_PLANS.index((threads, values))])
+    with pytest.raises(ValueError, match="columns"):
+        row_plan(ROW_PLANS[-1][0] * ROW_PLANS[-1][1] + 1)
