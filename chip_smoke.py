@@ -1,4 +1,4 @@
-"""Drive the PyTorch port's serving and training paths on one CUDA card and check them.
+"""Drive the PyTorch port's serving, training and validation paths on one CUDA card and check them.
 
 Run from the repository root on a machine with an NVIDIA H100:
 
@@ -59,7 +59,22 @@ raises on failure:
    mxured, pingpong and pp+mxured, each held against its plain version,
    pingpong bit for bit against base and pp+mxured against mxured, every
    mode but nops within 2e-2 of base; then timed beside the plain versions
-   and the same products alone on cuBLAS.
+   and the same products alone on cuBLAS;
+19. validate slice: ``Trainer.validate`` of the flagship in f32 on two
+   640 px images (image 1's first three targets its own top detections), on
+   the card in full f32 against the CPU: the loss within relative 1e-4, the
+   same metric keys, the largest mAP difference printed;
+20-22. fit: for the flagship, the instance model and the quadrilateral
+   detector in bf16 at batch 16, 640 px, ``Trainer.fit`` of four steps (EMA
+   0.999) validating on two batches and saving a checkpoint every two
+   steps; one ``validate`` that must launch the path's kernels (K1f, K2, K3;
+   K1f, K2, K3, K5f; K1f, K6; and K4 on each, since level 1 is frozen) and
+   no backward kernel and must leave the
+   running statistics alone; the final save restored into a fresh trainer
+   bitwise, the next step's loss bitwise equal there; ``use_ema_params``
+   then ``predict`` bitwise a model loaded from the shadow; validate
+   images/s, fit steps/s and the checkpoint's save and restore seconds
+   printed beside the card's name and power limit.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -69,11 +84,13 @@ import contextlib
 import copy
 import json
 import math
+import os
 import re
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -92,7 +109,7 @@ from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.tools import (probe_conv1x1, probe_conv3x3, probe_mlp_pipeline, probe_stem_variants,
                                   probe_wrt_filter)
 from sihl_tpu_torch.tools.probe_timing import card_name, cublas_products_ms, graph_ms, median_ms, within_one_bf16_step
-from sihl_tpu_torch.training import Trainer
+from sihl_tpu_torch.training import Trainer, restore_checkpoint, save_checkpoint
 from sihl_tpu_torch.training.trainer import _losses
 
 BATCH, SIZE, NUM_CLASSES, WIDTH = 16, 640, 80, 256
@@ -1449,6 +1466,186 @@ def mlp_pipeline_phase() -> list:
     return entries
 
 
+def own_detections_as_targets(model: SihlModel, images: torch.Tensor, targets: dict, n: int = 3) -> dict:
+    """``targets`` with image 1's first ``n`` rows replaced by the model's own
+    top ``n`` detections (classes and boxes), so that mAP50 lies strictly
+    between 0 and 1 on random weights."""
+    with torch.no_grad():
+        _, _, classes, boxes_ = model.eval()(images)[0]
+    targets = {k: v.clone() for k, v in targets.items()}
+    targets["classes"][1, :n] = classes[1, :n]
+    targets["boxes"][1, :n] = boxes_[1, :n]
+    return targets
+
+
+def check_validate_slice(gen: torch.Generator) -> None:
+    """Phase 19: ``Trainer.validate`` of the flagship in f32 on one batch of
+    two 640 px images, on the card (full f32) against the CPU (plain
+    versions) with the same weights and batch: the loss within the train
+    slice's relative 1e-4, the same metric keys on both sides, every value
+    finite; prints the largest mAP difference."""
+    model = build_flagship(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    images, targets = training_batch(2, seed=3)
+    with full_f32():
+        loc_bias = set_loc_bias(model, images)
+        targets = own_detections_as_targets(model, images, targets)
+    cpu_model = copy.deepcopy(model).to("cpu")
+    t0 = time.perf_counter()
+    want = Trainer(cpu_model, **OPTIMIZER).validate([(images.cpu(), {k: v.cpu() for k, v in targets.items()})])
+    t_cpu = time.perf_counter() - t0
+    with full_f32():
+        t0 = time.perf_counter()
+        got = Trainer(model, **OPTIMIZER).validate([(images, targets)])
+        t_card = time.perf_counter() - t0
+    maps = [k for k in want if "/valid/ma" in k]
+    worst = max(maps, key=lambda k: abs(got.get(k, math.inf) - want[k]))
+    print(f"  validate slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: loss card {got['head0/valid/loss']:.6f} "
+          f"cpu {want['head0/valid/loss']:.6f}; {len(maps)} mAP keys on both sides, map_50 card "
+          f"{got['head0/valid/map_50']:.6f} cpu {want['head0/valid/map_50']:.6f}; the largest mAP difference "
+          f"{abs(got[worst] - want[worst]):.3g} ({worst}); validate {t_card:.2f} s on the card, {t_cpu:.1f} s on "
+          f"the CPU")
+    if sorted(got) != sorted(want) or not maps:
+        raise AssertionError(f"validate keys differ: card {sorted(got)}, cpu {sorted(want)}")
+    if not all(math.isfinite(v) for v in got.values()):
+        raise AssertionError(f"non-finite validation metrics {got}")
+    if not math.isclose(got["head0/valid/loss"], want["head0/valid/loss"], rel_tol=1e-4):
+        raise AssertionError(f"validation loss {got['head0/valid/loss']} on the card, {want['head0/valid/loss']} on the CPU")
+
+
+def states_equal(a, b) -> bool:
+    """Two train states (nested dicts and lists of tensors and numbers) bit for bit."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(states_equal(a[k], b[k]) for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+    return a == b
+
+
+@contextlib.contextmanager
+def cudnn_deterministic():
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def fit_phase(build, batches, kernels, label: str) -> dict:
+    """Phases 20-22: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
+    (16 images at 640 px, level 1 frozen, bench.py's optimizer, EMA 0.999),
+    validating on both batches every 2 steps and saving a checkpoint every
+    2; then one ``validate`` between launch-count reads, which must launch
+    every kernel in ``kernels`` and no backward kernel, and leave the
+    running statistics as they were; the final save restored into a freshly
+    built trainer, its ``state_dict`` bitwise the saved one; one more step
+    on ``batches[0]`` in both (cuDNN deterministic): the loss bitwise equal,
+    every parameter within 1e-5 (a tenth of the learning rate: the weight
+    gradients may sum in another order); ``use_ema_params`` then
+    ``predict`` bitwise a model loaded from the EMA shadow.  Prints validate
+    images/s (with the host's mAP time apart), fit steps/s and the
+    checkpoint's save and restore seconds beside the card's name and power
+    limit.  Returns the validate's launch counts."""
+
+    def fresh_trainer(seed):
+        with compute_dtype_scope(torch.bfloat16):
+            model = build(torch.Generator().manual_seed(seed))
+        model.backbone.set_frozen_levels(1)
+        return Trainer(model, ema_decay=0.999, **OPTIMIZER)
+
+    trainer = fresh_trainer(3)
+    model, train_batch = trainer.model, batches[0]
+    card = card_name()
+    with tempfile.TemporaryDirectory() as ckpt_dir:
+        t0 = time.perf_counter()
+        result = trainer.fit([train_batch] * 4, num_steps=4, val_data=batches, val_every=2, log_every=2,
+                             checkpoint_every=2, checkpoint_dir=ckpt_dir)
+        t_fit = time.perf_counter() - t0
+        saved = sorted(os.listdir(ckpt_dir))
+        if saved != ["step_2", "step_4"] or not all(math.isfinite(v) for v in result.values()):
+            raise AssertionError(f"{label}: checkpoints {saved}, fit's metrics {result}")
+
+        # one validate between launch-count reads, its host mAP time apart
+        head = model.heads[0]
+        end, host_s = head.validation_end, []
+
+        def timed_end(state, collected=()):
+            t = time.perf_counter()
+            out = end(state, collected)
+            host_s.append(time.perf_counter() - t)
+            return out
+
+        head.validation_end = timed_end
+        buffers = {n: b.clone() for n, b in model.named_buffers()}
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        metrics = trainer.validate(batches)
+        t_val = time.perf_counter() - t0
+        launches = read_counts(kernels)
+        backward = read_counts(("fused_mlp_backward", "dynconv_decode_backward"))
+        del head.validation_end
+        if any(not torch.equal(b, buffers[n]) for n, b in model.named_buffers()):
+            raise AssertionError(f"{label}: validate moved the running statistics")
+        if any(n == 0 for n in launches.values()) or any(backward.values()):
+            raise AssertionError(f"{label}: validate launched {launches}, backward kernels {backward}")
+
+        # the checkpoint: save, restore into a fresh trainer
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(trainer, os.path.join(ckpt_dir, "timed"))
+        t_save = time.perf_counter() - t0
+        size_mib = os.path.getsize(os.path.join(ckpt_dir, "timed")) / 2**20
+        other = fresh_trainer(4)
+        t0 = time.perf_counter()
+        restore_checkpoint(other, os.path.join(ckpt_dir, "step_4"))
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+    if not states_equal(other.state_dict(), trainer.state_dict()):
+        raise AssertionError(f"{label}: the restored state differs from the saved one")
+    with cudnn_deterministic():
+        loss = trainer.training_step(*train_batch)["trainer/loss"]
+        other_loss = other.training_step(*train_batch)["trainer/loss"]
+        param_err = max(float((p.detach() - q.detach()).abs().max())
+                        for p, q in zip(trainer.params.values(), other.params.values()))
+        trainer.use_ema_params()
+        served = trainer.predict(train_batch[0])[0]
+        with compute_dtype_scope(torch.bfloat16):
+            ema_model = build(torch.Generator().manual_seed(5))
+        ema_model.backbone.set_frozen_levels(1)  # its stem through K4, as the trainer's
+        ema_model.load_state_dict({**model.state_dict(), **trainer.ema_params})
+        with torch.no_grad():
+            want = ema_model.eval()(train_batch[0])[0]
+    if not torch.equal(loss, other_loss) or param_err > 1e-5:
+        raise AssertionError(f"{label}: the step after the restore gives loss {float(other_loss)} against "
+                             f"{float(loss)}, parameters apart by {param_err}")
+    if not all(torch.equal(g, w) for g, w in zip(served, want)):
+        raise AssertionError(f"{label}: use_ema_params then predict differs from a model loaded from the shadow")
+    del other, ema_model
+
+    # fit's steps/s: four steps with nothing else, timed between syncs (fit's
+    # own trainer/steps_per_sec counts log_every steps since the call began,
+    # and the trainer's step is not a multiple of 4 here)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.fit([train_batch] * 4, num_steps=4, log_every=4)
+    torch.cuda.synchronize()
+    steps_per_sec = 4 / (time.perf_counter() - t0)
+    images = sum(b[0].shape[0] for b in batches)
+    print(f"  {label} bf16, batch {BATCH} at {SIZE} px: fit of 4 steps with 2 validations of {len(batches)} batches "
+          f"and 3 saves {t_fit:.2f} s, loss {result['trainer/loss']:.4f}, map_50 {result['head0/valid/map_50']:.4f}; "
+          f"validate {images / t_val:.2f} images/s ({t_val:.3f} s for {images} images, of which the host's mAP "
+          f"{host_s[0]:.3f} s) [{card}]; fit {steps_per_sec:.3f} steps/s [{card}]; checkpoint ({size_mib:.0f} MiB) "
+          f"save {t_save:.3f} s, restore {t_restore:.3f} s [{card}]; restored state bitwise equal, the next "
+          f"step's loss bitwise equal ({float(loss):.6f}), parameters within {param_err:.3g}; EMA predict bitwise "
+          f"equal; validate's kernel launches {launches}, backward {backward}")
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -1554,6 +1751,27 @@ def main() -> None:
     # phase 18: the fused-MLP pipeline probe
     probes += mlp_pipeline_phase()
 
+    # phase 19: validation parity, f32, card against CPU
+    check_validate_slice(gen)
+
+    # phases 20-22: fit, validate and checkpoints of each model, bf16
+    # (level 1 is frozen, so the stem runs K4 in eval mode too)
+    launches["validate"] = fit_phase(
+        build_flagship, [training_batch(BATCH), training_batch(BATCH, seed=4)],
+        ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats"), "flagship fit")
+    launches["instance_validate"] = fit_phase(
+        build_instance, [instance_batch(BATCH), instance_batch(BATCH, seed=4)],
+        ("fused_mlp", "row_kth", "upsample_add", "dynconv_decode", "stem_conv_stats"), "instance fit")
+    launches["quad_validate"] = fit_phase(
+        build_quad, [quad_batch(BATCH), quad_batch(BATCH, seed=4)], ("fused_mlp", "weighted_sum", "stem_conv_stats"),
+        "quad fit")
+    # each validate batch runs the serving forward and the training step's
+    # forward once: K1f at both shapes of each, K5f at both decodes
+    kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
+    kernels["fused_mlp@instance_validate"] = kernels["fused_mlp@instance_serve"] + kernels["fused_mlp@instance_train"]
+    kernels["fused_mlp@quad_validate"] = kernels["fused_mlp@quad_serve"] + kernels["fused_mlp@quad_train"]
+    kernels["dynconv_decode@validate"] = kernels["dynconv_decode"] + kernels["dynconv_decode@train"]
+
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)
     mlp_cu, mlp_py = "sihl_tpu_torch/ops/csrc/fused_mlp.cu", "sihl_tpu/ops/pallas/mlp.py"
@@ -1598,6 +1816,26 @@ def main() -> None:
         ("weighted_sum@quad_train", "quad_train", "weighted_sum@train", "triton", fusion_tr, fusion6_py,
          "weighted_sum"),
         ("stem_conv_stats@quad_train", "quad_train", "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats"),
+        ("fused_mlp@validate", "validate", "fused_mlp@validate", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp"),
+        ("row_kth@validate", "validate", "row_kth", "cuda", topk_cu, topk_py, "row_kth"),
+        ("upsample_add@validate", "validate", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add"),
+        ("fused_mlp@instance_validate", "instance_validate", "fused_mlp@instance_validate", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("row_kth@instance_validate", "instance_validate", "row_kth@instance_train", "cuda", topk_cu, topk_py,
+         "row_kth"),
+        ("upsample_add@instance_validate", "instance_validate", "upsample_add", "triton", fusion_tr, fusion_py,
+         "upsample_add"),
+        ("dynconv_decode@instance_validate", "instance_validate", "dynconv_decode@validate", "cuda", dyn_cu,
+         f"{dyn_py}:257", "dynconv_decode"),
+        ("fused_mlp@quad_validate", "quad_validate", "fused_mlp@quad_validate", "cuda", mlp_cu, f"{mlp_py}:204",
+         "fused_mlp"),
+        ("weighted_sum@quad_validate", "quad_validate", "weighted_sum@serve", "triton", fusion_tr, fusion6_py,
+         "weighted_sum"),
+        ("stem_conv_stats@validate", "validate", "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats"),
+        ("stem_conv_stats@instance_validate", "instance_validate", "stem_conv_stats", "cuda", stem_cu, stem_py,
+         "stem_conv_stats"),
+        ("stem_conv_stats@quad_validate", "quad_validate", "stem_conv_stats", "cuda", stem_cu, stem_py,
+         "stem_conv_stats"),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -4,8 +4,15 @@ A head is an ``nn.Module`` with ``output_shapes`` (the static-shape
 contract of its outputs), ``forward(inputs)``, the inference path, and
 ``training_step(inputs, *targets) -> (loss, metrics)``, whose loss and
 metrics are f32 scalar tensors computed without a host sync.  Targets are
-padded, fixed-shape tensors.  Validation comes with detection eval
-(ROADMAP.md, M9).
+padded, fixed-shape tensors.
+
+Validation is the JAX package's functional triple: ``metrics_init() ->
+state`` (sums on the head's device, ``sihl_tpu_torch.training.metrics``),
+``validation_step(state, inputs, *targets) -> (state, loss, aux)``, run
+under ``torch.no_grad()`` in eval mode, and ``validation_end(state,
+collected) -> dict``, where ``collected`` is the host-side (numpy) list of
+each batch's ``aux``, for metrics such as COCO mAP that do not accumulate
+in fixed-shape device state.
 """
 
 from typing import Any, Dict, List, Tuple, Union
@@ -24,3 +31,19 @@ class Head(nn.Module):
 
     def training_step(self, inputs, *targets) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         raise NotImplementedError
+
+    def metrics_init(self):
+        return {}
+
+    def validation_step(self, state, inputs, *targets):
+        loss, metrics = self.training_step(inputs, *targets)
+        return state, loss, metrics
+
+    def validation_end(self, state, collected=()) -> Dict[str, float]:
+        """``collected`` is the host-side list of per-batch ``aux`` dicts
+        returned by ``validation_step``, their tensors as numpy arrays."""
+        return {}
+
+    def _device(self) -> torch.device:
+        """The device of the head's parameters, where its metric states live."""
+        return next(self.parameters()).device

@@ -16,12 +16,18 @@ Training: ground-truth boxes come from the masks (``masks_to_boxes``), every
 image's padded ground truth is matched to the anchors at once, and the
 ``max_mask_positives`` anchors of highest relative IoU per image are decoded
 and scored with a dice loss against the ground-truth masks resized to the
-decode's resolution.  Validation and ``full_res_masks=True`` come with
-detection eval (ROADMAP.md, M9).
+decode's resolution.
+
+Validation: the loss's mean on the device; each batch's scores, classes,
+predicted masks (> 0.5) and ground-truth masks (> 0) go to the host, the
+masks bit-packed on the device (``packbits_last``), and ``validation_end``
+runs COCO mask mAP (:mod:`sihl_tpu_torch.utils.coco_map`) over them.
+``full_res_masks=True`` resizes the masks to the input's size (linear).
 """
 
-from typing import List, Optional
+from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,9 +37,11 @@ from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_genera
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import bbox_matching, masks_to_boxes
 from sihl_tpu_torch.ops.dynconv import dynamic_pointwise_decode, param_count
-from sihl_tpu_torch.ops.image import resize_linear
+from sihl_tpu_torch.ops.image import packbits_last, resize_linear
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, cross_entropy
 from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.training import metrics as M
+from sihl_tpu_torch.utils.coco_map import MeanAveragePrecisionAccumulator
 
 
 class InstanceSegmentation(Head):
@@ -67,15 +75,13 @@ class InstanceSegmentation(Head):
             max_instances: fixed-size inference output slots.
             max_targets: ground-truth padding size (targets per image).
             max_mask_positives: anchors per image decoded in training.
-            full_res_masks: masks at input resolution (not ported yet).
+            full_res_masks: masks resized (linear) to the input's resolution.
         """
         super().__init__()
         if num_classes <= 0 or max_instances <= 0 or num_channels % 4:
             raise ValueError((num_classes, max_instances, num_channels))
         if len(in_channels) <= top_level or not 0 < bottom_level <= top_level:
             raise ValueError((len(in_channels), bottom_level, top_level))
-        if full_res_masks:
-            raise NotImplementedError("full_res_masks=True is not ported yet (ROADMAP.md, M9)")
         generator = default_generator(generator)
 
         self.in_channels = in_channels
@@ -140,7 +146,8 @@ class InstanceSegmentation(Head):
 
     def forward(self, inputs):
         """Returns (num_instances (B,), scores (B, I), classes (B, I), masks
-        (B, I, H / 2^mask_level, W / 2^mask_level) as probabilities)."""
+        (B, I, H / 2^mask_level, W / 2^mask_level) as probabilities; (B, I,
+        H, W) with ``full_res_masks``)."""
         flat_feats = self.flat_features(inputs)
         offsets, _ = self.get_offsets_and_scales(inputs)
         (loc_out,) = anchors.run_mlps(flat_feats, [self.loc_head], num_valid=offsets.shape[0])
@@ -160,7 +167,10 @@ class InstanceSegmentation(Head):
         )
         mask_logits = self._decode_masks(self._mask_features(inputs), self._mask_grid(inputs), centers, dyn)
         classes = torch.argmax(class_logits, dim=2)
-        return num_instances, scores, classes, torch.sigmoid(mask_logits)
+        masks = torch.sigmoid(mask_logits)
+        if self.full_res_masks:
+            masks = resize_linear(masks, inputs[0].shape[2:])
+        return num_instances, scores, classes, masks
 
     def training_step(self, inputs, classes: torch.Tensor, masks: torch.Tensor):
         """classes: (B, T) integer with -1 padding; masks: (B, T, Hm, Wm)
@@ -223,3 +233,33 @@ class InstanceSegmentation(Head):
         loss = loc_loss + 10.0 * mask_loss + class_loss
         metrics = {"location_loss": loc_loss, "mask_loss": mask_loss, "class_loss": class_loss}
         return loss, metrics
+
+    # -- validation --------------------------------------------------------
+    def metrics_init(self):
+        return {"loss": M.mean_init(self._device())}
+
+    def validation_step(self, state, inputs, classes, masks):
+        num_instances, scores, pred_classes, pred_masks = self(inputs)
+        loss, _ = self.training_step(inputs, classes, masks)
+        state = {"loss": M.mean_update(state["loss"], loss)}
+        # binary masks cross to the host bit-packed, an eighth of the bytes
+        aux = {
+            "scores": scores,
+            "pred_classes": pred_classes,
+            "pred_masks_bits": packbits_last(pred_masks > 0.5),
+            "pred_masks_width": pred_masks.shape[-1],
+            "gt_classes": classes,
+            "gt_masks_bits": packbits_last(masks > 0),
+            "gt_masks_width": masks.shape[-1],
+        }
+        return state, loss, aux
+
+    def validation_end(self, state, collected=()) -> Dict[str, float]:
+        out = {"loss": float(M.mean_compute(state["loss"]))}
+        acc = MeanAveragePrecisionAccumulator(iou_type="segm")
+        for aux in collected:
+            pred = np.unpackbits(aux["pred_masks_bits"], axis=-1, bitorder="little")[..., : int(aux["pred_masks_width"])]
+            gt = np.unpackbits(aux["gt_masks_bits"], axis=-1, bitorder="little")[..., : int(aux["gt_masks_width"])]
+            acc.update(pred, aux["pred_classes"], aux["scores"], gt, aux["gt_classes"])
+        out.update(acc.compute())
+        return out

@@ -10,11 +10,14 @@ once (``bbox_matching``, batched over images); the loc and iou MLPs run dense
 over every anchor in one fused call; the ``max_targets * topk`` anchors of
 highest relative IoU per image are gathered, and the cls and box MLPs run
 over them in a second fused call.  Losses are f32 (f64 for a model built
-under the f64 compute dtype).  Validation comes with
-detection eval (ROADMAP.md, M9).
+under the f64 compute dtype).
+
+Validation: the loss's mean on the device; each batch's detections and
+padded ground truth go to the host in ``aux``, and ``validation_end`` runs
+COCO mAP (:mod:`sihl_tpu_torch.utils.coco_map`) over them.
 """
 
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +29,20 @@ from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import bbox_matching, complete_box_iou_loss
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, cross_entropy
 from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.training import metrics as M
+from sihl_tpu_torch.utils.coco_map import MeanAveragePrecisionAccumulator
+
+
+def box_map_end(state, collected) -> Dict[str, float]:
+    """The mean validation loss and COCO box mAP over the collected batches'
+    ``pred_boxes``, ``pred_classes``, ``scores``, ``gt_boxes`` and
+    ``gt_classes``."""
+    out = {"loss": float(M.mean_compute(state["loss"]))}
+    acc = MeanAveragePrecisionAccumulator()
+    for aux in collected:
+        acc.update(aux["pred_boxes"], aux["pred_classes"], aux["scores"], aux["gt_boxes"], aux["gt_classes"])
+    out.update(acc.compute())
+    return out
 
 
 class ObjectDetection(Head):
@@ -190,3 +207,23 @@ class ObjectDetection(Head):
             "iou_loss": iou_loss,
         }
         return loss, metrics
+
+    # -- validation --------------------------------------------------------
+    def metrics_init(self):
+        return {"loss": M.mean_init(self._device())}
+
+    def validation_step(self, state, inputs, classes, boxes):
+        num_instances, scores, pred_classes, pred_boxes = self(inputs)
+        loss, _ = self.training_step(inputs, classes, boxes)
+        state = {"loss": M.mean_update(state["loss"], loss)}
+        aux = {
+            "scores": scores,
+            "pred_classes": pred_classes,
+            "pred_boxes": pred_boxes,
+            "gt_classes": classes,
+            "gt_boxes": boxes,
+        }
+        return state, loss, aux
+
+    def validation_end(self, state, collected=()) -> Dict[str, float]:
+        return box_map_end(state, collected)

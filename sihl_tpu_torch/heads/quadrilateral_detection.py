@@ -12,8 +12,9 @@ Training: the quad and class MLPs over the ``max_targets * topk`` anchors of
 highest relative CIoU per image, the loc MLP dense.  Targets: ``classes``
 (B, T) integer, -1 padded, and ``quads`` (B, T, 4, 2) absolute vertices.
 Losses are f32 (f64 for a model built under the f64 compute dtype); the
-geometry and the matching stay f32.  Validation and polygon IoU wait for
-detection eval (ROADMAP.md, M9).
+geometry and the matching stay f32.  Validation scores the quads' bounding
+boxes with COCO box mAP, as the JAX package does; polygon IoU, which no
+ported head uses, is not ported.
 """
 
 from typing import List, Optional
@@ -24,11 +25,13 @@ from torch import nn
 
 from sihl_tpu_torch.heads import anchors
 from sihl_tpu_torch.heads.base import Head
+from sihl_tpu_torch.heads.object_detection import box_map_end
 from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_generator
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import complete_box_iou
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, sigmoid_focal_loss
 from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.training import metrics as M
 
 
 def _descending_top(x: torch.Tensor, k: int):
@@ -242,3 +245,23 @@ class QuadrilateralDetection(Head):
         class_loss = torch.where(any_match, class_loss, zero)
         loss = loc_loss + quad_loss + class_loss
         return loss, {"location_loss": loc_loss, "quad_loss": quad_loss, "class_loss": class_loss}
+
+    # -- validation --------------------------------------------------------
+    def metrics_init(self):
+        return {"loss": M.mean_init(self._device())}
+
+    def validation_step(self, state, inputs, classes, quads):
+        num_instances, scores, pred_classes, quad_preds = self(inputs)
+        loss, _ = self.training_step(inputs, classes, quads)
+        state = {"loss": M.mean_update(state["loss"], loss)}
+        aux = {
+            "scores": scores,
+            "pred_classes": pred_classes,
+            "pred_boxes": self.quads_to_boxes(quad_preds),
+            "gt_classes": classes,
+            "gt_boxes": self.quads_to_boxes(quads.float()),
+        }
+        return state, loss, aux
+
+    def validation_end(self, state, collected=()):
+        return box_map_end(state, collected)

@@ -126,9 +126,9 @@ class _BatchNormTrain(torch.autograd.Function):
 class BatchNorm2d(nn.Module):
     """BatchNorm (eps 1e-5) in the input's compute dtype.
 
-    Eval: normalisation in f32 against the f32 running statistics and
-    parameters; the result comes back in the input's dtype.  Training:
-    :class:`_BatchNormTrain` on the batch statistics, with scale and bias
+    Eval: normalisation in f32 (f64 for an f64 input) against the running
+    statistics and parameters; the result comes back in the input's dtype.
+    Training: :class:`_BatchNormTrain` on the batch statistics, with scale and bias
     first rounded to the input's dtype (flax's ``promote_dtype``), and the
     running statistics updated with the *biased* batch variance at flax's
     momentum 0.9 (``running = 0.9 * running + 0.1 * batch``, which is
@@ -148,10 +148,10 @@ class BatchNorm2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return F.batch_norm(
-                x, self.running_mean, self.running_var, self.weight, self.bias,
-                False, 0.0, self.eps,
-            )
+            stats = (self.running_mean, self.running_var, self.weight, self.bias)
+            if x.dtype == torch.float64:  # a reference run: the normalisation in f64
+                stats = tuple(t.double() for t in stats)
+            return F.batch_norm(x, *stats, False, 0.0, self.eps)
         scale = upcast(self.weight.to(x.dtype))
         bias = upcast(self.bias.to(x.dtype))
         y, mu, var = _BatchNormTrain.apply(x, scale, bias, self.eps)

@@ -1,7 +1,8 @@
 """Image-space ops on NCHW tensors (counterpart of ``sihl_tpu/ops/image.py``).
 
 Ported so far: nearest 2x upsampling, the identity case of ``interpolate``,
-max pooling, the linear resize of mask targets, and the binomial blur-pool.
+max pooling, the linear resize of mask targets, the binomial blur-pool, and
+the bit packing of binary masks for validation.
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -70,3 +71,19 @@ def blur_pool_2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 1) -> torc
     xp = F.pad(xp, (pad, pad, pad, pad), mode="reflect")
     out = _depthwise_conv(xp, k1[:, None] * k1[None, :], stride=stride)
     return out.to(dtype=x.dtype, memory_format=torch.channels_last)
+
+
+def packbits_last(x: torch.Tensor) -> torch.Tensor:
+    """Pack a boolean tensor's last axis into uint8 bits (little-endian bit
+    order) on its device, so that binary masks cross to the host at an
+    eighth of the bytes during validation; the last axis is zero-padded to
+    a multiple of 8.  Host-side inverse:
+    ``np.unpackbits(arr, axis=-1, bitorder="little")[..., :w]``."""
+    w = x.shape[-1]
+    x = x.to(torch.uint8)
+    pad = (-w) % 8
+    if pad:
+        x = F.pad(x, (0, pad))
+    x = x.reshape(*x.shape[:-1], (w + pad) // 8, 8)
+    weights = torch.tensor([1, 2, 4, 8, 16, 32, 64, 128], dtype=torch.uint8, device=x.device)
+    return (x * weights).sum(dim=-1, dtype=torch.uint8)

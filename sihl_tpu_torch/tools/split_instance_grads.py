@@ -119,7 +119,7 @@ def head_step(model, feats, levels, targets):
     for p in model.heads.parameters():
         p.grad = None
     leaves = [f.detach().requires_grad_(i in levels) for i, f in enumerate(feats)]
-    loss, metrics = _call_step(model.heads[0], leaves, targets)
+    loss, metrics = _call_step(model.heads[0], "training_step", leaves, targets)
     loss.backward()
     grads = {n: p.grad for n, p in model.named_parameters() if n.startswith("heads.")}
     return (float(loss.detach()), {k: float(v.detach()) for k, v in metrics.items()},

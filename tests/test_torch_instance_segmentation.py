@@ -166,9 +166,15 @@ def test_training_step_without_targets(head_pair):
     assert loss == pytest.approx(want_loss, rel=1e-4)
 
 
-def test_full_res_masks_waits_for_eval():
-    with pytest.raises(NotImplementedError, match="full_res_masks"):
-        InstanceSegmentation([3, 8, 16, 32, 64, 64], 4, full_res_masks=True, **HEAD_KW)
+def test_full_res_masks_waits_for_eval(head_pair):
+    """``full_res_masks=True`` builds and returns masks at the input's size
+    (their values against JAX's: ``tests/test_torch_validation.py``)."""
+    _, heads, pyramid, _ = head_pair
+    head = InstanceSegmentation([p.shape[-1] for p in pyramid], 4, full_res_masks=True, **HEAD_KW)
+    head.load_state_dict(heads[torch.float32].state_dict(), strict=True)
+    with torch.no_grad():
+        masks = head.eval()([to_torch(p) for p in pyramid])[3]
+    assert masks.shape == (BATCH, HEAD_KW["max_instances"], 64, 64)
 
 
 def _build_model(backbone, fpn, head, model, **init):

@@ -711,6 +711,70 @@ def test_mlp_pipeline_kernels_refuse_what_they_do_not_take():
         mlp_pipeline.mlp_pipeline(x, mlps, "halves")
 
 
+def _small_detector(seed: int):
+    """resnet18 with level 1 frozen, FPN 256 wide over levels 3-5 and an
+    ObjectDetection head whose MLPs K1 takes (256 wide), bf16, on the card."""
+    from sihl_tpu_torch import Backbone, SihlModel
+    from sihl_tpu_torch.heads import ObjectDetection
+    from sihl_tpu_torch.layers import FPN
+
+    gen = torch.Generator().manual_seed(seed)
+    with compute_dtype_scope(torch.bfloat16):
+        bb = Backbone("resnet18", top_level=5, generator=gen, device="cuda")
+        bb.set_frozen_levels(1)
+        neck = FPN(bb.out_channels, 256, bottom_level=3, top_level=5, generator=gen, device="cuda")
+        head = ObjectDetection(neck.out_channels, 5, num_channels=256, num_layers=2, max_instances=16,
+                               max_targets=4, generator=gen, device="cuda")
+        return SihlModel(bb, neck, [head])
+
+
+@pytest.mark.cuda
+def test_trainer_paths_serve_the_current_weights_on_card():
+    """K1's pack cache across the trainer's paths: validate, a training step
+    and predict, then use_ema_params and predict; each prediction bit for
+    bit that of a freshly built model holding the same weights (whose packs
+    are built anew), and the step's loss bit for bit a fresh trainer's."""
+    _need_card()
+    from sihl_tpu_torch.training import Trainer
+
+    def fresh_prediction(state, x):
+        model = _small_detector(1)
+        model.load_state_dict(state, strict=True)
+        with torch.no_grad():
+            return model.eval()(x)[0]
+
+    def same(got, want):
+        return all(torch.equal(g, w) for g, w in zip(got, want))
+
+    gen = torch.Generator("cuda").manual_seed(0)
+    x = torch.rand(2, 3, 128, 128, device="cuda", generator=gen)
+    targets = {"classes": torch.tensor([[0, 3, -1, -1], [1, -1, -1, -1]], device="cuda"),
+               "boxes": torch.tensor([[[8.0, 8.0, 41.0, 37.0], [60.0, 20.0, 91.0, 85.0], [0.0] * 4, [0.0] * 4],
+                                      [[30.0, 40.0, 77.0, 93.0], [0.0] * 4, [0.0] * 4, [0.0] * 4]], device="cuda")}
+    kw = dict(optimizer="adamw", optimizer_kwargs={"lr": 1e-3, "weight_decay": 1e-4}, grad_clip=0.1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        initial = {k: v.clone() for k, v in _small_detector(0).state_dict().items()}
+        model = _small_detector(1)
+        model.load_state_dict(initial)
+        trainer = Trainer(model, ema_decay=0.5, **kw)
+        fused_mlp.fused_mlps.launches = 0
+        metrics = trainer.validate([(x, targets)])
+        assert fused_mlp.fused_mlps.launches > 0 and "head0/valid/map" in metrics
+        loss = trainer.training_step(x, targets)["trainer/loss"]
+        other = _small_detector(1)
+        other.load_state_dict(initial)
+        assert torch.equal(loss, Trainer(other, **kw).training_step(x, targets)["trainer/loss"])
+        assert same(trainer.predict(x)[0], fresh_prediction(model.state_dict(), x))
+        trainer.use_ema_params()
+        ema_state = {**model.state_dict(), **trainer.ema_params}
+        assert not same(fresh_prediction(ema_state, x), fresh_prediction(initial, x))
+        assert same(trainer.predict(x)[0], fresh_prediction(ema_state, x))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
 def test_card_tests_import_no_jax():
     """This file runs where JAX is absent: nothing it imports loads JAX."""
     code = "import sys, test_torch_kernels_cuda; print(sorted(m for m in ('jax', 'flax') if m in sys.modules))"
