@@ -7,6 +7,7 @@ import torch
 
 from sihl_tpu_torch.backbones.base import PyramidBackbone
 from sihl_tpu_torch.backbones.resnet import RESNET_CONFIGS, make_resnet_features
+from sihl_tpu_torch.layers.convblocks import default_generator
 
 
 def backbone_names():
@@ -33,12 +34,13 @@ def Backbone(
             "pretrained weights are not available to the port (no weight files on disk); "
             "ROADMAP.md, M10"
         )
+    generator = default_generator(generator)
     features = make_resnet_features(
         name, input_channels=input_channels, generator=generator, device=device
     )
     return PyramidBackbone(
         name, features, input_channels=input_channels, top_level=top_level,
-        freeze_batchnorms=freeze_batchnorms,
+        freeze_batchnorms=freeze_batchnorms, generator=generator, device=device,
     )
 
 

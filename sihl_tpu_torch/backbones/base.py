@@ -2,9 +2,11 @@
 
 Contract: the output is ``[input] + [level1..top_level]`` where
 ``outputs[l]`` has spatial size exactly ``(H/2^l, W/2^l)``, and
-``out_channels[0] == input_channels``; input H and W must be divisible by
-``2**top_level``.  The input is moved to channels_last memory here, once,
-and every layer after keeps that layout.
+``out_channels[0] == input_channels``; levels above the feature net's top
+are made by :class:`AntialiasedDownscaler`\\ s (``downscalers``), each from
+the level below; input H and W must be divisible by ``2**top_level``.  The
+input is moved to channels_last memory here, once, and every layer after
+keeps that layout.
 
 A feature net plugged into this wrapper exposes ``feature_channels`` (the
 channels of levels 1..n), ``level_modules`` (attribute names per level, for
@@ -12,12 +14,13 @@ freezing) and honours ``_sg_levels``: the levels up to it run without a
 gradient, so a frozen prefix has no backward pass.
 """
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 from torch import nn
 
-from sihl_tpu_torch.layers.convblocks import BatchNorm2d
+from sihl_tpu_torch.layers.convblocks import BatchNorm2d, default_generator
+from sihl_tpu_torch.layers.scalers import AntialiasedDownscaler
 from sihl_tpu_torch.ops.image import interpolate
 
 
@@ -31,20 +34,26 @@ class PyramidBackbone(nn.Module):
         input_channels: int = 3,
         top_level: int = 5,
         freeze_batchnorms: bool = False,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
     ):
         super().__init__()
         if top_level < 1:
             raise ValueError(f"top_level must be >= 1, got {top_level}")
-        if top_level > len(features.feature_channels):
-            raise NotImplementedError(
-                "levels above the feature net's top need AntialiasedDownscaler, "
-                "which is not ported yet (ROADMAP.md, M16)"
-            )
         self.name = name
         self.input_channels = input_channels
         self.top_level = top_level
         self.features = features
-        self.out_channels = [input_channels] + list(features.feature_channels[:top_level])
+        self.native_levels = min(top_level, len(features.feature_channels))
+        channels = [input_channels] + list(features.feature_channels[: self.native_levels])
+        top_c = channels[-1]
+        generator = default_generator(generator)
+        self.downscalers = nn.ModuleList(
+            AntialiasedDownscaler(top_c, top_c, generator=generator, device=device)
+            for _ in range(top_level - self.native_levels)
+        )
+        self.out_channels = channels + [top_c] * (top_level - self.native_levels)
         self.freeze_batchnorms = freeze_batchnorms
         self.set_frozen_levels(0)
 
@@ -82,8 +91,11 @@ class PyramidBackbone(nn.Module):
                 f"input spatial dims {(h, w)} must be divisible by 2^{self.top_level}"
             )
         input = input.contiguous(memory_format=torch.channels_last)
-        feats = self.features(input)[: self.top_level]
-        return [input] + [
+        feats = self.features(input)[: self.native_levels]
+        outputs = [input] + [
             interpolate(f, size=(h // 2**level, w // 2**level))
-            for f, level in zip(feats, range(1, self.top_level + 1))
+            for f, level in zip(feats, range(1, self.native_levels + 1))
         ]
+        for downscaler in self.downscalers:
+            outputs.append(downscaler(outputs[-1]))
+        return outputs

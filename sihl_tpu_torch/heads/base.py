@@ -15,10 +15,12 @@ each batch's ``aux``, for metrics such as COCO mAP that do not accumulate
 in fixed-shape device state.
 """
 
-from typing import Any, Dict, List, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+
+from sihl_tpu_torch.layers.convblocks import SequentialConvBlocks, default_generator, make_conv
 
 TensorShape = Tuple[Union[str, int], ...]
 
@@ -47,3 +49,29 @@ class Head(nn.Module):
     def _device(self) -> torch.device:
         """The device of the head's parameters, where its metric states live."""
         return next(self.parameters()).device
+
+
+class GlobalPoolReadout(nn.Module):
+    """Conv tower → 1x1 conv → the mean over H and W, shared by the
+    classification heads: (B, C, H, W) → (B, num_outputs) in the compute
+    dtype."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        num_channels: int,
+        num_outputs: int,
+        num_layers: int,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        generator = default_generator(generator)
+        self.convs = SequentialConvBlocks(
+            in_channels, num_channels, num_layers, generator=generator, device=device
+        )
+        self.out_conv = make_conv(num_channels, num_outputs, 1, generator=generator, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.out_conv(self.convs(x)).mean(dim=(2, 3))

@@ -1,10 +1,39 @@
 """Layers of the port."""
 
 from sihl_tpu_torch.layers.bifpn import BiFPN
-from sihl_tpu_torch.layers.convblocks import ConvNormAct, StandardConvNormAct
+from sihl_tpu_torch.layers.convblocks import (
+    ConvNormAct,
+    Identity,
+    SeparableConv2d,
+    SequentialConvBlocks,
+    StandardConvNormAct,
+)
 from sihl_tpu_torch.layers.fpn import FPN
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.layers.pooling import BlurPool2d
-from sihl_tpu_torch.layers.scalers import AntialiasedDownscaler
+from sihl_tpu_torch.layers.scalers import (
+    AntialiasedDownscaler,
+    BilinearAdditiveUpscaler,
+    Interpolate,
+    SimpleDownscaler,
+    SimpleUpscaler,
+    StridedDownscaler,
+)
 
-__all__ = ["AntialiasedDownscaler", "BiFPN", "BlurPool2d", "ConvNormAct", "FPN", "MLP", "StandardConvNormAct"]
+__all__ = [
+    "AntialiasedDownscaler",
+    "BiFPN",
+    "BilinearAdditiveUpscaler",
+    "BlurPool2d",
+    "ConvNormAct",
+    "FPN",
+    "Identity",
+    "Interpolate",
+    "MLP",
+    "SeparableConv2d",
+    "SequentialConvBlocks",
+    "SimpleDownscaler",
+    "SimpleUpscaler",
+    "StandardConvNormAct",
+    "StridedDownscaler",
+]

@@ -9,6 +9,10 @@ Parameters are float32 and initialised from an explicit ``torch.Generator``
 (flax's defaults: LeCun-normal kernels, zero biases, unit norm scales).
 Every module casts its input and weights to the compute dtype it read from
 the policy at construction.
+
+Activations (``_ACTS``) are the JAX package's: ``gelu`` is
+``jax.nn.gelu``'s default, the tanh approximation, and ``softmax`` runs over
+the channels (JAX's last axis of NHWC, ``dim=1`` here).
 """
 
 from typing import Optional
@@ -84,6 +88,44 @@ class Conv2d(nn.Module):
             self.dilation,
             self.groups,
         )
+
+
+class ConvTranspose2d(nn.Module):
+    """Transposed 2-D convolution with a bias and no padding (flax's
+    ``ConvTranspose`` with ``kernel_size == strides``, where "SAME" pads
+    nothing), computed in the construction-time compute dtype.  The weight is laid out (I, O, H, W)
+    as ``F.conv_transpose2d`` reads it; flax's (H, W, I, O) kernel maps to it
+    flipped in space (``convert.state_dict_from_flat`` does this)."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int,
+        stride: int,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        if kernel_size != stride:
+            raise ValueError(f"only kernel_size == stride is ported, got {kernel_size} and {stride}")
+        self.stride = stride
+        self.dtype = compute_dtype()
+        device = resolve_device(device)
+        weight = lecun_normal(
+            (in_channels, out_channels, kernel_size, kernel_size),
+            in_channels * kernel_size * kernel_size,
+            default_generator(generator),
+        )
+        self.weight = nn.Parameter(weight.to(device))
+        self.bias = nn.Parameter(torch.zeros(out_channels, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        out = F.conv_transpose2d(
+            x.to(self.dtype), self.weight.to(self.dtype), self.bias.to(self.dtype), self.stride
+        )
+        return out.contiguous(memory_format=torch.channels_last)
 
 
 class _BatchNormTrain(torch.autograd.Function):
@@ -190,15 +232,88 @@ def make_conv(
     )
 
 
-def make_norm(kind: Optional[str], num_features: int, *, device=None):
+class GroupNorm(nn.Module):
+    """Group normalisation (eps 1e-5) as ``nnx.GroupNorm`` computes it, in
+    training and eval alike: scale and bias rounded to the input's dtype;
+    each group's statistics over its channels and all pixels in f32 (f64
+    for f64 inputs), the variance ``E[x^2] - E[x]^2`` clipped at 0; ``y =
+    (x - mu) * (rsqrt(var + eps) * scale) + bias`` in that dtype, returned
+    in the input's dtype.  Autograd differentiates through the statistics."""
+
+    def __init__(self, num_features: int, num_groups: int, eps: float = 1e-5, *, device=None):
+        super().__init__()
+        if num_features % num_groups:
+            raise ValueError(f"{num_features} features do not split into {num_groups} groups")
+        device = resolve_device(device)
+        self.num_groups, self.eps = num_groups, eps
+        self.weight = nn.Parameter(torch.ones(num_features, device=device))
+        self.bias = nn.Parameter(torch.zeros(num_features, device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b, c, h, w = x.shape
+        xf = upcast(x)
+        grouped = xf.reshape(b, self.num_groups, c // self.num_groups, h, w)
+        mu = grouped.mean(dim=(2, 3, 4))
+        var = torch.clamp((grouped * grouped).mean(dim=(2, 3, 4)) - mu * mu, min=0.0)
+        mu = mu.repeat_interleave(c // self.num_groups, dim=1)[:, :, None, None]
+        var = var.repeat_interleave(c // self.num_groups, dim=1)[:, :, None, None]
+        scale = upcast(self.weight.to(x.dtype))[:, None, None]
+        bias = upcast(self.bias.to(x.dtype))[:, None, None]
+        y = (xf - mu) * (torch.rsqrt(var + self.eps) * scale) + bias
+        return y.to(x.dtype)
+
+
+def make_norm(kind: Optional[str], num_features: int, groupnorm_groups: int = 1, *, device=None):
+    """A BatchNorm, a GroupNorm of ``groupnorm_groups`` groups, or None."""
     if kind == "batch":
         return BatchNorm2d(num_features, eps=1e-5, device=device)
+    if kind == "group":
+        return GroupNorm(num_features, groupnorm_groups, eps=1e-5, device=device)
     if kind is None:
         return None
-    raise NotImplementedError(f"norm {kind!r} is not ported yet (ROADMAP.md, M16)")
+    raise ValueError(f"unknown norm {kind!r}")
 
 
-_ACTS = {"relu": relu, "silu": F.silu, None: None}
+_ACTS = {
+    "relu": relu,
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "softmax": lambda x: torch.softmax(x, dim=1),
+    None: None,
+}
+
+
+class SeparableConv2d(nn.Module):
+    """Depthwise conv (one filter a channel) then a 1x1 pointwise conv."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        kernel_size: int = 3,
+        stride: int = 1,
+        padding: Optional[int] = 1,
+        dilation: int = 1,
+        bias: bool = False,
+        groups: int = 1,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+    ):
+        super().__init__()
+        generator = default_generator(generator)
+        self.depthwise = make_conv(
+            in_channels, in_channels, kernel_size, stride=stride, padding=padding, dilation=dilation,
+            groups=in_channels, bias=bias, generator=generator, device=device,
+        )
+        self.pointwise = make_conv(
+            in_channels, out_channels, 1, groups=groups, bias=bias, generator=generator, device=device
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pointwise(self.depthwise(x))
 
 
 class StandardConvNormAct(nn.Module):
@@ -232,7 +347,7 @@ class StandardConvNormAct(nn.Module):
             generator=default_generator(generator),
             device=device,
         )
-        self.norm = make_norm(norm, out_channels, device=device)
+        self.norm = make_norm(norm, out_channels, max(out_channels // 8, 1), device=device)
         self.act = _ACTS[act]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -247,8 +362,9 @@ class StandardConvNormAct(nn.Module):
 class ConvNormAct(nn.Module):
     """sihl's conv block: conv → act → norm (the JAX package keeps this order
     for parity with upstream sihl).  The conv has a bias where there is no
-    norm, unless ``bias`` says otherwise.  Only plain convs are ported: the
-    separable variant waits (ROADMAP.md, M2b)."""
+    norm, unless ``bias`` says otherwise; ``separable`` makes a conv wider
+    than 1x1 a :class:`SeparableConv2d`.  A group norm has
+    ``max(in_channels // 8, 1)`` groups, as in the JAX package."""
 
     def __init__(
         self,
@@ -268,22 +384,36 @@ class ConvNormAct(nn.Module):
         device=None,
     ):
         super().__init__()
+        use_bias = (norm is None) if bias is None else bias
+        generator = default_generator(generator)
         if separable and kernel_size > 1:
-            raise NotImplementedError("separable ConvNormAct is not ported yet (ROADMAP.md, M2b)")
-        self.conv = make_conv(
-            in_channels,
-            out_channels,
-            kernel_size,
-            stride=stride,
-            dilation=dilation,
-            groups=groups,
-            padding=padding,
-            bias=(norm is None) if bias is None else bias,
-            generator=default_generator(generator),
-            device=device,
-        )
+            self.conv = SeparableConv2d(
+                in_channels,
+                out_channels,
+                kernel_size,
+                stride=stride,
+                padding=padding if padding is not None else (kernel_size - 1) // 2 * dilation,
+                dilation=dilation,
+                bias=use_bias,
+                groups=groups,
+                generator=generator,
+                device=device,
+            )
+        else:
+            self.conv = make_conv(
+                in_channels,
+                out_channels,
+                kernel_size,
+                stride=stride,
+                dilation=dilation,
+                groups=groups,
+                padding=padding,
+                bias=use_bias,
+                generator=generator,
+                device=device,
+            )
         self.act = _ACTS[act]
-        self.norm = make_norm(norm, out_channels, device=device)
+        self.norm = make_norm(norm, out_channels, max(in_channels // 8, 1), device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
@@ -291,4 +421,46 @@ class ConvNormAct(nn.Module):
             x = self.act(x)
         if self.norm is not None:
             x = self.norm(x)
+        return x
+
+
+class Identity(nn.Module):
+    def forward(self, x):
+        return x
+
+
+class SequentialConvBlocks(nn.Module):
+    """``num_layers`` stacked ``conv_block``\\ s (none for ``num_layers <= 0``):
+    the first maps ``in_channels`` to ``out_channels``, the rest keep
+    ``out_channels``; ``kwargs`` go to every block."""
+
+    def __init__(
+        self,
+        in_channels: int,
+        out_channels: int,
+        num_layers: int,
+        kernel_size: int = 3,
+        conv_block=ConvNormAct,
+        *,
+        generator: Optional[torch.Generator] = None,
+        device=None,
+        **kwargs,
+    ):
+        super().__init__()
+        generator = default_generator(generator)
+        self.blocks = nn.ModuleList(
+            conv_block(
+                in_channels if i == 0 else out_channels,
+                out_channels,
+                kernel_size=kernel_size,
+                generator=generator,
+                device=device,
+                **kwargs,
+            )
+            for i in range(max(num_layers, 0))
+        )
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for block in self.blocks:
+            x = block(x)
         return x

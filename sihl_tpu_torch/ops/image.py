@@ -1,8 +1,10 @@
 """Image-space ops on NCHW tensors (counterpart of ``sihl_tpu/ops/image.py``).
 
-Ported so far: nearest 2x upsampling, the identity case of ``interpolate``,
-max pooling, the linear resize of mask targets, the binomial blur-pool, and
-the bit packing of binary masks for validation.
+Ported so far: nearest 2x upsampling, ``interpolate`` (nearest and
+bilinear, by size or scale), average and max pooling, the linear resize of
+mask targets, the binomial blur-pool, and the bit packing of binary masks
+for validation.  The adaptive pools, ``edges`` and ``gaussian_blur`` wait
+(ROADMAP.md, M16).
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -19,14 +21,35 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return F.interpolate(x, scale_factor=2, mode="nearest")
 
 
-def interpolate(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Resize (B, C, H, W) to ``size``; only the identity case is ported."""
+def interpolate(
+    x: torch.Tensor,
+    size: Optional[Tuple[int, int]] = None,
+    scale: Optional[Union[int, float]] = None,
+    mode: str = "nearest",
+) -> torch.Tensor:
+    """Resize (B, C, H, W) to ``size`` or by ``scale`` ("nearest" or
+    "bilinear") as ``jax.image.resize`` does: "nearest" takes the pixel whose
+    centre is nearest the output pixel's (``F.interpolate``'s
+    "nearest-exact"; its "nearest" floors and misses), "bilinear" is
+    :func:`resize_linear` (antialiased when shrinking).  The result is in
+    channels_last memory."""
     h, w = x.shape[2:]
-    if tuple(size) == (h, w):
+    if size is None:
+        if scale is None:
+            raise ValueError("interpolate needs a size or a scale")
+        size = (int(h * scale), int(w * scale))
+    size = tuple(size)
+    if size == (h, w):
         return x
-    raise NotImplementedError(
-        f"interpolate from {(h, w)} to {tuple(size)} is not ported yet (ROADMAP.md, M16)"
-    )
+    if mode == "nearest" and size == (2 * h, 2 * w):
+        out = upsample2x_nearest(x)
+    elif mode == "nearest":
+        out = F.interpolate(x, size=size, mode="nearest-exact")
+    elif mode == "bilinear":
+        out = resize_linear(x, size)
+    else:
+        raise ValueError(f"unknown interpolation mode {mode!r}")
+    return out.contiguous(memory_format=torch.channels_last)
 
 
 def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
@@ -35,6 +58,22 @@ def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     shrinking, a triangle filter widened by the scale (antialiasing), which
     ``F.interpolate``'s antialiased bilinear mode computes."""
     return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=True)
+
+
+def avg_pool2d(
+    x: torch.Tensor,
+    kernel_size: Union[int, Sequence[int]],
+    stride: Optional[Union[int, Sequence[int]]] = None,
+    padding: Union[int, Sequence[int]] = 0,
+) -> torch.Tensor:
+    """Average pool whose zero padding counts in the mean (the JAX package's
+    and torch's default), summed in f32 (f64 for f64 inputs) and returned in
+    ``x``'s dtype."""
+    out = F.avg_pool2d(
+        upcast(x), kernel_size, stride=stride if stride is not None else kernel_size, padding=padding,
+        count_include_pad=True,
+    )
+    return out.to(x.dtype)
 
 
 def max_pool2d(

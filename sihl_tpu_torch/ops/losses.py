@@ -2,6 +2,7 @@
 every loss upcasts its inputs explicitly, as the reference computes its
 losses with autocast off (f64 inputs stay f64)."""
 
+import math
 from typing import Optional
 
 import torch
@@ -51,3 +52,10 @@ def sigmoid_focal_loss(
     if alpha >= 0:
         loss = (alpha * targets + (1.0 - alpha) * (1.0 - targets)) * loss
     return loss
+
+
+def log_cosh_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
+    """Elementwise log-cosh regression loss in its stable form,
+    ``|x| + log1p(exp(-2|x|)) - log(2)`` for ``x = pred - target``."""
+    x = upcast(pred) - upcast(target)
+    return x.abs() + torch.log1p(torch.exp(-2.0 * x.abs())) - math.log(2.0)

@@ -45,8 +45,8 @@ def test_backbone_refusals():
         Backbone("resnet0")
     with pytest.raises(NotImplementedError, match="pretrained"):
         Backbone("resnet18", pretrained=True)
-    with pytest.raises(NotImplementedError, match="AntialiasedDownscaler"):
-        Backbone("resnet18", top_level=6)
+    with pytest.raises(ValueError, match="top_level"):
+        Backbone("resnet18", top_level=0)
     with pytest.raises(ValueError, match="divisible"):
         Backbone("resnet18").eval()(torch.zeros(1, 3, 48, 40))
 

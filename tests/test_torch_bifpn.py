@@ -159,8 +159,13 @@ def test_conv_norm_act_and_downscaler_match_jax(train):
 
 
 def test_conv_norm_act_refuses_separable():
-    with pytest.raises(NotImplementedError, match="separable"):
-        ConvNormAct(8, 16, separable=True)
+    """The separable ConvNormAct is ported now, and refused no longer: it
+    builds a depthwise and a pointwise conv, as the JAX package's does
+    (its parity is in ``tests/test_torch_convblocks.py``)."""
+    block = ConvNormAct(8, 16, separable=True)
+    jax_block = JaxConvNormAct(8, 16, separable=True, rngs=nnx.Rngs(0))
+    assert block.conv.depthwise.groups == 8 and jax_block.conv.depthwise.feature_group_count == 8
+    assert tuple(block.conv.pointwise.weight.shape) == (16, 8, 1, 1)
 
 
 def _relative_error(got, want) -> float:

@@ -6,6 +6,7 @@ mode). The file imports no JAX, so it also runs on a machine without it:
     python -m pytest tests/test_torch_kernels_cuda.py -q -m cuda --noconftest
 """
 
+import copy
 import itertools
 import os
 import subprocess
@@ -773,6 +774,45 @@ def test_trainer_paths_serve_the_current_weights_on_card():
         assert same(trainer.predict(x)[0], fresh_prediction(ema_state, x))
     finally:
         torch.backends.cudnn.deterministic = deterministic
+
+
+@pytest.mark.cuda
+def test_classification_model_with_a_frozen_stem_runs_k4_in_eval_on_card():
+    """The three-head classification model (resnet18 with level 1 frozen, no
+    neck; multiclass, multilabel and regression heads) served in eval mode
+    on the card: its frozen stem launches K4, and in full f32 (TF32 off) its
+    outputs equal the CPU's, where the stem runs K4's plain version: classes
+    and multilabel orders exactly, scores and values within 1e-4."""
+    _need_card()
+    from sihl_tpu_torch import Backbone, SihlModel
+    from sihl_tpu_torch.heads import MulticlassClassification, MultilabelClassification, Regression
+
+    gen = torch.Generator().manual_seed(0)
+    bb = Backbone("resnet18", generator=gen, device="cpu")
+    bb.set_frozen_levels(1)
+    c = bb.out_channels
+    cpu_model = SihlModel(bb, None, [
+        MulticlassClassification(c, 196, num_channels=64, label_smoothing=0.1, generator=gen, device="cpu"),
+        MultilabelClassification(c, 80, num_channels=64, generator=gen, device="cpu"),
+        Regression(c, 0.0, 100.0, num_channels=64, generator=gen, device="cpu"),
+    ]).eval()
+    model = copy.deepcopy(cpu_model).cuda()
+    x = torch.rand(2, 3, 128, 128, generator=gen)
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            stem.stem_conv_stats.launches = 0
+            got = model(x.cuda())
+            assert stem.stem_conv_stats.launches == 1
+            want = cpu_model(x)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+    (scores, classes), (ml_scores, ml_labels), values = got
+    (w_scores, w_classes), (w_ml_scores, w_ml_labels), w_values = want
+    assert torch.equal(classes.cpu(), w_classes) and torch.equal(ml_labels.cpu(), w_ml_labels)
+    for g, w in ((scores, w_scores), (ml_scores, w_ml_scores), (values, w_values)):
+        torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
 def test_card_tests_import_no_jax():

@@ -77,8 +77,10 @@ def test_image_ops():
     )
     assert image.interpolate(xt, size=(6, 10)) is xt
     for size in ((5, 5), (12, 20)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            image.interpolate(xt, size=size)
+        np.testing.assert_array_equal(
+            to_numpy(image.interpolate(xt, size=size), nhwc=True),
+            np.asarray(jax_image.interpolate(jnp.asarray(x), size=size)),
+        )
 
 
 @pytest.mark.parametrize("act", [None, "relu"])
