@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Four models run through the port's hand-written kernels, with random
+Six models run through the port's hand-written kernels, with random
 weights from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -16,8 +16,13 @@ classifier, the three heads of the classification and regression examples
 on one trunk (ResNet-50 with level 1 frozen and no neck;
 MulticlassClassification with 196 classes and label smoothing 0.1,
 MultilabelClassification with 80 labels, Regression on [0, 100]; 256
-channels, one layer, level 5).  Every training step freezes level 1, so
-its stem runs K4.  Phases, each of which raises on failure:
+channels, one layer, level 5), the dense model (ResNet-50 with level 1
+frozen, FPN 128 channels over levels 3-5, SemanticSegmentation with COCO
+2017 panoptic's 133 classes and void 255, and DepthEstimation on 0.1-10 m
+with 256 bins, on one trunk) and the panoptic model (the same trunk and
+neck, PanopticSegmentation with 53 stuff and 80 thing classes, 100 targets,
+label smoothing decaying over 90,000 steps).  Every training step freezes
+level 1, so its stem runs K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -94,7 +99,31 @@ its stem runs K4.  Phases, each of which raises on failure:
    targets; AdamW as above); K4 must launch;
 27. classifier fit: as phases 20-22, validating with the heads' accuracy,
    multilabel counts and regression errors; the validate must launch K4
-   and no backward kernel.
+   and no backward kernel;
+28. dense slice: first K3 at the dense models' FPN (128 channels, 20 -> 40
+   and 40 -> 80) against its plain version; then the dense model in f32
+   on two 640 px images, on the card and on the CPU: the semantic class
+   maps equal but at ties of the top two probabilities, score and depth
+   maps within 1e-5 relative; K4 and K3 must launch;
+29. dense serving: three bf16 requests of 16 images at 640 px, every head's
+   outputs checked; K4 and K3 must launch;
+30. dense train slice: one f32 training step of four images on the card
+   against an f64 step on the CPU, as phase 25 (the depth head's ReLUs on
+   the bins' mean and on the logits among the decisions taken from the
+   card);
+31. dense training: ten bf16 steps of 16 images (semantic classes with
+   void pixels, depths with about 10% invalid) through
+   ``Trainer.training_step``; K4 and K3 must launch;
+32. dense fit: as phases 20-22, validating with the mean IoU, pixel
+   accuracy and depth errors; the validate must launch K4 and K3 and no
+   backward kernel;
+33-37. the same five for the panoptic model: the f32 slice (class and
+   instance-id maps equal but at explained ties), three bf16 requests
+   (K1f, K5f, K3 and K4 must launch), the f32 train slice against f64 (the
+   step counter equal on both sides after it), ten bf16 steps on masks
+   (16, 100, 640, 640) (K1f, K1b, K2, K5f, K5b, K3 and K4 must launch), and
+   the fit, validating with PQ on the host; its checkpoint carries the
+   step counter.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -120,11 +149,13 @@ import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
-from sihl_tpu_torch.heads import (InstanceSegmentation, MulticlassClassification, MultilabelClassification,
-                                  ObjectDetection, QuadrilateralDetection, Regression, anchors)
+from sihl_tpu_torch.heads import (DepthEstimation, InstanceSegmentation, MulticlassClassification,
+                                  MultilabelClassification, ObjectDetection, PanopticSegmentation,
+                                  QuadrilateralDetection, Regression, SemanticSegmentation, anchors)
 from sihl_tpu_torch.layers import FPN, BiFPN
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, ConvNormAct
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
+from sihl_tpu_torch.ops.image import interpolate
 from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, mlp_pipeline, stem, stem_variants, topk
 from sihl_tpu_torch.ops.relu import relu
 from sihl_tpu_torch.policy import compute_dtype_scope
@@ -156,6 +187,12 @@ NUM_LAYERS = 4
 # Stanford Cars' 196 classes with label smoothing 0.1, COCO's 80 labels, and
 # a value in [0, 100]
 CARS_CLASSES, COCO_LABELS, VALUE_RANGE = 196, 80, (0.0, 100.0)
+# the dense models: FPN 128 wide over levels 3-5 (examples/semantic_segmentation.py,
+# depth_estimation.py, panoptic_segmentation.py); COCO 2017 panoptic's 53 stuff
+# and 80 thing classes (133 for the semantic head), void 255; NYU-V2's depth
+# bounds; panoptic smoothing decaying over 90,000 steps
+DENSE_WIDTH, STUFF_CLASSES, THING_CLASSES, VOID = 128, 53, 80, 255
+DEPTH_RANGE, DECAY_STEPS = (0.1, 10.0), 90_000
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -215,6 +252,40 @@ def build_classifier(generator: torch.Generator, device=None) -> SihlModel:
         Regression(c, *VALUE_RANGE, generator=generator, device=device),
     ]
     return SihlModel(backbone, None, heads)
+
+
+def build_dense(generator: torch.Generator, device=None) -> SihlModel:
+    """The dense model: semantic segmentation (COCO 2017 panoptic's 133
+    classes, void 255; ``examples/semantic_segmentation.py:14-19``) and depth
+    estimation (NYU-V2's 0.1-10 m; ``examples/depth_estimation.py:64-69``) on
+    one trunk, as ``examples/multitask.py:22-34`` puts depth on a shared FPN:
+    ResNet-50 with level 1 frozen → FPN 128 wide over levels 3-5; the heads
+    at their defaults (256 channels; 3 layers and 1, 256 bins)."""
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, DENSE_WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    c = neck.out_channels
+    heads = [
+        SemanticSegmentation(c, STUFF_CLASSES + THING_CLASSES, ignore_index=VOID, generator=generator, device=device),
+        DepthEstimation(c, *DEPTH_RANGE, generator=generator, device=device),
+    ]
+    return SihlModel(backbone, neck, heads)
+
+
+def build_panoptic(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/panoptic_segmentation.py:147-153``'s model with COCO 2017
+    panoptic's 53 stuff and 80 thing classes and 100 targets: ResNet-50
+    with level 1 frozen → FPN 128 wide over levels 3-5 →
+    PanopticSegmentation (smoothing decaying over 90,000 steps, void 255;
+    256 channels, 4 layers, masks at level 3, 100 instances)."""
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, DENSE_WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    head = PanopticSegmentation(
+        neck.out_channels, STUFF_CLASSES, THING_CLASSES, max_targets=MAX_TARGETS, soft_label_decay_steps=DECAY_STEPS,
+        ignore_index=VOID, generator=generator, device=device,
+    )
+    return SihlModel(backbone, neck, [head])
 
 
 def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -327,6 +398,75 @@ def classifier_batch(batch: int, seed: int = 0, device="cuda"):
     labels = torch.from_numpy((rng.rand(batch, COCO_LABELS) < 0.1).astype(np.float32))
     values = torch.from_numpy((rng.rand(batch) * VALUE_RANGE[1]).astype(np.float32))
     return images.contiguous().to(device), [t.to(device) for t in (classes, labels, values)]
+
+
+def varied_images(rng, batch: int) -> torch.Tensor:
+    """(B, 3, 640, 640) f32 noise images, each with its own brightness and
+    contrast, as photographs have: images of i.i.d. noise pool to nearly the
+    same value at SPPM's 1 x 1 size, and the train-mode BatchNorm behind that
+    pooling would see nearly equal samples, whose f32 "fast variance"
+    (E[x^2] - E[x]^2) cancels (``tests/test_torch_dense_slice.py``)."""
+    x = rng.rand(batch, SIZE, SIZE, 3) * rng.uniform(0.25, 1.0, (batch, 1, 1, 1))
+    x = (x + rng.uniform(0.0, 0.75, (batch, 1, 1, 1))).astype(np.float32)
+    return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
+
+
+def dense_batch(batch: int, seed: int = 0, device="cuda"):
+    """Images (``varied_images``) and the dense model's two targets from a
+    seeded numpy generator: semantic classes (B, 640, 640) in [0, 133) in
+    blocks of 32 x 32 px, about 5% of the blocks void (255); and, as
+    ``examples/depth_estimation.py:115-121`` draws them, depths (B, 640, 640)
+    f32 of 0.1 + 9.9 x the image's mean over its channels (over 1.75, the
+    largest value of ``varied_images``), with validity masks, about 10% of
+    the pixels invalid (their depth 0)."""
+    rng = np.random.RandomState(seed)
+    images = varied_images(rng, batch)
+    blocks = rng.randint(0, STUFF_CLASSES + THING_CLASSES, (batch, SIZE // 32, SIZE // 32))
+    blocks[rng.rand(*blocks.shape) < 0.05] = VOID
+    semantic = torch.from_numpy(blocks.repeat(32, axis=1).repeat(32, axis=2))
+    depth = images.mean(dim=1) / 1.75 * 9.9 + DEPTH_RANGE[0]
+    masks = torch.from_numpy(rng.rand(batch, SIZE, SIZE) > 0.1)
+    depth = torch.where(masks, depth, 0.0)
+    return images.to(device), [semantic.to(device), {"targets": depth.to(device), "masks": masks.to(device)}]
+
+
+def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda"):
+    """Images (``varied_images``) and panoptic targets from a seeded numpy
+    generator: a semantic map (B, 640, 640) of stuff classes in [0, 53) in
+    blocks of 32 x 32 px (about 5% void, 255) under 1-20 things per image
+    (rectangles or ellipses, later ones on top, thing classes 53-132), and
+    the things' padded targets as ``panoptic_targets_from_maps`` makes them
+    from an instance-id map: classes (B, 100) in [0, 80), -1 padded, and
+    binary f32 masks (B, 100, mask_size, mask_size) of the visible part of
+    each (every ``SIZE // mask_size``-th pixel; at the image's size by
+    default), drawn on ``device``."""
+    rng = np.random.RandomState(seed)
+    images = varied_images(rng, batch)
+    blocks = rng.randint(0, STUFF_CLASSES, (batch, SIZE // 32, SIZE // 32))
+    blocks[rng.rand(*blocks.shape) < 0.05] = VOID
+    semantic = torch.from_numpy(blocks.repeat(32, axis=1).repeat(32, axis=2)).to(device)
+    ids = torch.zeros(batch, SIZE, SIZE, dtype=torch.int64, device=device)
+    classes = np.full((batch, MAX_TARGETS), -1, np.int64)
+    for b in range(batch):
+        n = rng.randint(1, 21)
+        classes[b, :n] = rng.randint(0, THING_CLASSES, n)
+        for t in range(n):
+            h, w = rng.randint(SIZE // 40, SIZE // 4, 2) + 1
+            y, x = rng.randint(0, SIZE - h), rng.randint(0, SIZE - w)
+            inside = torch.ones(h, w, dtype=torch.bool, device=device)
+            if rng.rand() >= 0.5:
+                yy = torch.arange(h, device=device)[:, None] - (h - 1) / 2
+                xx = torch.arange(w, device=device)[None, :] - (w - 1) / 2
+                inside = (2 * yy / h) ** 2 + (2 * xx / w) ** 2 <= 1.0
+            ids[b, y : y + h, x : x + w] = torch.where(inside, t + 1, ids[b, y : y + h, x : x + w])
+            semantic[b, y : y + h, x : x + w] = torch.where(
+                inside, STUFF_CLASSES + int(classes[b, t]), semantic[b, y : y + h, x : x + w])
+    step = SIZE // (mask_size or SIZE)
+    slots = torch.arange(1, MAX_TARGETS + 1, device=device)[None, :, None, None]
+    masks = (ids[:, None, ::step, ::step] == slots).float()
+    classes = torch.from_numpy(classes).to(device)
+    classes = torch.where((ids[:, None] == slots).flatten(2).any(dim=2), classes, -1)
+    return images.to(device), {"semantic": semantic, "classes": classes, "masks": masks}
 
 
 def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -512,26 +652,34 @@ def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets
     results["row_kth"].append(k2_case("levels 3-7", work))
 
     # K3: the two top-down merges of the FPN at 640 px: level 5 into 4, level 4 into 3
+    results["upsample_add"] = k3_cases(cuda_gen, WIDTH)
+    return results
+
+
+def k3_cases(cuda_gen, width: int) -> list:
+    """K3 at the two top-down merges of an FPN ``width`` channels wide at 640
+    px (level 5 into 4, level 4 into 3), bf16, bitwise against its plain
+    version; device times from CUDA graphs."""
+    cases = []
     for h in (SIZE // 32, SIZE // 16):
         cl = torch.channels_last
-        top = torch.randn(BATCH, WIDTH, h, h, device="cuda", generator=cuda_gen)
-        lateral = torch.randn(BATCH, WIDTH, 2 * h, 2 * h, device="cuda", generator=cuda_gen)
+        top = torch.randn(BATCH, width, h, h, device="cuda", generator=cuda_gen)
+        lateral = torch.randn(BATCH, width, 2 * h, 2 * h, device="cuda", generator=cuda_gen)
         top, lateral = (t.to(torch.bfloat16).contiguous(memory_format=cl) for t in (top, lateral))
         with torch.no_grad():
             got = fusion.fused_upsample_add(top, lateral)
             want = fusion.fused_upsample_add_reference(top, lateral)
             if not torch.equal(got, want):
-                raise AssertionError(f"upsample_add at h={h} is not bitwise equal to its plain version")
+                raise AssertionError(f"upsample_add at {width} channels, h={h} is not bitwise equal to its plain version")
             ms = graph_ms(lambda: fusion.fused_upsample_add(top, lateral))
             plain_ms = graph_ms(lambda: fusion.fused_upsample_add_reference(top, lateral))
-        results["upsample_add"].append(dict(
+        cases.append(dict(
             path=True, err=0.0, ms=ms, plain_ms=plain_ms,
             **bound((top.numel() + 2 * lateral.numel()) * 2, lateral.numel(), torch.bfloat16),
         ))
         print(f"  K3 upsample_add top {tuple(top.shape)} bf16: bitwise equal; kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms (device times, CUDA graphs), bound "
-              f"{results['upsample_add'][-1]['bound_ms']:.4f} ms")
-    return results
+              f"plain {plain_ms:.4f} ms (device times, CUDA graphs), bound {cases[-1]['bound_ms']:.4f} ms")
+    return cases
 
 
 def decode_inputs(cuda_gen, batch, instances, c, k, dtype):
@@ -931,18 +1079,20 @@ def detect_with_indices(model: SihlModel, images: torch.Tensor):
     return [t.cpu() for t in head(feats)], order[:, :MAX_INSTANCES].cpu()
 
 
-def set_loc_bias(model: SihlModel, images: torch.Tensor) -> float:
-    """Set the loc head's final bias midway between the 50th and 51st largest
-    loc logits of the first image, so that about half of the top-100 slots
-    score above 0.5 and no logit sits on that line; returns the bias."""
-    head = model.heads[0]
+def set_loc_bias(model: SihlModel, images: torch.Tensor, head=None, live: int = 50) -> float:
+    """Set the loc head's final bias (of ``head``, by default the model's
+    first) midway between the ``live``-th and the next largest loc logits of
+    the first image, so that ``live`` of its top-100 slots (about half, by
+    default) score above 0.5 and no logit sits on that line; returns the
+    bias."""
+    head = model.heads[0] if head is None else head
     bias = head.loc_head.linears[-1].bias
     with torch.no_grad():
         bias.zero_()
         flat = anchor_features(head, model.extract_features(images[:1]))
         (loc,) = anchors.run_mlps(flat, [head.loc_head], num_valid=flat.shape[1])
         top = torch.sort(loc[0, :, 0].float(), descending=True)[0]
-        bias.fill_(-float(top[49] + top[50]) / 2)
+        bias.fill_(-float(top[live - 1] + top[live]) / 2)
     return float(bias)
 
 
@@ -1048,26 +1198,34 @@ def check_quad_slice(model: SihlModel, gen: torch.Generator) -> None:
 
 def check_outputs(head, outputs) -> None:
     """One head's outputs at batch 16 and 640 px: the shapes ``output_shapes``
-    gives, finite, class and label ids in range, probabilities in [0, 1],
-    multilabel scores in descending order, values within the head's bounds."""
+    gives, finite, class, label and instance ids in range, probabilities in
+    [0, 1], multilabel scores in descending order, values and depths within
+    the head's bounds."""
     named = dict(zip(head.output_shapes, outputs if isinstance(outputs, (tuple, list)) else (outputs,)))
     for name, shape in head.output_shapes.items():
         if tuple(named[name].shape) != expected_shape(shape):
             raise AssertionError(f"{name}: shape {tuple(named[name].shape)}, expected {expected_shape(shape)}")
         if named[name].is_floating_point() and not torch.isfinite(named[name]).all():
             raise AssertionError(f"non-finite {name}")
-    ids = named.get("classes", named.get("labels"))
-    count = getattr(head, "num_classes", getattr(head, "num_labels", None))
-    if ids is not None and not ((0 <= ids).all() and (ids < count).all()):
-        raise AssertionError("class or label ids out of range")
-    for name in ("masks", "scores"):
+    panoptic = isinstance(head, PanopticSegmentation)
+    counts = {
+        "classes": head.num_thing_classes if panoptic else getattr(head, "num_classes", None),
+        "labels": getattr(head, "num_labels", None),
+        "class_maps": head.num_stuff_classes + head.num_thing_classes if panoptic else getattr(head, "num_classes", None),
+        "instance_maps": getattr(head, "max_instances", 0) + 1,
+    }
+    for name, count in counts.items():
+        if name in named and not ((0 <= named[name]).all() and (named[name] < count).all()):
+            raise AssertionError(f"{name} out of [0, {count})")
+    for name in ("masks", "scores", "score_maps"):
         if name in named and not ((0 <= named[name]).all() and (named[name] <= 1).all()):
             raise AssertionError(f"{name} out of [0, 1]")
     if "labels" in named and (named["scores"][:, 1:] > named["scores"][:, :-1]).any():
         raise AssertionError("multilabel scores out of descending order")
-    if "values" in named and not ((head.lower_bound <= named["values"]).all()
-                                  and (named["values"] <= head.upper_bound).all()):
-        raise AssertionError("regression values out of their bounds")
+    for name in ("values", "depth_maps"):
+        if name in named and not ((head.lower_bound <= named[name]).all()
+                                  and (named[name] <= head.upper_bound).all()):
+            raise AssertionError(f"{name} out of the head's bounds")
 
 
 def check_classifier_slice(model: SihlModel, gen: torch.Generator) -> None:
@@ -1108,6 +1266,125 @@ def check_classifier_slice(model: SihlModel, gen: torch.Generator) -> None:
         raise AssertionError(f"classes differ, or multilabel orders agree in only {share:.4f} of slots")
     if max(errors.values()) > 1e-4:
         raise AssertionError(f"relative errors {errors} out of bounds")
+
+
+def top_two_gap(logits: torch.Tensor) -> torch.Tensor:
+    """(B, H, W) gap between each pixel's two largest f32 class probabilities
+    (over dim 1 of ``logits``), relative to the largest."""
+    top = torch.softmax(logits.float(), dim=1).topk(2, dim=1).values
+    return (top[:, 0] - top[:, 1]) / top[:, 0]
+
+
+def check_dense_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 28: the f32 dense model on two 640 px images, on the card (its
+    frozen stem through K4, the FPN's merges through K3) and on the CPU (the
+    plain versions) with the same weights: the semantic class maps equal,
+    but where the CPU's two largest probabilities of a pixel lie within 1e-5
+    of each other (relative; a tie in f32), which must be under 1e-3 of the
+    pixels; the score maps (where the classes agree) and the depth maps
+    within 1e-5 relative."""
+    images = varied_images(np.random.RandomState(int(torch.randint(2**31, (1,), generator=gen))), 2)
+    with torch.no_grad():
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        c_feats = cpu_model.extract_features(images)
+        (c_scores, c_classes), c_depth = (head(c_feats) for head in cpu_model.heads)
+        gap = top_two_gap(cpu_model.heads[0].get_logits(c_feats))
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        (scores, classes), depth = model(images.cuda())
+        launches = read_counts(("stem_conv_stats", "upsample_add"))
+    scores, classes, depth = scores.cpu(), classes.cpu(), depth.cpu()
+    tie = F.interpolate(gap[:, None], size=(SIZE, SIZE), mode="nearest")[:, 0] <= 1e-5
+    differ = classes != c_classes
+    agree = ~differ
+    score_err = float(((scores - c_scores).abs() / c_scores)[agree].max())
+    depth_err = float(((depth - c_depth).abs() / c_depth).max())
+    print(f"  dense slice f32, 2 images at {SIZE} px: semantic classes differ at {int(differ.sum())} of "
+          f"{differ.numel()} pixels, {int((differ & ~tie).sum())} of them outside a tie of the top two "
+          f"probabilities (relative 1e-5; ties at {int(tie.sum())} pixels); score maps' largest relative error "
+          f"{score_err:.3g}; depth maps' {depth_err:.3g} (depths {float(c_depth.min()):.3f}-"
+          f"{float(c_depth.max()):.3f} m); kernel launches {launches}; CPU forward {t_cpu:.1f} s")
+    if not (torch.isfinite(scores).all() and torch.isfinite(depth).all()):
+        raise AssertionError("non-finite score or depth maps")
+    if launches != {"stem_conv_stats": 1, "upsample_add": 2}:
+        raise AssertionError(f"the dense forward launched {launches}")
+    if (differ & ~tie).any() or int(differ.sum()) > 1e-3 * differ.numel():
+        raise AssertionError(f"semantic classes differ at {int(differ.sum())} pixels, "
+                             f"{int((differ & ~tie).sum())} of them outside a tie")
+    if score_err > 1e-5 or depth_err > 1e-5:
+        raise AssertionError(f"score maps' relative error {score_err}, depth maps' {depth_err}")
+
+
+def panoptic_parts(model: SihlModel, images: torch.Tensor):
+    """The panoptic head's outputs, and from the same trunk pass its parts:
+    the semantic logits at the masks' size, the instance branch's outputs
+    and its top-100 anchor indices (on the CPU)."""
+    head = model.heads[0]
+    feats = model.extract_features(images)
+    outputs = head(feats)
+    num, scores, classes, masks = head.instance(feats)
+    logits = interpolate(head.semantic.get_logits(feats), size=masks.shape[2:], mode="bilinear").float()
+    flat = anchor_features(head.instance, feats)
+    (loc,) = anchors.run_mlps(flat, [head.instance.loc_head], num_valid=flat.shape[1])
+    order = torch.sort(loc[..., 0].float(), dim=1, descending=True, stable=True)[1][:, :MAX_INSTANCES]
+    return [t.cpu() for t in outputs], [t.cpu() for t in (logits, scores, masks, order)]
+
+
+def check_panoptic_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 33: the f32 panoptic model on two 640 px images, on the card and
+    on the CPU with the same weights, the instance branch's loc bias set as
+    phase 8 sets it but for 3 live slots in the first image (random mask
+    weights claim most pixels): num_instances equal, the
+    class and instance-id maps equal but at ties, each of which must be
+    explained: a pixel no instance claims where the CPU's two largest
+    semantic probabilities lie within 1e-5 (relative), a pixel where a
+    candidate instance's mask probability lies within 1e-4 of 0.5 (an
+    instance whose score does so makes its image's every pixel one), or one
+    claimed on either side by a slot whose anchor differs between the two
+    sides' top 100; the ties under 1e-3 of the pixels; the scores of slots
+    whose anchors agree within 1e-3."""
+    images = varied_images(np.random.RandomState(int(torch.randint(2**31, (1,), generator=gen))), 2)
+    with torch.no_grad():
+        loc_bias = set_loc_bias(model, images.cuda(), head=model.heads[0].instance, live=3)
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        (c_map, c_ids, c_num, c_scores, _), (c_logits, _, c_masks, c_idx) = panoptic_parts(cpu_model, images)
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        (p_map, p_ids, num, scores, _), (_, _, _, idx) = panoptic_parts(model, images.cuda())
+        launches = read_counts(("stem_conv_stats", "upsample_add", "fused_mlp", "dynconv_decode"))
+    differ = (p_map != c_map) | (p_ids != c_ids)
+    sem_tie = (top_two_gap(c_logits) <= 1e-5) & (c_ids == 0) & (p_ids == 0)
+    live = c_scores > 0.5 - 1e-4
+    mask_tie = ((c_masks - 0.5).abs() <= 1e-4) & live[:, :, None, None]
+    score_tie = ((c_scores - 0.5).abs() <= 1e-4).any(dim=1)[:, None, None]
+    moved = idx != c_idx  # (B, 100) slots whose anchors differ
+    slot_moved = torch.zeros_like(differ)
+    for ids in (p_ids, c_ids):
+        slot = torch.clamp(ids.long() - 1, min=0)
+        slot_moved |= (ids > 0) & torch.take_along_dim(moved, slot.flatten(1), dim=1).view_as(ids)
+    explained = sem_tie | mask_tie.any(dim=1) | score_tie | slot_moved
+    share = float((~moved).float().mean())
+    score_err = float((scores - c_scores).abs()[~moved].max())
+    print(f"  panoptic slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card {num.tolist()} "
+          f"cpu {c_num.tolist()}; top-k anchors agree in {share:.4f} of slots; class or id maps differ at "
+          f"{int(differ.sum())} of {differ.numel()} pixels, {int((differ & ~explained).sum())} of them unexplained "
+          f"(semantic ties {int(sem_tie.sum())}, mask-probability ties {int(mask_tie.any(dim=1).sum())}, pixels of "
+          f"moved slots {int(slot_moved.sum())}); {int((c_ids > 0).sum())} pixels claimed by an instance on the "
+          f"CPU, {int(c_ids.max())} the largest id; max score err {score_err:.3g}; kernel launches {launches}; "
+          f"CPU forward {t_cpu:.1f} s")
+    if not 0 < int(c_num.sum()) < 2 * MAX_INSTANCES or not (c_ids > 0).any():
+        raise AssertionError(f"num_instances {c_num.tolist()}, or the id maps, leave nothing to compare")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"the panoptic forward launched {launches}")
+    if not torch.equal(num, c_num) or share < 0.98:
+        raise AssertionError(f"num_instances differ, or top-k anchors agree in only {share:.4f} of slots")
+    if (differ & ~explained).any() or int(differ.sum()) > 1e-3 * differ.numel():
+        raise AssertionError(f"class or id maps differ at {int(differ.sum())} pixels, "
+                             f"{int((differ & ~explained).sum())} of them unexplained")
+    if score_err > 1e-3:
+        raise AssertionError(f"score err {score_err} out of bounds")
 
 
 def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
@@ -1163,6 +1440,19 @@ GRADIENT_LIMITS = {"heads": 1e-3, "neck": 1e-2, "backbone": 2e-2}
 # limit on one of their parameters, f32 itself loses those digits, and the
 # parameter is held at the neck's fixed limit instead.
 MASK_BRANCH = ("heads.0.mask_lateral.", "heads.0.mask_head.")
+# The PP-LiteSeg decoders of the dense heads (SemanticSegmentation, and the
+# DepthEstimation and PanopticSegmentation heads built on it) are chains of
+# conv → ReLU → train-mode BatchNorm at 1 x 1 to 80 x 80, whose UAFM
+# attention convs have one-element biases: a bias's gradient is a sum over
+# every pixel that cancels, and f32 loses its digits there too (the CPU's
+# own f32 step read up to 15% from f64 on one at 320 px).  Their parameters
+# take the mask branch's rule: where the CPU's own f32 step misses the
+# heads' limit, they are held at the neck's.
+
+
+def decoder_prefixes(model: SihlModel) -> tuple:
+    """The parameter-name prefixes of ``model``'s PP-LiteSeg decoders."""
+    return tuple(f"{n}." for n, m in model.named_modules() if isinstance(m, SemanticSegmentation))
 # BiFPN's fusion weights reach the loss through a softmax: each gradient is
 # a difference of dot products over whole feature maps, d(w_j) = s_j (dw_j -
 # sum_k s_k dw_k), and f32 cancels most of its digits (the CPU's own f32 step
@@ -1197,9 +1487,10 @@ def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flags
     model = copy.deepcopy(model)
     model.backbone.set_frozen_levels(1)
     damp_residual_branches(model, gen)
-    if hasattr(model.heads[0], "loc_head"):
+    detector = getattr(model.heads[0], "instance", model.heads[0])
+    if hasattr(detector, "loc_head"):
         with torch.no_grad():
-            model.heads[0].loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
+            detector.loc_head.linears[-1].bias.fill_(LOC_BIAS_INIT)
     cpu_models = {}
     for dtype in (torch.float64, torch.float32):
         with compute_dtype_scope(dtype):
@@ -1210,35 +1501,51 @@ def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flags
     return model, cpu_models
 
 
-def head_relu_blocks(model: SihlModel) -> dict:
-    """The heads' ConvNormAct blocks whose ReLU acts on the conv's raw output
-    (conv → ReLU → norm), by name."""
-    return {n: b for n, b in model.named_modules()
-            if n.startswith("heads.") and isinstance(b, ConvNormAct) and b.act is relu}
+def head_relu_sites(model: SihlModel) -> dict:
+    """The heads' ReLUs on raw conv outputs, by name: (module, attribute that
+    holds the activation).  The ConvNormAct blocks whose ReLU acts on the
+    conv's output (conv → ReLU → norm), and a depth head's two ReLUs: on the
+    bins' mean of a conv's output (``width_act``) and on its logits
+    (``weight_act``)."""
+    sites = {}
+    for name, mod in model.named_modules():
+        if name.startswith("heads.") and isinstance(mod, ConvNormAct) and mod.act is relu:
+            sites[name] = (mod, "act")
+        if isinstance(mod, DepthEstimation):
+            sites[f"{name}.width_act"] = (mod, "width_act")
+            sites[f"{name}.weight_act"] = (mod, "weight_act")
+    return sites
 
 
 @contextlib.contextmanager
 def recorded_preactivations(model: SihlModel):
-    """Inside the block, every forward of ``model`` records the conv outputs
-    of its ``head_relu_blocks`` (on the CPU, in f64) into the dict it yields."""
-    out = {}
-    hooks = [b.conv.register_forward_hook(lambda mod, args, z, name=n: out.__setitem__(name, z.detach().cpu().double()))
-             for n, b in head_relu_blocks(model).items()]
+    """Inside the block, every forward of ``model`` records the inputs of its
+    ``head_relu_sites`` (on the CPU, in f64) into the dict it yields."""
+    out, sites = {}, head_relu_sites(model)
+
+    def recorder(name, act):
+        def recording(z):
+            out[name] = z.detach().cpu().double()
+            return act(z)
+        return recording
+
+    for name, (mod, attr) in sites.items():
+        setattr(mod, attr, recorder(name, getattr(mod, attr)))
     try:
         yield out
     finally:
-        for h in hooks:
-            h.remove()
+        for mod, attr in sites.values():
+            setattr(mod, attr, relu)
 
 
 def with_relu_decisions(model: SihlModel, preactivations: dict) -> SihlModel:
-    """A copy of ``model`` whose ``head_relu_blocks`` pass their input where
+    """A copy of ``model`` whose ``head_relu_sites`` pass their input where
     ``preactivations`` (another forward's) are positive and give 0 elsewhere:
     the same branch of every ReLU as that forward."""
     model = copy.deepcopy(model)
-    for name, block in head_relu_blocks(model).items():
+    for name, (mod, attr) in head_relu_sites(model).items():
         keep = preactivations[name] > 0
-        block.act = lambda z, keep=keep: torch.where(keep.to(z.device), z, torch.zeros((), dtype=z.dtype))
+        setattr(mod, attr, lambda z, keep=keep: torch.where(keep.to(z.device), z, torch.zeros((), dtype=z.dtype)))
     return model
 
 
@@ -1258,7 +1565,7 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     by default; a list of targets, one a head, for several heads).  The parts
     of ``GRADIENT_LIMITS`` that the model has are held.
 
-    A ReLU on a head conv's raw output (``head_relu_blocks``) passes or
+    A ReLU on a head conv's raw output (``head_relu_sites``) passes or
     stops its whole gradient on the sign of a value that f32 rounds: where
     the card's f32 pre-activation and the CPU's f64 one fall on two sides
     of 0, the conv's weight gradient loses that pixel's whole term, and a
@@ -1292,8 +1599,8 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
     f32_grads = references[torch.float32][2]
     if z_cpu:
-        print(f"  {label}: {flips} of {sum(z.numel() for z in z_cpu.values())} ReLU decisions of the heads' "
-              f"conv → ReLU blocks differ between the card's f32 and the CPU's f64 forward, the farthest "
+        print(f"  {label}: {flips} of {sum(z.numel() for z in z_cpu.values())} ReLU decisions on the heads' "
+              f"raw conv outputs differ between the card's f32 and the CPU's f64 forward, the farthest "
               f"{kink:.3g} of its block's largest pre-activation from 0 (bound 1e-4)"
               + ("; the f64 step is taken again with the card's decisions" if flips else ""))
     if kink > 1e-4:
@@ -1307,33 +1614,41 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     stem_params = [n for n in grads if n.startswith("backbone.features.stem.")]
     if not stem_params or any(grads[n] is not None or c_grads[n] is not None for n in stem_params):
         raise AssertionError("the frozen stem got a gradient")
+    # integer buffers (the panoptic head's step counter) must be equal
+    counters = {n: (int(bufs[n]), int(b)) for n, b in c_bufs.items() if not b.is_floating_point()}
+    if any(card != cpu for card, cpu in counters.values()):
+        raise AssertionError(f"counters after the step differ (card, CPU): {counters}")
     stats_err = max(
-        float((bufs[n].cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-12)) for n, b in c_bufs.items()
+        float((bufs[n].cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-12))
+        for n, b in c_bufs.items() if b.is_floating_point()
     )
     stem_stats_err = max(
         float((bufs[n].cpu().double() - c_bufs[n]).abs().max() / c_bufs[n].abs().max().clamp_min(1e-12))
         for n in ("backbone.features.stem.bn.running_mean", "backbone.features.stem.bn.running_var")
     )
-    print(f"  {label}, 2 images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
+    print(f"  {label}, {images.shape[0]} images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
           f"{c_loss:.6f}; " + "; ".join(
               f"{k.replace('/train', '')} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
+          + (f"; counters after the step {counters}" if counters else "")
           + f"; running statistics' largest relative error {stats_err:.3g} (the stem's, through K4, "
           f"{stem_stats_err:.3g}); the stem got no gradient; CPU f64 step {t_cpu:.1f} s, f32 step "
           f"{references[torch.float32][4]:.1f} s")
     parts = {part: limit for part, limit in GRADIENT_LIMITS.items() if any(n.split(".")[0] == part for n in grads)}
-    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=stem_params)
+    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=stem_params,
+                             held_f32=MASK_BRANCH + decoder_prefixes(model))
     if failed:
         raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
     if stats_err > 1e-3 or stem_stats_err > 1e-5:
         raise AssertionError(f"running statistics differ by {stats_err}, the stem's by {stem_stats_err} (relative)")
 
 
-def grade_gradients(grads: dict, c_grads: dict, f32_grads: dict, parts: dict, skip=()) -> list:
+def grade_gradients(grads: dict, c_grads: dict, f32_grads: dict, parts: dict, skip=(), held_f32=MASK_BRANCH) -> list:
     """Holds the card's gradients of each part in ``parts`` (its limit)
     against the CPU's f64 ones, as ``check_train_slice`` does, and prints a
     line a part; ``f32_grads`` are the CPU's own f32 step's, which set the
-    mask branch's and the fusion weights' limits.  Returns the gradients out
-    of bounds as (card error, CPU f32 error, name), worst first within a
+    limits of the parameters under ``held_f32`` (the mask branch, and the
+    dense heads' decoders) and of the fusion weights.  Returns the gradients
+    out of bounds as (card error, CPU f32 error, name), worst first within a
     part."""
     failed = []
     for part, limit in parts.items():
@@ -1350,7 +1665,7 @@ def grade_gradients(grads: dict, c_grads: dict, f32_grads: dict, parts: dict, sk
              for n in names if n not in zeros),
             reverse=True,
         )
-        held = [r[2] for r in rows if r[2].startswith(MASK_BRANCH) and r[1] > limit]
+        held = [r[2] for r in rows if r[2].startswith(held_f32) and r[1] > limit]
         witnessed = [r[2] for r in rows if FUSION_WEIGHTS in r[2] and r[2].endswith(".weights") and r[1] > limit]
         limits = [GRADIENT_LIMITS["neck"] if r[2] in held else 2 * r[1] if r[2] in witnessed else limit for r in rows]
         within = sum(r[0] <= lim for r, lim in zip(rows, limits))
@@ -1718,8 +2033,9 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = before
 
 
-def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/map_50") -> dict:
-    """Phases 20-22 and 27: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
+def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/map_50",
+              param_tol: float = 1e-5) -> dict:
+    """Phases 20-22, 27, 32 and 37: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
     (16 images at 640 px, level 1 frozen, bench.py's optimizer, EMA 0.999),
     validating on both batches every 2 steps and saving a checkpoint every
     2; then one ``validate`` between launch-count reads, which must launch
@@ -1727,8 +2043,9 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
     running statistics as they were; the final save restored into a freshly
     built trainer, its ``state_dict`` bitwise the saved one; one more step
     on ``batches[0]`` in both (cuDNN deterministic): the loss bitwise equal,
-    every parameter within 1e-5 (a tenth of the learning rate: the weight
-    gradients may sum in another order); ``use_ema_params`` then
+    every parameter within ``param_tol`` (1e-5, a tenth of the learning
+    rate: the weight gradients may sum in another order; see
+    ``DENSE_PARAM_TOL`` for the dense models); ``use_ema_params`` then
     ``predict`` bitwise a model loaded from the EMA shadow.  Prints validate
     images/s (with the time of the heads' ``validation_end`` on the host,
     the COCO mAP of a detector, apart), fit steps/s, fit's ``metric`` and
@@ -1807,7 +2124,7 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
         ema_model.load_state_dict({**model.state_dict(), **trainer.ema_params})
         with torch.no_grad():
             want = ema_model.eval()(train_batch[0])[0]
-    if not torch.equal(loss, other_loss) or param_err > 1e-5:
+    if not torch.equal(loss, other_loss) or param_err > param_tol:
         raise AssertionError(f"{label}: the step after the restore gives loss {float(other_loss)} against "
                              f"{float(loss)}, parameters apart by {param_err}")
     if not all(torch.equal(g, w) for g, w in zip(served, want)):
@@ -1853,6 +2170,60 @@ def classifier_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     launches["classifier_validate"] = fit_phase(
         build_classifier, [classifier_batch(BATCH), classifier_batch(BATCH, seed=4)], ("stem_conv_stats",),
         "classifier fit", metric="head0/valid/accuracy")
+    return launches
+
+
+DENSE_KERNELS = ("upsample_add", "stem_conv_stats")
+# The dense heads' decoders upscale by bilinear resizes, whose backward on
+# the card adds into its gradient with atomics, in another order each run:
+# two equal steps give gradients that differ in their last bits, and AdamW
+# turns a gradient that is rounding noise into a step of up to the learning
+# rate either way.  So after the restore their parameters are held within
+# twice the learning rate (2e-4), the loss still bitwise.
+DENSE_PARAM_TOL = 2 * OPTIMIZER["optimizer_kwargs"]["lr"]
+PANOPTIC_SERVE = ("fused_mlp", "upsample_add", "dynconv_decode", "stem_conv_stats")
+PANOPTIC_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode",
+                  "dynconv_decode_backward", "stem_conv_stats")
+PANOPTIC_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "dynconv_decode", "stem_conv_stats")
+
+
+def dense_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 28-32, the dense model (``build_dense``): the f32 serving slice
+    against the CPU, three bf16 requests, the f32 training slice against f64
+    on the CPU, ten bf16 steps and the fit; K4 and K3 launch in each.
+    Returns the launch counts of serving, training and validation."""
+    model = build_dense(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_dense_slice(model, gen)
+    launches = {"dense_serve": serve_phase(model, build_dense, cuda_gen, DENSE_KERNELS, "dense serving")}
+    check_train_slice(model, gen, build_dense, dense_batch(4, seed=1), "dense train slice")
+    del model
+    launches["dense_train"] = train(build_dense, dense_batch(BATCH), DENSE_KERNELS, label="dense training")
+    launches["dense_validate"] = fit_phase(
+        build_dense, [dense_batch(BATCH), dense_batch(BATCH, seed=4)], DENSE_KERNELS, "dense fit",
+        metric="head0/valid/mean_iou", param_tol=DENSE_PARAM_TOL)
+    return launches
+
+
+def panoptic_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 33-37, the panoptic model (``build_panoptic``), as phases 28-32;
+    its instance branch runs K1f, K1b, K2, K5f and K5b, its step counter
+    rides in the checkpoint.  Returns the launch counts of serving, training
+    and validation."""
+    model = build_panoptic(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_panoptic_slice(model, gen)
+    launches = {"panoptic_serve": serve_phase(model, build_panoptic, cuda_gen, PANOPTIC_SERVE, "panoptic serving")}
+    check_train_slice(model, gen, build_panoptic, panoptic_batch(4, seed=1, mask_size=SIZE // 2),
+                      "panoptic train slice")
+    del model
+    launches["panoptic_train"] = train(build_panoptic, panoptic_batch(BATCH), PANOPTIC_TRAIN,
+                                       label="panoptic training")
+    launches["panoptic_validate"] = fit_phase(
+        build_panoptic, [panoptic_batch(BATCH), panoptic_batch(BATCH, seed=4)], PANOPTIC_VALIDATE, "panoptic fit",
+        metric="head0/valid/pq", param_tol=DENSE_PARAM_TOL)
     return launches
 
 
@@ -1981,6 +2352,17 @@ def main() -> None:
     launches.update(classifier_phases(gen, cuda_gen))
     print(f"phases 23-27 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 28-37: the dense model, then the panoptic model; K3 merges 128
+    # channels on both, the panoptic head's instance branch runs K1 and K5 at
+    # the instance model's shapes (80 classes, 100 instances, 256 positives)
+    t0 = time.perf_counter()
+    kernels["upsample_add@fpn128"] = k3_cases(cuda_gen, DENSE_WIDTH)
+    launches.update(dense_phases(gen, cuda_gen))
+    print(f"phases 28-32 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(panoptic_phases(gen, cuda_gen))
+    print(f"phases 33-37 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -2058,6 +2440,31 @@ def main() -> None:
          "stem_conv_stats"),
         ("stem_conv_stats@classifier_validate", "classifier_validate", "stem_conv_stats", "cuda", stem_cu,
          stem_py, "stem_conv_stats"),
+        *((f"upsample_add@{path}", path, "upsample_add@fpn128", "triton", fusion_tr, fusion_py, "upsample_add")
+          for path in ("dense_serve", "dense_train", "dense_validate", "panoptic_serve", "panoptic_train",
+                       "panoptic_validate")),
+        *((f"stem_conv_stats@{path}", path, "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats")
+          for path in ("dense_serve", "dense_train", "dense_validate", "panoptic_serve", "panoptic_train",
+                       "panoptic_validate")),
+        ("fused_mlp@panoptic_serve", "panoptic_serve", "fused_mlp@instance_serve", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("dynconv_decode@panoptic_serve", "panoptic_serve", "dynconv_decode", "cuda", dyn_cu, f"{dyn_py}:257",
+         "dynconv_decode"),
+        ("fused_mlp@panoptic_train", "panoptic_train", "fused_mlp@instance_train", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("fused_mlp_backward@panoptic_train", "panoptic_train", "fused_mlp_backward@instance_train", "cuda",
+         mlp_cu, f"{mlp_py}:365", "fused_mlp_backward"),
+        ("row_kth@panoptic_train", "panoptic_train", "row_kth@instance_train", "cuda", topk_cu, topk_py, "row_kth"),
+        ("dynconv_decode@panoptic_train", "panoptic_train", "dynconv_decode@train", "cuda", dyn_cu,
+         f"{dyn_py}:257", "dynconv_decode"),
+        ("dynconv_decode_backward@panoptic_train", "panoptic_train", "dynconv_decode_backward", "cuda", dyn_cu,
+         f"{dyn_py}:290", "dynconv_decode_backward"),
+        ("fused_mlp@panoptic_validate", "panoptic_validate", "fused_mlp@instance_validate", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("row_kth@panoptic_validate", "panoptic_validate", "row_kth@instance_train", "cuda", topk_cu, topk_py,
+         "row_kth"),
+        ("dynconv_decode@panoptic_validate", "panoptic_validate", "dynconv_decode@validate", "cuda", dyn_cu,
+         f"{dyn_py}:257", "dynconv_decode"),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -7,10 +7,14 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --train              # bench.py's training step, 16 images at 640 px
     python3 profile_serving.py --instance [--train] # the instance-segmentation model instead
     python3 profile_serving.py --quad [--train]     # the quadrilateral detector instead
+    python3 profile_serving.py --dense [--train]    # the dense model (semantic segmentation + depth)
+    python3 profile_serving.py --panoptic [--train] # the panoptic model
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
 with ``--quad``, its quadrilateral detector, trained on 5-20 quads per image;
+with ``--dense`` and ``--panoptic`` its dense models, trained on the
+targets of ``chip_smoke.dense_batch`` and ``panoptic_batch``;
 random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
@@ -35,8 +39,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, OPTIMIZER, SIZE, build_flagship, build_instance, build_quad, card_name, instance_batch,
-    quad_batch, randomize_norms_and_biases, training_batch,
+    BATCH, OPTIMIZER, SIZE, build_dense, build_flagship, build_instance, build_panoptic, build_quad, card_name,
+    dense_batch, instance_batch, panoptic_batch, quad_batch, randomize_norms_and_biases, training_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -55,7 +59,12 @@ OP_CLASSES = (
     ("max pool", ("aten::max_pool2d_with_indices", "aten::max_pool2d_with_indices_backward")),
     ("dtype casts and copies", ("aten::copy_",)),
     ("AdamW (foreach)", ("aten::_foreach_*",)),
-    ("mask-target resize", ("aten::_upsample_bilinear2d_aa",)),
+    ("antialiased bilinear resize", ("aten::_upsample_bilinear2d_aa", "aten::_upsample_bilinear2d_aa_backward")),
+    ("nearest-exact resize", ("aten::_upsample_nearest_exact2d", "aten::_upsample_nearest_exact2d_backward")),
+    ("softmax and log-softmax", ("aten::_softmax", "aten::_log_softmax", "aten::_softmax_backward_data",
+                                 "aten::_log_softmax_backward_data")),
+    ("max, min and argmax", ("aten::amax", "aten::amin", "aten::argmax", "aten::max", "aten::min")),
+    ("one-hot (scatter, fill)", ("aten::scatter_", "aten::fill_", "aten::zero_")),
     ("mask comparisons and any", ("aten::gt", "aten::any")),
     ("reflect pad (blur-pool)", ("aten::reflection_pad2d",)),
     ("nearest upsample", ("aten::upsample_nearest2d", "aten::upsample_nearest2d_backward")),
@@ -92,10 +101,14 @@ def main() -> None:
     models = parser.add_mutually_exclusive_group()
     models.add_argument("--instance", action="store_true", help="the instance-segmentation model")
     models.add_argument("--quad", action="store_true", help="the quadrilateral detector")
+    models.add_argument("--dense", action="store_true", help="the dense model (semantic segmentation + depth)")
+    models.add_argument("--panoptic", action="store_true", help="the panoptic model")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
         else ("quadrilateral detection", build_quad, quad_batch) if args.quad
+        else ("dense", build_dense, dense_batch) if args.dense
+        else ("panoptic", build_panoptic, panoptic_batch) if args.panoptic
         else ("flagship", build_flagship, training_batch)
     )
     train = args.train

@@ -13,14 +13,18 @@ from torch import nn
 from sihl_tpu_torch.layers.convblocks import ConvTranspose2d
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+# plain ``nnx.Variable`` leaves that the port keeps as buffers of the same
+# name and dtype: the panoptic head's step counter (int32)
+_VARIABLE_LEAVES = {"step_counter"}
 
 
 def state_dict_from_flat(
     flat: Dict[str, np.ndarray], module: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
     """Turn the ``nnx.Param`` and ``nnx.BatchStat`` leaves of a JAX model,
-    as numpy arrays under dotted nnx paths (``"neck.smooth.0.conv.kernel"``),
-    into a state dict for the port's ``load_state_dict(strict=True)``.
+    and its ``step_counter`` variables, as numpy arrays under dotted nnx
+    paths (``"neck.smooth.0.conv.kernel"``), into a state dict for the
+    port's ``load_state_dict(strict=True)``.
 
     * conv ``kernel`` (H, W, I, O) → ``weight`` (O, I, H, W);
     * transposed-conv ``kernel`` (H, W, I, O) → ``weight`` (I, O, H, W),
@@ -32,7 +36,9 @@ def state_dict_from_flat(
     * Linear ``kernel`` (in, out) → ``weight`` (out, in);
     * BatchNorm ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
     * GroupNorm and LayerNorm ``scale/bias`` → ``weight/bias``;
-    * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is.
+    * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is;
+    * ``step_counter`` (an ``nnx.Variable``, int32) → the buffer
+      ``step_counter``, its dtype kept.
 
     Without ``module`` every 4-D kernel takes the conv rule: a transposed
     conv's weight then comes out in the conv's axis order, which
@@ -45,6 +51,9 @@ def state_dict_from_flat(
     out = {}
     for path, value in flat.items():
         prefix, _, leaf = path.rpartition(".")
+        if leaf in _VARIABLE_LEAVES:
+            out[path] = torch.from_numpy(np.array(value, order="C"))
+            continue
         value = np.asarray(value, dtype=np.float32)
         if leaf == "kernel":
             if value.ndim == 4 and prefix in transposed:

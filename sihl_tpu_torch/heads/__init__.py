@@ -1,21 +1,30 @@
 """Task heads of the port."""
 
 from sihl_tpu_torch.heads.base import Head, TensorShape
+from sihl_tpu_torch.heads.depth_estimation import DepthEstimation
 from sihl_tpu_torch.heads.instance_segmentation import InstanceSegmentation
 from sihl_tpu_torch.heads.multiclass_classification import MulticlassClassification, soft_ordinal_category
 from sihl_tpu_torch.heads.multilabel_classification import MultilabelClassification
 from sihl_tpu_torch.heads.object_detection import ObjectDetection
+from sihl_tpu_torch.heads.panoptic_segmentation import PanopticSegmentation, panoptic_targets_from_maps
 from sihl_tpu_torch.heads.quadrilateral_detection import QuadrilateralDetection
 from sihl_tpu_torch.heads.regression import Regression
+from sihl_tpu_torch.heads.semantic_segmentation import SPPM, UAFM, SemanticSegmentation
 
 __all__ = [
+    "DepthEstimation",
     "Head",
     "InstanceSegmentation",
     "MulticlassClassification",
     "MultilabelClassification",
     "ObjectDetection",
+    "PanopticSegmentation",
     "QuadrilateralDetection",
     "Regression",
+    "SPPM",
+    "SemanticSegmentation",
     "TensorShape",
+    "UAFM",
+    "panoptic_targets_from_maps",
     "soft_ordinal_category",
 ]

@@ -56,8 +56,15 @@ def resize_linear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     """Resize the last two axes of (B, C, H, W) to ``size`` as
     ``jax.image.resize(method="linear")`` does: half-pixel centres and, when
     shrinking, a triangle filter widened by the scale (antialiasing), which
-    ``F.interpolate``'s antialiased bilinear mode computes."""
-    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=False, antialias=True)
+    ``F.interpolate``'s antialiased bilinear mode computes.  An upscaling by
+    whole factors widens nothing, and there the plain bilinear mode computes
+    the same weights (equal within f64 rounding) far faster: on the card the
+    antialiased mode's backward took 55% of a dense-model training step (the
+    decoders' 2x upscalers and SPPM's growths back to the level's size)."""
+    size = tuple(size)
+    (h, w), (oh, ow) = x.shape[2:], size
+    whole_upscale = oh >= h and ow >= w and oh % h == 0 and ow % w == 0
+    return F.interpolate(x, size=size, mode="bilinear", align_corners=False, antialias=not whole_upscale)
 
 
 def avg_pool2d(

@@ -3,7 +3,7 @@ every loss upcasts its inputs explicitly, as the reference computes its
 losses with autocast off (f64 inputs stay f64)."""
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -20,20 +20,26 @@ def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor
 def cross_entropy(
     logits: torch.Tensor,
     targets: torch.Tensor,
-    label_smoothing: float = 0.0,
+    label_smoothing: Union[float, torch.Tensor] = 0.0,
     ignore_index: Optional[int] = None,
     dim: int = -1,
 ) -> torch.Tensor:
     """Elementwise categorical cross-entropy over integer targets, with no
     reduction; entries equal to ``ignore_index`` give 0 (torch
-    ``F.cross_entropy(reduction="none")`` with optional label smoothing)."""
+    ``F.cross_entropy(reduction="none")`` with optional label smoothing).
+
+    Whether to smooth is decided from the argument's type, as the JAX
+    package decides it: a Python 0 skips the blend, and any tensor takes it
+    (a schedule computed on the device, such as the panoptic head's decay),
+    with no host sync and no branch on its value."""
     logits = upcast(logits)
     num_classes = logits.shape[dim]
     log_probs = F.log_softmax(logits, dim=dim)
     valid = torch.ones_like(targets, dtype=torch.bool) if ignore_index is None else targets != ignore_index
     safe_targets = torch.where(valid, targets, 0).long()
     one_hot = F.one_hot(safe_targets, num_classes).to(logits.dtype).movedim(-1, dim)
-    if label_smoothing != 0.0:
+    static_zero = isinstance(label_smoothing, (int, float)) and label_smoothing == 0.0
+    if not static_zero:
         one_hot = one_hot * (1.0 - label_smoothing) + label_smoothing / num_classes
     loss = -(one_hot * log_probs).sum(dim=dim)
     return torch.where(valid, loss, 0.0)

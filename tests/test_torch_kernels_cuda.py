@@ -815,6 +815,120 @@ def test_classification_model_with_a_frozen_stem_runs_k4_in_eval_on_card():
         torch.testing.assert_close(g.cpu(), w, atol=1e-4, rtol=1e-4)
 
 
+def _small_dense_models(gen: torch.Generator, device: str):
+    """resnet18 with level 1 frozen → FPN 32 over levels 3-5 → (semantic
+    segmentation with 7 classes and depth estimation on one trunk, 32 wide)
+    and (panoptic segmentation with 3 stuff and 4 thing classes, 256 wide:
+    the fused-MLP kernel takes 256-wide rows)."""
+    from sihl_tpu_torch import Backbone, SihlModel
+    from sihl_tpu_torch.heads import DepthEstimation, PanopticSegmentation, SemanticSegmentation
+    from sihl_tpu_torch.layers import FPN
+
+    models = []
+    for kind in ("dense", "panoptic"):
+        bb = Backbone("resnet18", generator=gen, device=device)
+        bb.set_frozen_levels(1)
+        neck = FPN(bb.out_channels, 32, bottom_level=3, top_level=5, generator=gen, device=device)
+        c = neck.out_channels
+        if kind == "dense":
+            heads = [SemanticSegmentation(c, 7, num_channels=32, ignore_index=255, generator=gen, device=device),
+                     DepthEstimation(c, 0.1, 10.0, num_channels=32, num_bins=16, generator=gen, device=device)]
+        else:
+            heads = [PanopticSegmentation(c, 3, 4, max_instances=16, max_targets=4,
+                                          soft_label_decay_steps=10, ignore_index=255, generator=gen, device=device)]
+        models.append(SihlModel(bb, neck, heads))
+    return models
+
+
+def _dense_targets(kind: str, gen: torch.Generator, size: int = 128):
+    """The dense model's semantic classes (void rows on top) and depths with
+    validity masks; or the panoptic model's stuff classes under three
+    rectangular things, with their padded classes and masks."""
+    if kind == "dense":
+        semantic = torch.randint(0, 7, (2, size, size), generator=gen)
+        semantic[:, :8] = 255
+        depth = torch.rand(2, size, size, generator=gen) * 9.9 + 0.1
+        masks = torch.rand(2, size, size, generator=gen) > 0.1
+        return [semantic, {"targets": torch.where(masks, depth, 0.0), "masks": masks}]
+    semantic = torch.randint(0, 3, (2, size, size), generator=gen)
+    semantic[:, :8] = 255
+    classes = torch.tensor([[0, 3, -1, -1], [1, -1, -1, -1]])
+    masks = torch.zeros(2, 4, size, size)
+    masks[0, 0, 8:40, 10:36] = masks[0, 1, 60:90, 64:120] = masks[1, 0, 30:94, 40:78] = 1.0
+    for b, t in ((0, 0), (0, 1), (1, 0)):
+        semantic[b][masks[b, t] > 0] = 3 + classes[b, t]
+    return {"semantic": semantic, "classes": classes, "masks": masks}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "panoptic"])
+def test_dense_heads_serve_and_train_through_the_kernels_on_card(kind):
+    """The dense heads' small models on the card: in full f32 the eval
+    forward equals the CPU's (class and instance maps exactly but at ties of
+    the CPU's top two semantic probabilities, under 1% of the pixels; scores
+    and depths within 1e-4), launching K4 and K3 (and K1f and K5f for the
+    panoptic head); one bf16 ``Trainer`` step launches every kernel of the
+    path (K1b, K2 and K5b too for the panoptic head), gives a finite loss
+    and moves the panoptic counter from 0 to 1."""
+    _need_card()
+    from sihl_tpu_torch.ops.fusion import fused_upsample_add as k3
+    from sihl_tpu_torch.training import Trainer
+
+    gen = torch.Generator().manual_seed(0)
+    cpu_model = _small_dense_models(gen, "cpu")[0 if kind == "dense" else 1].eval()
+    model = copy.deepcopy(cpu_model).cuda()
+    x = torch.rand(2, 3, 128, 128, generator=gen) * torch.tensor([0.5, 1.0])[:, None, None, None]
+    kernels = {"k3": k3, "k4": stem.stem_conv_stats, "k1f": fused_mlp.fused_mlps, "k5f": dynconv.dynamic_pointwise_decode}
+    for k in kernels.values():
+        k.launches = 0
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            got = model(x.cuda())
+            want = cpu_model(x)
+            feats = cpu_model.extract_features(x)
+            head = cpu_model.heads[0].semantic if kind == "panoptic" else cpu_model.heads[0]
+            probs = torch.softmax(head.get_logits(feats), dim=1).topk(2, dim=1).values
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+    launched = {name: k.launches for name, k in kernels.items()}
+    assert launched["k3"] == 2 and launched["k4"] == 1, launched
+    assert (launched["k1f"] > 0 and launched["k5f"] > 0) == (kind == "panoptic"), launched
+    tie = (probs[:, 0] - probs[:, 1]) / probs[:, 0] <= 1e-5
+    if kind == "dense":
+        (scores, classes), depth = got
+        (w_scores, w_classes), w_depth = want
+        tie = F.interpolate(tie[:, None].float(), size=classes.shape[1:], mode="nearest")[:, 0] > 0
+        differ = classes.cpu() != w_classes
+        torch.testing.assert_close(depth.cpu(), w_depth, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(scores.cpu()[~differ], w_scores[~differ], atol=1e-4, rtol=1e-4)
+    else:
+        (got,), (want,) = got, want
+        differ = (got[0].cpu() != want[0]) | (got[1].cpu() != want[1])
+        torch.testing.assert_close(got[3].cpu(), want[3], atol=1e-4, rtol=1e-4)
+    assert not (differ & ~tie).any() and differ.float().mean() < 1e-2
+
+    with compute_dtype_scope(torch.bfloat16):
+        model = _small_dense_models(torch.Generator().manual_seed(1), "cuda")[0 if kind == "dense" else 1]
+    trainer = Trainer(model, optimizer="adamw", optimizer_kwargs={"lr": 1e-4}, grad_clip=0.1)
+    targets = _dense_targets(kind, torch.Generator().manual_seed(2))
+    targets = [targets[0].cuda(), {k: v.cuda() for k, v in targets[1].items()}] if kind == "dense" else {
+        k: v.cuda() for k, v in targets.items()}
+    step_kernels = dict(kernels, k1b=fused_mlp.fused_mlps_backward, k2=topk.row_best_and_kth,
+                        k5b=dynconv.dynamic_pointwise_decode_backward)
+    for k in step_kernels.values():
+        k.launches = 0
+    loss = trainer.training_step(x.cuda(), targets)["trainer/loss"]
+    assert torch.isfinite(loss)
+    launched = {name: k.launches for name, k in step_kernels.items()}
+    expected = ("k3", "k4") + (("k1f", "k1b", "k2", "k5f", "k5b") if kind == "panoptic" else ())
+    assert all(launched[k] > 0 for k in expected) and not any(
+        launched[k] for k in step_kernels if k not in expected), launched
+    if kind == "panoptic":
+        assert model.heads[0].step_counter.dtype == torch.int32 and int(model.heads[0].step_counter) == 1
+
+
 def test_card_tests_import_no_jax():
     """This file runs where JAX is absent: nothing it imports loads JAX."""
     code = "import sys, test_torch_kernels_cuda; print(sorted(m for m in ('jax', 'flax') if m in sys.modules))"

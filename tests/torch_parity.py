@@ -17,8 +17,9 @@ set_default_device("cpu")
 
 
 def flat_state(module) -> dict:
-    """The module's Param and BatchStat leaves as numpy arrays under dotted paths."""
-    state = nnx.state(module, nnx.Any(nnx.Param, nnx.BatchStat))
+    """The module's Param and BatchStat leaves, and the panoptic head's
+    ``step_counter`` variable, as numpy arrays under dotted paths."""
+    state = nnx.state(module, nnx.Any(nnx.Param, nnx.BatchStat, nnx.PathContains("step_counter")))
     return {
         ".".join(str(p) for p in path): np.asarray(v[...])
         for path, v in nnx.to_flat_state(state)
