@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Six models run through the port's hand-written kernels, with random
+Eight models run through the port's hand-written kernels, with random
 weights from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -21,8 +21,15 @@ frozen, FPN 128 channels over levels 3-5, SemanticSegmentation with COCO
 2017 panoptic's 133 classes and void 255, and DepthEstimation on 0.1-10 m
 with 256 bins, on one trunk) and the panoptic model (the same trunk and
 neck, PanopticSegmentation with 53 stuff and 80 thing classes, 100 targets,
-label smoothing decaying over 90,000 steps).  Every training step freezes
-level 1, so its stem runs K4.  Phases, each of which raises on failure:
+label smoothing decaying over 90,000 steps), the canonical detector of
+``examples/object_detection.py`` (ResNet-50, HybridEncoder 256 channels over
+levels 3-5, ObjectDetection with 80 classes, the example's multistep
+schedule) and the multitask model of ``examples/multitask.py`` (ResNet-50,
+FPN 128 channels over levels 3-5, ObjectDetection with 10 classes and 20
+targets, TextRecognition with 30 tokens up to 12 long, DepthEstimation on
+0.1-10 m and MetricLearning with 8 identities at level 2).  Every training
+step freezes level 1, so its stem runs K4.  Phases, each of which raises on
+failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -123,7 +130,22 @@ level 1, so its stem runs K4.  Phases, each of which raises on failure:
    step counter equal on both sides after it), ten bf16 steps on masks
    (16, 100, 640, 640) (K1f, K1b, K2, K5f, K5b, K3 and K4 must launch), and
    the fit, validating with PQ on the host; its checkpoint carries the
-   step counter.
+   step counter;
+38-42. the same five for the canonical detector, after K1f, K1b and K2 at
+   the shapes the two new models add (``new_path_kernels``): the f32
+   serving slice as phase 4 (K4 and K1f must launch), three bf16 requests,
+   the f32 train slice against f64 on the CPU, ten bf16 steps (K1f, K1b,
+   K2 and K4 must launch) and the fit, validating with COCO box mAP, all
+   on the example's multistep schedule;
+43-47. the same five for the multitask model: the f32 slice with the text
+   head's dropout at 0 (detections as phase 4, text tokens equal but at
+   ties of the top two logits, depths and embeddings within 1e-5; K1f, K3
+   and K4 must launch), three bf16 requests, the f32 train slice against
+   f64 (dropout 0; the text decoder's feed-forward ReLUs among the
+   decisions taken from the card), ten bf16 steps with the example's
+   dropout 0.1 (K1f, K1b, K2, K3 and K4 must launch), and the fit, whose
+   validations retrieve against the metric head's index of a third batch;
+   its checkpoint carries the text head's dropout stream.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -149,12 +171,15 @@ import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
-from sihl_tpu_torch.heads import (DepthEstimation, InstanceSegmentation, MulticlassClassification,
+from sihl_tpu_torch.heads import (DepthEstimation, InstanceSegmentation, MetricLearning, MulticlassClassification,
                                   MultilabelClassification, ObjectDetection, PanopticSegmentation,
-                                  QuadrilateralDetection, Regression, SemanticSegmentation, anchors)
-from sihl_tpu_torch.layers import FPN, BiFPN
+                                  QuadrilateralDetection, Regression, SemanticSegmentation, TextRecognition, UAFM,
+                                  anchors)
+from sihl_tpu_torch.heads.semantic_segmentation import channel_max
+from sihl_tpu_torch.layers import FPN, BiFPN, HybridEncoder
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, ConvNormAct
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
+from sihl_tpu_torch.layers.transformer import _FeedForward
 from sihl_tpu_torch.ops.image import interpolate
 from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, mlp_pipeline, stem, stem_variants, topk
 from sihl_tpu_torch.ops.relu import relu
@@ -193,6 +218,14 @@ CARS_CLASSES, COCO_LABELS, VALUE_RANGE = 196, 80, (0.0, 100.0)
 # bounds; panoptic smoothing decaying over 90,000 steps
 DENSE_WIDTH, STUFF_CLASSES, THING_CLASSES, VOID = 128, 53, 80, 255
 DEPTH_RANGE, DECAY_STEPS = (0.1, 10.0), 90_000
+# the canonical detector (examples/object_detection.py:21-33): HybridEncoder 256
+# wide over levels 3-5 (anchors as the instance model's), the example's
+# multistep schedule
+HYBRID_SCHEDULE = dict(scheduler="multistep", scheduler_kwargs={"milestones": [60_000, 80_000], "gamma": 0.1})
+# the multitask model (examples/multitask.py:17-36): FPN 128 wide over levels
+# 3-5; detection of 10 classes, 20 targets; text of 30 tokens, up to 12 long,
+# at level 3; depth as the dense model's; 8 identities at level 2
+MT_CLASSES, MT_TARGETS, MT_TOKENS, MT_LENGTH, MT_IDENTITIES = 10, 20, 30, 12, 8
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -286,6 +319,46 @@ def build_panoptic(generator: torch.Generator, device=None) -> SihlModel:
         ignore_index=VOID, generator=generator, device=device,
     )
     return SihlModel(backbone, neck, [head])
+
+
+def build_hybrid(generator: torch.Generator, device=None) -> SihlModel:
+    """The canonical detector (``examples/object_detection.py:21-33``, upstream's
+    COCO configuration): ResNet-50 with level 1 frozen, as the example's
+    ``--pretrained`` run freezes it → HybridEncoder 256 wide over levels 3-5 →
+    ObjectDetection (80 classes, levels 3-5, 100 targets)."""
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = HybridEncoder(backbone.out_channels, WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=5, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
+def build_multitask(generator: torch.Generator, device=None, dropout: float = 0.1) -> SihlModel:
+    """``examples/multitask.py:22-36``'s model at the 640 px ResNet-50
+    protocol of the dense model: ResNet-50 with level 1 frozen → FPN 128 wide
+    over levels 3-5 → ObjectDetection (10 classes, 20 targets),
+    TextRecognition (30 tokens, up to 12, level 3, dropout ``dropout``, the
+    example's 0.1 by default), DepthEstimation (0.1-10 m) and MetricLearning
+    (8 identities, level 2), each at its defaults otherwise."""
+    backbone = Backbone("resnet50", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, DENSE_WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    c = neck.out_channels
+    heads = [
+        ObjectDetection(c, MT_CLASSES, max_targets=MT_TARGETS, generator=generator, device=device),
+        TextRecognition(c, MT_TOKENS, MT_LENGTH, level=3, dropout=dropout, generator=generator, device=device),
+        DepthEstimation(c, *DEPTH_RANGE, generator=generator, device=device),
+        MetricLearning(c, MT_IDENTITIES, level=2, generator=generator, device=device),
+    ]
+    return SihlModel(backbone, neck, heads)
+
+
+def build_multitask_still(generator: torch.Generator, device=None) -> SihlModel:
+    """``build_multitask`` with the text head's dropout at 0, for the f32
+    slices against the CPU: the card's and the CPU's random streams cannot
+    agree."""
+    return build_multitask(generator, device, dropout=0.0)
 
 
 def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -467,6 +540,36 @@ def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda")
     classes = torch.from_numpy(classes).to(device)
     classes = torch.where((ids[:, None] == slots).flatten(2).any(dim=2), classes, -1)
     return images.to(device), {"semantic": semantic, "classes": classes, "masks": masks}
+
+
+def multitask_batch(batch: int, seed: int = 0, device="cuda"):
+    """Images (``varied_images``: the text head's train-mode BatchNorm runs on
+    each image's mean over the pixels) and the multitask model's four
+    targets from a seeded numpy generator, as ``examples/multitask.py:39-61``
+    draws them: 1-20 boxes an image (bench.py's sizes, classes 0-9, padded
+    to 20), texts of 1-11 tokens in [0, 30) padded with 30 to 12, depths of
+    0.1 + 9.9 x the image's mean over its channels (over 1.75) with about 10%
+    of the pixels invalid, and identities in [0, 8)."""
+    rng = np.random.RandomState(seed)
+    images = varied_images(rng, batch)
+    classes = np.full((batch, MT_TARGETS), -1, np.int64)
+    gt = np.zeros((batch, MT_TARGETS, 4), np.float32)
+    texts = np.full((batch, MT_LENGTH), MT_TOKENS, np.int64)
+    for b in range(batch):
+        n = rng.randint(1, MT_TARGETS + 1)
+        classes[b, :n] = rng.randint(0, MT_CLASSES, n)
+        xy = rng.rand(n, 2) * (SIZE - 64)
+        wh = rng.rand(n, 2) * 128 + 8
+        gt[b, :n] = np.concatenate([xy, xy + wh], axis=1)
+        length = rng.randint(1, MT_LENGTH)
+        texts[b, :length] = rng.randint(0, MT_TOKENS, length)
+    depth = images.mean(dim=1) / 1.75 * 9.9 + DEPTH_RANGE[0]
+    masks = torch.from_numpy(rng.rand(batch, SIZE, SIZE) > 0.1)
+    depth = torch.where(masks, depth, 0.0)
+    ids = torch.from_numpy(rng.randint(0, MT_IDENTITIES, batch))
+    det = {"classes": torch.from_numpy(classes).to(device), "boxes": torch.from_numpy(gt).to(device)}
+    return images.to(device), [det, torch.from_numpy(texts).to(device),
+                               {"targets": depth.to(device), "masks": masks.to(device)}, ids.to(device)]
 
 
 def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -1096,8 +1199,10 @@ def set_loc_bias(model: SihlModel, images: torch.Tensor, head=None, live: int = 
     return float(bias)
 
 
-def check_slice(model: SihlModel, gen: torch.Generator) -> None:
-    """Phase 4: the f32 serving slice on the card against the CPU (plain versions)."""
+def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", kernels=()) -> None:
+    """Phases 4 and 38: the f32 serving slice of a detector on the card
+    against the CPU (plain versions); every kernel in ``kernels`` must
+    launch on the card."""
     images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
     with torch.no_grad():
         loc_bias = set_loc_bias(model, images.cuda())
@@ -1105,16 +1210,20 @@ def check_slice(model: SihlModel, gen: torch.Generator) -> None:
         t0 = time.perf_counter()
         (c_num, c_scores, c_classes, c_boxes), c_idx = detect_with_indices(cpu_model, images)
         t_cpu = time.perf_counter() - t0
+        reset_counts()
         (num, scores, classes, boxes_), idx = detect_with_indices(model, images.cuda())
+        launches = read_counts(kernels)
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"the {label} forward launched {launches}")
     agree = idx == c_idx
     share = float(agree.float().mean())
     box_err = float((boxes_ - c_boxes).abs().amax(dim=2)[agree].max())
     score_err = float((scores - c_scores).abs().max())
     score_rel_err = float(((scores - c_scores).abs() / c_scores.abs()).max())
-    print(f"  slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
+    print(f"  {label} f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
           f"{num.tolist()} cpu {c_num.tolist()}; top-k indices agree in {share:.4f} of slots; "
           f"max box err {box_err:.3g} px; max score err {score_err:.3g} (relative "
-          f"{score_rel_err:.3g}); CPU forward {t_cpu:.1f} s")
+          f"{score_rel_err:.3g}); CPU forward {t_cpu:.1f} s" + (f"; kernel launches {launches}" if launches else ""))
     if not 0 < int(c_num.sum()) < 2 * MAX_INSTANCES:
         raise AssertionError(f"num_instances {c_num.tolist()} leave nothing to compare")
     if not torch.equal(num, c_num):
@@ -1198,9 +1307,10 @@ def check_quad_slice(model: SihlModel, gen: torch.Generator) -> None:
 
 def check_outputs(head, outputs) -> None:
     """One head's outputs at batch 16 and 640 px: the shapes ``output_shapes``
-    gives, finite, class, label and instance ids in range, probabilities in
-    [0, 1], multilabel scores in descending order, values and depths within
-    the head's bounds."""
+    gives, finite, class, label, instance and token ids in range,
+    probabilities in [0, 1] (a text head's scores are logits), multilabel
+    scores in descending order, values and depths within the head's bounds,
+    embeddings of unit length."""
     named = dict(zip(head.output_shapes, outputs if isinstance(outputs, (tuple, list)) else (outputs,)))
     for name, shape in head.output_shapes.items():
         if tuple(named[name].shape) != expected_shape(shape):
@@ -1214,12 +1324,17 @@ def check_outputs(head, outputs) -> None:
         "class_maps": head.num_stuff_classes + head.num_thing_classes if panoptic else getattr(head, "num_classes", None),
         "instance_maps": getattr(head, "max_instances", 0) + 1,
     }
+    if isinstance(head, TextRecognition):  # its scores are each position's largest logit
+        counts["tokens"] = head.num_tokens + 1
+        named.pop("scores")
     for name, count in counts.items():
         if name in named and not ((0 <= named[name]).all() and (named[name] < count).all()):
             raise AssertionError(f"{name} out of [0, {count})")
     for name in ("masks", "scores", "score_maps"):
         if name in named and not ((0 <= named[name]).all() and (named[name] <= 1).all()):
             raise AssertionError(f"{name} out of [0, 1]")
+    if "embeddings" in named and ((named["embeddings"].norm(dim=1) - 1).abs() > 1e-5).any():
+        raise AssertionError("embeddings not of unit length")
     if "labels" in named and (named["scores"][:, 1:] > named["scores"][:, :-1]).any():
         raise AssertionError("multilabel scores out of descending order")
     for name in ("values", "depth_maps"):
@@ -1387,6 +1502,71 @@ def check_panoptic_slice(model: SihlModel, gen: torch.Generator) -> None:
         raise AssertionError(f"score err {score_err} out of bounds")
 
 
+def multitask_parts(model: SihlModel, images: torch.Tensor):
+    """From one trunk pass: the detector's outputs and top-100 anchor indices,
+    the text head's scores, tokens and the relative gap between each
+    position's two largest f32 logits, the depth maps and the embeddings (on
+    the CPU)."""
+    det, text, depth, metric = model.heads
+    feats = model.extract_features(images)
+    flat = anchor_features(det, feats)
+    (loc,) = anchors.run_mlps(flat, [det.loc_head], num_valid=flat.shape[1])
+    order = torch.sort(loc[..., 0].float(), dim=1, descending=True, stable=True)[1][:, :MAX_INSTANCES]
+    top = text.logits(feats).float().topk(2, dim=2).values
+    gap = (top[..., 0] - top[..., 1]) / top[..., 0].abs().clamp_min(1e-12)
+    outputs = [*det(feats), *text(feats), depth(feats), metric(feats), order, gap]
+    return [t.cpu() for t in outputs]
+
+
+def check_multitask_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 43: the f32 multitask model (its text head's dropout at 0) on two
+    640 px images, on the card (the frozen stem through K4, the FPN's merges
+    through K3, the detector's MLPs through K1f) and on the CPU with the same
+    weights, the detector's loc bias set as phase 4 sets it: the detector as
+    phase 4 holds it; the text tokens equal but where the CPU's two largest
+    logits of a position lie within 1e-5 of each other (relative), the
+    scores (each position's largest logit) within 1e-4 of the largest
+    score; the depth maps within 1e-5 relative; the embeddings within 1e-5."""
+    images = varied_images(np.random.RandomState(int(torch.randint(2**31, (1,), generator=gen))), 2)
+    with torch.no_grad():
+        loc_bias = set_loc_bias(model, images.cuda())
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        c_num, c_scores, c_classes, c_boxes, c_tscores, c_tokens, c_depth, c_emb, c_idx, gap = multitask_parts(
+            cpu_model, images)
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        num, scores, classes, boxes_, tscores, tokens, depth, emb, idx, _ = multitask_parts(model, images.cuda())
+        launches = read_counts(("stem_conv_stats", "upsample_add", "fused_mlp"))
+    agree = idx == c_idx
+    share = float(agree.float().mean())
+    box_err = float((boxes_ - c_boxes).abs().amax(dim=2)[agree].max())
+    score_err = float((scores - c_scores).abs().max())
+    differ = tokens != c_tokens
+    tie = gap <= 1e-5
+    errors = {"text scores": float((tscores - c_tscores).abs().max() / c_tscores.abs().max()),
+              "depth": float(((depth - c_depth).abs() / c_depth).max()), "embeddings": float((emb - c_emb).abs().max())}
+    print(f"  multitask slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card {num.tolist()} "
+          f"cpu {c_num.tolist()}; top-k indices agree in {share:.4f} of slots; max box err {box_err:.3g} px; max "
+          f"score err {score_err:.3g}; text tokens differ at {int(differ.sum())} of {differ.numel()} positions "
+          f"({int((differ & ~tie).sum())} outside a tie of the top two logits; ties at {int(tie.sum())}); errors "
+          f"{({k: f'{v:.3g}' for k, v in errors.items()})} (text scores of the largest, depth relative); kernel "
+          f"launches {launches}; CPU forward {t_cpu:.1f} s")
+    if not all(torch.isfinite(t).all() for t in (scores, boxes_, tscores, depth, emb)):
+        raise AssertionError("non-finite multitask outputs")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"the multitask forward launched {launches}")
+    if not 0 < int(c_num.sum()) < 2 * MAX_INSTANCES or not torch.equal(num, c_num) or share < 0.98:
+        raise AssertionError(f"num_instances {num.tolist()} / {c_num.tolist()}, or top-k indices agree in only "
+                             f"{share:.4f} of slots")
+    if not torch.equal(classes[agree], c_classes[agree]) or box_err > 0.5 or score_err > 1e-3:
+        raise AssertionError(f"detections differ: classes, box err {box_err} px or score err {score_err}")
+    if (differ & ~tie).any():
+        raise AssertionError(f"text tokens differ at {int((differ & ~tie).sum())} positions outside a tie")
+    if errors["text scores"] > 1e-4 or errors["depth"] > 1e-5 or errors["embeddings"] > 1e-5:
+        raise AssertionError(f"errors {errors} out of bounds")
+
+
 def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
     """Phases 5, 9, 13 and 24: answer ``requests`` batches of 16 images at 640
     px; every head's outputs pass ``check_outputs``."""
@@ -1504,12 +1684,13 @@ def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flags
 def head_relu_sites(model: SihlModel) -> dict:
     """The heads' ReLUs on raw conv outputs, by name: (module, attribute that
     holds the activation).  The ConvNormAct blocks whose ReLU acts on the
-    conv's output (conv → ReLU → norm), and a depth head's two ReLUs: on the
-    bins' mean of a conv's output (``width_act``) and on its logits
-    (``weight_act``)."""
+    conv's output (conv → ReLU → norm), a transformer feed-forward's ReLU on
+    its first linear layer's output (the text head's decoder), and a depth
+    head's two ReLUs: on the bins' mean of a conv's output (``width_act``)
+    and on its logits (``weight_act``)."""
     sites = {}
     for name, mod in model.named_modules():
-        if name.startswith("heads.") and isinstance(mod, ConvNormAct) and mod.act is relu:
+        if name.startswith("heads.") and isinstance(mod, (ConvNormAct, _FeedForward)) and mod.act is relu:
             sites[name] = (mod, "act")
         if isinstance(mod, DepthEstimation):
             sites[f"{name}.width_act"] = (mod, "width_act")
@@ -1536,6 +1717,44 @@ def recorded_preactivations(model: SihlModel):
     finally:
         for mod, attr in sites.values():
             setattr(mod, attr, relu)
+
+
+def head_max_sites(model: SihlModel) -> dict:
+    """The heads' channel maxima that pick one channel's gradient path (each
+    UAFM's ``channel_max``, two calls a forward), by the UAFM's name."""
+    return {name: mod for name, mod in model.named_modules() if name.startswith("heads.") and isinstance(mod, UAFM)}
+
+
+@contextlib.contextmanager
+def recorded_channel_maxima(model: SihlModel):
+    """Inside the block, every forward of ``model`` records the inputs of its
+    ``head_max_sites``, call by call (on the CPU, in f64), into the dict of
+    lists it yields."""
+    out, sites = {}, head_max_sites(model)
+
+    def recorder(name):
+        def recording(x):
+            out.setdefault(name, []).append(x.detach().cpu().double())
+            return channel_max(x)
+        return recording
+
+    for name, mod in sites.items():
+        mod.channel_max = recorder(name)
+    try:
+        yield out
+    finally:
+        for mod in sites.values():
+            mod.channel_max = channel_max
+
+
+def with_max_decisions(model: SihlModel, inputs: dict) -> SihlModel:
+    """``model`` with its ``head_max_sites`` taking, call by call, the channel
+    that ``inputs`` (another forward's) maximise at each pixel: the same
+    branch of every maximum as that forward, for one forward."""
+    for name, mod in head_max_sites(model).items():
+        picks = iter([x.argmax(dim=1, keepdim=True) for x in inputs[name]])
+        mod.channel_max = lambda x, picks=picks: torch.gather(x, 1, next(picks).to(x.device))
+    return model
 
 
 def with_relu_decisions(model: SihlModel, preactivations: dict) -> SihlModel:
@@ -1573,7 +1792,12 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     within 1e-4 of its block's largest pre-activation from 0 (the f32
     rounding of a conv output, not an error in it); the f64 step is then
     taken again with the card's ReLU decisions in those blocks, and the
-    gradients are held against that."""
+    gradients are held against that.  A UAFM's channel maximum
+    (``head_max_sites``) sends a pixel's gradient to one channel, and two
+    channels within rounding of each other swap it (one swap among 64,000
+    moved a depth decoder's lateral-conv gradient 1.1e-3 from f64): a channel the
+    card picks must lie within 1e-4 of its map's largest magnitude below
+    the f64 maximum, and the f64 step takes the card's picks too."""
     model, cpu_models = train_slice_models(model, gen, build)
     images, targets = batch if batch is not None else training_batch(2, seed=1)
     cpu_images, cpu_targets = images.cpu(), to_cpu(targets)
@@ -1581,30 +1805,43 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     references = {}
     for dtype, ref in cpu_models.items():
         t0 = time.perf_counter()
-        with recorded_preactivations(ref) as z:
+        with recorded_preactivations(ref) as z, recorded_channel_maxima(ref) as m:
             references[dtype] = step_gradients(ref, cpu_images, cpu_targets)
         references[dtype] += (time.perf_counter() - t0,)
         if dtype == torch.float64:
-            z_cpu = z
-    with full_f32(), recorded_preactivations(model) as z_card:
+            z_cpu, m_cpu = z, m
+    with full_f32(), recorded_preactivations(model) as z_card, recorded_channel_maxima(model) as m_card:
         loss, metrics, grads, bufs = step_gradients(model, images, targets)
     flips, kink = 0, 0.0
     for name, z in z_cpu.items():
         flipped = (z_card[name] > 0) != (z > 0)
         flips += int(flipped.sum())
         kink = max(kink, float(z[flipped].abs().max() / z.abs().max()) if flipped.any() else 0.0)
-    if flips:
-        references[torch.float64] = step_gradients(with_relu_decisions(ref64, z_card), cpu_images, cpu_targets) + (
-            references[torch.float64][4],)
+    max_flips, max_gap = 0, 0.0
+    for name, xs in m_cpu.items():
+        for x, x_card in zip(xs, m_card[name]):
+            pick = x_card.argmax(dim=1, keepdim=True)
+            flipped = pick != x.argmax(dim=1, keepdim=True)
+            max_flips += int(flipped.sum())
+            if flipped.any():
+                gap = (x.amax(dim=1, keepdim=True) - x.gather(1, pick)) / x.abs().max()
+                max_gap = max(max_gap, float(gap[flipped].max()))
+    if flips or max_flips:
+        ref = with_max_decisions(with_relu_decisions(ref64, z_card), m_card)
+        references[torch.float64] = step_gradients(ref, cpu_images, cpu_targets) + (references[torch.float64][4],)
     c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
     f32_grads = references[torch.float32][2]
     if z_cpu:
         print(f"  {label}: {flips} of {sum(z.numel() for z in z_cpu.values())} ReLU decisions on the heads' "
               f"raw conv outputs differ between the card's f32 and the CPU's f64 forward, the farthest "
               f"{kink:.3g} of its block's largest pre-activation from 0 (bound 1e-4)"
-              + ("; the f64 step is taken again with the card's decisions" if flips else ""))
-    if kink > 1e-4:
-        raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0")
+              + (f"; {max_flips} of {sum(x[:, :1].numel() for xs in m_cpu.values() for x in xs)} UAFM channel "
+                 f"maxima pick another channel, the farthest {max_gap:.3g} of its map's largest magnitude below "
+                 f"the maximum (bound 1e-4)" if m_cpu else "")
+              + ("; the f64 step is taken again with the card's decisions" if flips or max_flips else ""))
+    if kink > 1e-4 or max_gap > 1e-4:
+        raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0, or a channel "
+                             f"maximum picked a channel {max_gap} of its map's scale below the maximum")
 
     if not math.isclose(loss, c_loss, rel_tol=1e-4):
         raise AssertionError(f"loss {loss} on the card, {c_loss} on the CPU")
@@ -1710,14 +1947,15 @@ def read_counts(names) -> dict:
 
 def train(build=build_flagship, batch=None,
           kernels=("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats"),
-          steps: int = 10, label: str = "training"):
+          steps: int = 10, label: str = "training", schedule=None):
     """Phases 7, 11 and 15: bf16 training steps through Trainer (level 1
-    frozen, bench.py's optimizer) on ``batch`` (the flagship's 16 images by
-    default); every kernel in ``kernels`` must launch."""
+    frozen, bench.py's optimizer, and ``schedule``'s scheduler arguments)
+    on ``batch`` (the flagship's 16 images by default); every kernel in
+    ``kernels`` must launch."""
     with compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(2))
     model.backbone.set_frozen_levels(1)
-    trainer = Trainer(model, **OPTIMIZER)
+    trainer = Trainer(model, **OPTIMIZER, **(schedule or {}))
     images, targets = batch if batch is not None else training_batch(BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2034,7 +2272,7 @@ def cudnn_deterministic():
 
 
 def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/map_50",
-              param_tol: float = 1e-5) -> dict:
+              param_tol: float = 1e-5, schedule=None, prepare=None) -> dict:
     """Phases 20-22, 27, 32 and 37: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
     (16 images at 640 px, level 1 frozen, bench.py's optimizer, EMA 0.999),
     validating on both batches every 2 steps and saving a checkpoint every
@@ -2050,15 +2288,19 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
     images/s (with the time of the heads' ``validation_end`` on the host,
     the COCO mAP of a detector, apart), fit steps/s, fit's ``metric`` and
     the checkpoint's save and restore seconds beside the card's name and
-    power limit.  Returns the validate's launch counts."""
+    power limit.  ``schedule`` adds scheduler arguments to the trainers;
+    ``prepare(trainer)`` runs before the fit (the multitask model populates
+    its metric head's index there).  Returns the validate's launch counts."""
 
     def fresh_trainer(seed):
         with compute_dtype_scope(torch.bfloat16):
             model = build(torch.Generator().manual_seed(seed))
         model.backbone.set_frozen_levels(1)
-        return Trainer(model, ema_decay=0.999, **OPTIMIZER)
+        return Trainer(model, ema_decay=0.999, **OPTIMIZER, **(schedule or {}))
 
     trainer = fresh_trainer(3)
+    if prepare is not None:
+        prepare(trainer)
     model, train_batch = trainer.model, batches[0]
     card = card_name()
     with tempfile.TemporaryDirectory() as ckpt_dir:
@@ -2227,6 +2469,103 @@ def panoptic_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     return launches
 
 
+def new_path_kernels(gen: torch.Generator, cuda_gen: torch.Generator, kernels: dict) -> dict:
+    """Phase 38: K1f, K1b and K2 at the shapes the canonical detector and the
+    multitask model give them, bf16.  Both run the detector's loc MLP dense
+    over levels 3-5's 134,400 anchors (the instance model's serving case)
+    and, in training, the loc and iou MLPs there (a new case); the canonical
+    detector's gathered calls and its matching are the flagship's (cls + box
+    over 1,600 rows serving and 14,400 training) and the instance model's
+    (1,600 x 8,400); the multitask detector's are new: cls (10) + box over
+    1,600 and 2,880 rows, and its matching 320 x 8,400."""
+    bf16 = torch.bfloat16
+    dense_serve = [c for c in kernels["fused_mlp@instance_serve"] if c["label"] == "dense"]
+    flagship_serve = [c for c in kernels["fused_mlp"] if c["label"] == "gathered" and c["path"]]
+    flagship_train = [i for i, c in enumerate(kernels["fused_mlp@train"]) if c["label"] == "gathered" and c["path"]]
+    fwd, bwd = k1_train_case(gen, cuda_gen, "dense", BATCH * INSTANCE_ANCHORS, (1, 1), bf16, 1e-1, 5e-2, 5e-2)
+    mt_fwd, mt_bwd = k1_train_case(gen, cuda_gen, "gathered", BATCH * MT_TARGETS * TOPK, (MT_CLASSES, 4), bf16,
+                                   1e-1, 5e-2, 5e-2)
+    _, targets = multitask_batch(BATCH)
+    results = {
+        "fused_mlp@hybrid_serve": dense_serve + flagship_serve,
+        "fused_mlp@hybrid_train": [fwd] + [kernels["fused_mlp@train"][i] for i in flagship_train],
+        "fused_mlp_backward@hybrid_train": [bwd] + [kernels["fused_mlp_backward"][i] for i in flagship_train],
+        "row_kth@hybrid_train": kernels["row_kth@instance_train"],
+        "fused_mlp@multitask_serve": dense_serve + [k1f_case(
+            gen, cuda_gen, "gathered", BATCH * MAX_INSTANCES, (MT_CLASSES, 4), bf16, 5e-2, 5e-2)],
+        "fused_mlp@multitask_train": [fwd, mt_fwd],
+        "fused_mlp_backward@multitask_train": [bwd, mt_bwd],
+        "row_kth@multitask_train": [k2_case("levels 3-5, 20 targets", anchor_ious(
+            range(3, 6), targets[0]["boxes"], targets[0]["classes"]))],
+    }
+    # each validate batch runs the serving forward and the training step's forward
+    for path in ("hybrid", "multitask"):
+        results[f"fused_mlp@{path}_validate"] = results[f"fused_mlp@{path}_serve"] + results[f"fused_mlp@{path}_train"]
+    return results
+
+
+HYBRID_SERVE = ("fused_mlp", "stem_conv_stats")
+HYBRID_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "stem_conv_stats")
+HYBRID_VALIDATE = ("fused_mlp", "row_kth", "stem_conv_stats")
+MT_SERVE = ("fused_mlp", "upsample_add", "stem_conv_stats")
+MT_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats")
+MT_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats")
+
+
+def hybrid_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 38-42, the canonical detector (``build_hybrid``): the f32 serving
+    slice against the CPU, three bf16 requests, the f32 training slice
+    against f64 on the CPU, ten bf16 steps and the fit, the trainers on the
+    example's multistep schedule.  Returns the launch counts of serving,
+    training and validation."""
+    model = build_hybrid(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_slice(model, gen, "hybrid slice", kernels=HYBRID_SERVE)
+    launches = {"hybrid_serve": serve_phase(model, build_hybrid, cuda_gen, HYBRID_SERVE, "hybrid serving")}
+    check_train_slice(model, gen, build_hybrid, training_batch(2, seed=1), "hybrid train slice")
+    del model
+    launches["hybrid_train"] = train(build_hybrid, training_batch(BATCH), HYBRID_TRAIN, label="hybrid training",
+                                     schedule=HYBRID_SCHEDULE)
+    launches["hybrid_validate"] = fit_phase(
+        build_hybrid, [training_batch(BATCH), training_batch(BATCH, seed=4)], HYBRID_VALIDATE, "hybrid fit",
+        schedule=HYBRID_SCHEDULE)
+    return launches
+
+
+def index_from(batch):
+    """A ``fit_phase`` ``prepare``: the metric head's retrieval index from
+    ``batch``'s images and identities, the model in eval mode."""
+
+    def prepare(trainer):
+        images, targets = batch
+        model = trainer.model.eval()
+        with torch.no_grad():
+            model.heads[3].extend_validation_index_set(model.extract_features(images), targets[3])
+
+    return prepare
+
+
+def multitask_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 43-47, the multitask model (``build_multitask``), as phases
+    38-42; the f32 slices take the text head's dropout at 0
+    (``build_multitask_still``), the rest the example's 0.1; the fit's
+    validations retrieve against an index of a third batch.  Returns the
+    launch counts of serving, training and validation."""
+    model = build_multitask_still(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_multitask_slice(model, gen)
+    launches = {"multitask_serve": serve_phase(model, build_multitask, cuda_gen, MT_SERVE, "multitask serving")}
+    check_train_slice(model, gen, build_multitask_still, multitask_batch(4, seed=1), "multitask train slice")
+    del model
+    launches["multitask_train"] = train(build_multitask, multitask_batch(BATCH), MT_TRAIN, label="multitask training")
+    launches["multitask_validate"] = fit_phase(
+        build_multitask, [multitask_batch(BATCH), multitask_batch(BATCH, seed=4)], MT_VALIDATE, "multitask fit",
+        metric="head3/valid/r_precision", param_tol=DENSE_PARAM_TOL, prepare=index_from(multitask_batch(BATCH, seed=5)))
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2363,6 +2702,16 @@ def main() -> None:
     launches.update(panoptic_phases(gen, cuda_gen))
     print(f"phases 33-37 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 38-47: the canonical detector (HybridEncoder), then the multitask
+    # model; first K1 and K2 at the shapes they add
+    t0 = time.perf_counter()
+    kernels.update(new_path_kernels(gen, cuda_gen, kernels))
+    launches.update(hybrid_phases(gen, cuda_gen))
+    print(f"phases 38-42 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(multitask_phases(gen, cuda_gen))
+    print(f"phases 43-47 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -2465,6 +2814,18 @@ def main() -> None:
          "row_kth"),
         ("dynconv_decode@panoptic_validate", "panoptic_validate", "dynconv_decode@validate", "cuda", dyn_cu,
          f"{dyn_py}:257", "dynconv_decode"),
+        *((f"fused_mlp@{path}", path, f"fused_mlp@{path}", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp")
+          for path in ("hybrid_serve", "hybrid_train", "hybrid_validate", "multitask_serve", "multitask_train",
+                       "multitask_validate")),
+        *((f"fused_mlp_backward@{path}", path, f"fused_mlp_backward@{path}", "cuda", mlp_cu, f"{mlp_py}:365",
+           "fused_mlp_backward") for path in ("hybrid_train", "multitask_train")),
+        *((f"row_kth@{model}_{path}", f"{model}_{path}", f"row_kth@{model}_train", "cuda", topk_cu, topk_py, "row_kth")
+          for model in ("hybrid", "multitask") for path in ("train", "validate")),
+        *((f"upsample_add@{path}", path, "upsample_add@fpn128", "triton", fusion_tr, fusion_py, "upsample_add")
+          for path in ("multitask_serve", "multitask_train", "multitask_validate")),
+        *((f"stem_conv_stats@{path}", path, "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats")
+          for path in ("hybrid_serve", "hybrid_train", "hybrid_validate", "multitask_serve", "multitask_train",
+                       "multitask_validate")),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -9,12 +9,17 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --quad [--train]     # the quadrilateral detector instead
     python3 profile_serving.py --dense [--train]    # the dense model (semantic segmentation + depth)
     python3 profile_serving.py --panoptic [--train] # the panoptic model
+    python3 profile_serving.py --hybrid [--train]   # the canonical detector (HybridEncoder neck)
+    python3 profile_serving.py --multitask [--train] # the four-head multitask model
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
 with ``--quad``, its quadrilateral detector, trained on 5-20 quads per image;
 with ``--dense`` and ``--panoptic`` its dense models, trained on the
-targets of ``chip_smoke.dense_batch`` and ``panoptic_batch``;
+targets of ``chip_smoke.dense_batch`` and ``panoptic_batch``; with
+``--hybrid`` its canonical detector, trained on bench.py's targets on the
+example's multistep schedule, and with ``--multitask`` its multitask model,
+trained on ``chip_smoke.multitask_batch``;
 random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
@@ -39,8 +44,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, OPTIMIZER, SIZE, build_dense, build_flagship, build_instance, build_panoptic, build_quad, card_name,
-    dense_batch, instance_batch, panoptic_batch, quad_batch, randomize_norms_and_biases, training_batch,
+    BATCH, HYBRID_SCHEDULE, OPTIMIZER, SIZE, build_dense, build_flagship, build_hybrid, build_instance,
+    build_multitask, build_panoptic, build_quad, card_name, dense_batch, instance_batch, multitask_batch,
+    panoptic_batch, quad_batch, randomize_norms_and_biases, training_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -68,6 +74,9 @@ OP_CLASSES = (
     ("mask comparisons and any", ("aten::gt", "aten::any")),
     ("reflect pad (blur-pool)", ("aten::reflection_pad2d",)),
     ("nearest upsample", ("aten::upsample_nearest2d", "aten::upsample_nearest2d_backward")),
+    ("matrix products", ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")),
+    ("concatenation", ("aten::cat",)),
+    ("GELU and SiLU", ("aten::gelu", "aten::gelu_backward", "aten::silu", "aten::silu_backward")),
 )
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
@@ -103,12 +112,16 @@ def main() -> None:
     models.add_argument("--quad", action="store_true", help="the quadrilateral detector")
     models.add_argument("--dense", action="store_true", help="the dense model (semantic segmentation + depth)")
     models.add_argument("--panoptic", action="store_true", help="the panoptic model")
+    models.add_argument("--hybrid", action="store_true", help="the canonical detector (HybridEncoder neck)")
+    models.add_argument("--multitask", action="store_true", help="the four-head multitask model")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
         else ("quadrilateral detection", build_quad, quad_batch) if args.quad
         else ("dense", build_dense, dense_batch) if args.dense
         else ("panoptic", build_panoptic, panoptic_batch) if args.panoptic
+        else ("canonical detector", build_hybrid, training_batch) if args.hybrid
+        else ("multitask", build_multitask, multitask_batch) if args.multitask
         else ("flagship", build_flagship, training_batch)
     )
     train = args.train
@@ -119,7 +132,7 @@ def main() -> None:
         model = build(torch.Generator().manual_seed(0))
     if train:
         model.backbone.set_frozen_levels(1)
-        trainer = Trainer(model, **OPTIMIZER)
+        trainer = Trainer(model, **OPTIMIZER, **(HYBRID_SCHEDULE if args.hybrid else {}))
         images, targets = batch(BATCH)
 
         def work():

@@ -11,6 +11,7 @@ import torch
 from torch import nn
 
 from sihl_tpu_torch.layers.convblocks import ConvTranspose2d
+from sihl_tpu_torch.layers.transformer import MergeHeadsLinear, SplitHeadsLinear
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 # plain ``nnx.Variable`` leaves that the port keeps as buffers of the same
@@ -34,6 +35,17 @@ def state_dict_from_flat(
       whose path names a :class:`ConvTranspose2d` of ``module``, the port's
       module that the state dict is for;
     * Linear ``kernel`` (in, out) → ``weight`` (out, in);
+    * attention kernels (the ``LinearGeneral`` projections of
+      ``nnx.MultiHeadAttention``), of rank 3, by the port's module at their
+      path: a query, key or value projection (:class:`SplitHeadsLinear`),
+      (in, heads, head_dim) → ``weight`` (heads * head_dim, in); the output
+      projection (:class:`MergeHeadsLinear`), (heads, head_dim, out) →
+      ``weight`` (out, heads * head_dim).  Both readings fit a square
+      kernel's shape, so a rank-3 kernel needs ``module``;
+    * attention projection ``bias`` (heads, head_dim) → ``bias``
+      (heads * head_dim,);
+    * ``MetricLearning``'s root ``weight`` (subcentres, embedding,
+      identities) → ``weight``, as is;
     * BatchNorm ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
     * GroupNorm and LayerNorm ``scale/bias`` → ``weight/bias``;
     * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is;
@@ -43,11 +55,12 @@ def state_dict_from_flat(
     Without ``module`` every 4-D kernel takes the conv rule: a transposed
     conv's weight then comes out in the conv's axis order, which
     ``load_state_dict`` refuses on its shape unless its input and output
-    channels are equal.
+    channels are equal; and a rank-3 kernel raises.
+
+    The JAX modules' ``RngKey`` / ``RngCount`` leaves (a dropout's, an
+    attention's) have no counterpart here: leave them out of ``flat``.
     """
-    transposed = set() if module is None else {
-        name for name, sub in module.named_modules() if isinstance(sub, ConvTranspose2d)
-    }
+    modules = {} if module is None else dict(module.named_modules())
     out = {}
     for path, value in flat.items():
         prefix, _, leaf = path.rpartition(".")
@@ -56,14 +69,26 @@ def state_dict_from_flat(
             continue
         value = np.asarray(value, dtype=np.float32)
         if leaf == "kernel":
-            if value.ndim == 4 and prefix in transposed:
+            sub = modules.get(prefix)
+            if value.ndim == 4 and isinstance(sub, ConvTranspose2d):
                 value = value[::-1, ::-1].transpose(2, 3, 0, 1)
             elif value.ndim == 4:
                 value = value.transpose(3, 2, 0, 1)
             elif value.ndim == 2:
                 value = value.T
+            elif value.ndim == 3 and isinstance(sub, SplitHeadsLinear):
+                value = value.reshape(value.shape[0], -1).T
+            elif value.ndim == 3 and isinstance(sub, MergeHeadsLinear):
+                value = value.reshape(-1, value.shape[2]).T
+            elif value.ndim == 3:
+                raise ValueError(f"{path}: a rank-3 kernel needs the port's module to tell an attention input "
+                                 f"projection from an output projection")
             else:
                 raise ValueError(f"{path}: kernel of rank {value.ndim}")
+            name = "weight"
+        elif leaf == "bias" and value.ndim == 2:
+            value, name = value.reshape(-1), "bias"
+        elif leaf == "weight" and value.ndim == 3:
             name = "weight"
         elif leaf in _LEAF_NAMES:
             name = _LEAF_NAMES[leaf]

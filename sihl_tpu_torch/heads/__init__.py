@@ -3,6 +3,7 @@
 from sihl_tpu_torch.heads.base import Head, TensorShape
 from sihl_tpu_torch.heads.depth_estimation import DepthEstimation
 from sihl_tpu_torch.heads.instance_segmentation import InstanceSegmentation
+from sihl_tpu_torch.heads.metric_learning import MetricLearning
 from sihl_tpu_torch.heads.multiclass_classification import MulticlassClassification, soft_ordinal_category
 from sihl_tpu_torch.heads.multilabel_classification import MultilabelClassification
 from sihl_tpu_torch.heads.object_detection import ObjectDetection
@@ -10,11 +11,13 @@ from sihl_tpu_torch.heads.panoptic_segmentation import PanopticSegmentation, pan
 from sihl_tpu_torch.heads.quadrilateral_detection import QuadrilateralDetection
 from sihl_tpu_torch.heads.regression import Regression
 from sihl_tpu_torch.heads.semantic_segmentation import SPPM, UAFM, SemanticSegmentation
+from sihl_tpu_torch.heads.text_recognition import TextRecognition
 
 __all__ = [
     "DepthEstimation",
     "Head",
     "InstanceSegmentation",
+    "MetricLearning",
     "MulticlassClassification",
     "MultilabelClassification",
     "ObjectDetection",
@@ -24,6 +27,7 @@ __all__ = [
     "SPPM",
     "SemanticSegmentation",
     "TensorShape",
+    "TextRecognition",
     "UAFM",
     "panoptic_targets_from_maps",
     "soft_ordinal_category",

@@ -64,22 +64,30 @@ class SPPM(nn.Module):
         return self.out_conv(fused)
 
 
+def channel_max(x: torch.Tensor) -> torch.Tensor:
+    """Each pixel's largest channel, (B, 1, H, W): ``torch.amax``, which
+    splits its gradient among tied channels as ``jnp.max`` does."""
+    return x.amax(dim=1, keepdim=True)
+
+
 class UAFM(nn.Module):
     """Unified Attention Fusion Module (https://arxiv.org/abs/2204.02681):
     a sigmoid weight from each pixel's channel mean and max of both inputs,
-    stacked [mean x1, max x1, mean x2, max x2]; the max is ``torch.amax``,
-    which splits its gradient among tied channels as ``jnp.max`` does."""
+    stacked [mean x1, max x1, mean x2, max x2].  The max picks one channel's
+    gradient path, so it is held as the attribute ``channel_max`` that a
+    caller may wrap, as the depth head's ReLUs."""
 
     def __init__(self, in_channels: int, out_channels: int, *, generator: Optional[torch.Generator] = None,
                  device=None):
         super().__init__()
         self.conv = ConvNormAct(4, 1, norm=None, act="sigmoid", generator=default_generator(generator),
                                 device=device)
+        self.channel_max = channel_max
 
     def forward(self, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
         stats = torch.cat(
-            [x1.mean(dim=1, keepdim=True), x1.amax(dim=1, keepdim=True),
-             x2.mean(dim=1, keepdim=True), x2.amax(dim=1, keepdim=True)],
+            [x1.mean(dim=1, keepdim=True), self.channel_max(x1),
+             x2.mean(dim=1, keepdim=True), self.channel_max(x2)],
             dim=1,
         )
         alpha = self.conv(stats)

@@ -935,3 +935,45 @@ def test_card_tests_import_no_jax():
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, check=True, timeout=120,
                          cwd=Path(__file__).resolve().parent, env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parents[1])})
     assert out.stdout.strip() == "[]", out
+
+
+@pytest.mark.cuda
+def test_transformer_layers_hybrid_encoder_and_new_heads_on_card():
+    """The attention layers, the HybridEncoder and the text-recognition and
+    metric-learning heads in f32 eval mode on the card, in full f32 (TF32 off
+    in cuDNN and in the matrix products), against the CPU with the same
+    weights: each output within 1e-5 of its largest magnitude, the text
+    tokens equal."""
+    _need_card()
+    from sihl_tpu_torch.heads import MetricLearning, TextRecognition
+    from sihl_tpu_torch.layers import HybridEncoder, TransformerDecoderLayer, TransformerEncoderLayer
+
+    gen = torch.Generator().manual_seed(0)
+    channels = [3, 64, 256, 512, 1024, 2048]
+    pyramid = [torch.rand(2, c, 256 >> i, 256 >> i, generator=gen) for i, c in enumerate(channels)]
+    tokens, memory = torch.randn(2, 12, 256, generator=gen), torch.randn(2, 400, 256, generator=gen)
+    cases = [
+        (TransformerEncoderLayer(256, generator=gen, device="cpu"), (memory,)),
+        (TransformerDecoderLayer(256, num_heads=4, ff_dim=1024, generator=gen, device="cpu"), (tokens, memory)),
+        (HybridEncoder(channels, 256, bottom_level=3, top_level=5, generator=gen, device="cpu"), (pyramid,)),
+        (TextRecognition(channels, 30, 12, level=3, generator=gen, device="cpu"), (pyramid,)),
+        (MetricLearning(channels, 8, level=2, generator=gen, device="cpu"), (pyramid,)),
+    ]
+    matmul, cudnn = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        for module, args in cases:
+            module.eval()
+            on_card = copy.deepcopy(module).cuda()
+            card_args = [[t.cuda() for t in a] if isinstance(a, list) else a.cuda() for a in args]
+            with torch.no_grad():
+                want, got = module(*args), on_card(*card_args)
+            want = want if isinstance(want, (list, tuple)) else [want]
+            got = got if isinstance(got, (list, tuple)) else [got]
+            for g, w in zip(got, want):
+                if w.is_floating_point():
+                    torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5 * float(w.abs().max()))
+                else:
+                    assert torch.equal(g.cpu(), w), type(module).__name__
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn

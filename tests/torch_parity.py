@@ -56,8 +56,10 @@ def damp_residual_branches(module, rng: np.random.RandomState, lo: float = 0.01,
 
 
 def load_from_jax(port_module: torch.nn.Module, jax_module) -> torch.nn.Module:
-    """Carry the JAX module's weights into the port's counterpart (strict)."""
-    port_module.load_state_dict(state_dict_from_flat(flat_state(jax_module)), strict=True)
+    """Carry the JAX module's weights into the port's counterpart (strict),
+    the port's module telling ``state_dict_from_flat`` which kernels are
+    transposed convs' and attention projections'."""
+    port_module.load_state_dict(state_dict_from_flat(flat_state(jax_module), port_module), strict=True)
     return port_module.eval()
 
 
