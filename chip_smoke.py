@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Eight models run through the port's hand-written kernels, with random
+Eleven models run through the port's hand-written kernels, with random
 weights from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -27,9 +27,13 @@ levels 3-5, ObjectDetection with 80 classes, the example's multistep
 schedule) and the multitask model of ``examples/multitask.py`` (ResNet-50,
 FPN 128 channels over levels 3-5, ObjectDetection with 10 classes and 20
 targets, TextRecognition with 30 tokens up to 12 long, DepthEstimation on
-0.1-10 m and MetricLearning with 8 identities at level 2).  Every training
-step freezes level 1, so its stem runs K4.  Phases, each of which raises on
-failure:
+0.1-10 m and MetricLearning with 8 identities at level 2), and the
+self-supervised and anomaly models of ``examples/autoencoding.py``,
+``view_invariance.py`` and ``anomaly_detection.py`` (ResNet-18, no neck;
+Autoencoding, ViewInvarianceLearning and AnomalyDetection at their
+defaults; the anomaly model's teacher wholly frozen with its BatchNorms in
+eval mode).  Every training step freezes level 1 at least, so its stem
+runs K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -145,7 +149,23 @@ failure:
    decisions taken from the card), ten bf16 steps with the example's
    dropout 0.1 (K1f, K1b, K2, K3 and K4 must launch), and the fit, whose
    validations retrieve against the metric head's index of a third batch;
-   its checkpoint carries the text head's dropout stream.
+   its checkpoint carries the text head's dropout stream;
+48-52. the same five for the autoencoder, its f32 slices at smaller sizes
+   (``SSL_SERVE_SIZE``, ``SSL_TRAIN_SIZE``): the serving slice
+   (reconstructions and representations within 1e-4 of the CPU's largest;
+   K4 must launch), three bf16 requests, the train slice against f64 (the
+   bottleneck's ReLUs among the card's decisions, the head held as the
+   dense decoders), ten bf16 steps and the fit (K4 in each);
+53-57. the same five for the view-invariance model at 640 px (its train
+   slice on four images), each step running the trunk on both views (K4
+   twice a step and a validate batch);
+58-62. the same five for the anomaly model, after its teacher's
+   BatchNorm statistics from a batch and ``Trainer.pretrain`` over 4
+   batches (K4 once a batch): the serving slice on images with the
+   example's noise patch, the train slice taking the card's top-k picks
+   into the f64 step, and the fit validating on a normal and an anomalous
+   batch, its restored checkpoint carrying the reservoirs, their position
+   and the calibration.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -171,10 +191,11 @@ import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
-from sihl_tpu_torch.heads import (DepthEstimation, InstanceSegmentation, MetricLearning, MulticlassClassification,
-                                  MultilabelClassification, ObjectDetection, PanopticSegmentation,
-                                  QuadrilateralDetection, Regression, SemanticSegmentation, TextRecognition, UAFM,
-                                  anchors)
+from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
+                                  MetricLearning, MulticlassClassification, MultilabelClassification, ObjectDetection,
+                                  PanopticSegmentation, QuadrilateralDetection, Regression, SemanticSegmentation,
+                                  TextRecognition, UAFM, ViewInvarianceLearning, anchors)
+from sihl_tpu_torch.heads.anomaly_detection import hard_mined
 from sihl_tpu_torch.heads.semantic_segmentation import channel_max
 from sihl_tpu_torch.layers import FPN, BiFPN, HybridEncoder
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, ConvNormAct
@@ -226,6 +247,17 @@ HYBRID_SCHEDULE = dict(scheduler="multistep", scheduler_kwargs={"milestones": [6
 # 3-5; detection of 10 classes, 20 targets; text of 30 tokens, up to 12 long,
 # at level 3; depth as the dense model's; 8 identities at level 2
 MT_CLASSES, MT_TARGETS, MT_TOKENS, MT_LENGTH, MT_IDENTITIES = 10, 20, 30, 12, 8
+# the self-supervised and anomaly models run their f32 slices against the
+# CPU on smaller images: the autoencoder's decoder and the anomaly head's
+# student run 256-wide 3x3 convs at the full input size, which the CPU's f64
+# step takes minutes over at 640 px.  320 px for the serving slices and 160
+# px for the training slices keep both resizes of each bottleneck off whole
+# factors (the autoencoder's 4 x 4 and the anomaly head's 8 x 8 map against
+# level 5's 10 x 10 and 5 x 5)
+SSL_SERVE_SIZE, SSL_TRAIN_SIZE = 320, 160
+# the anomaly example's noise patch (rows and columns 30-60 at 128 px),
+# scaled to 640 px; its pretraining pass takes 4 batches
+ANOMALY_PATCH, PRETRAIN_BATCHES = (150, 300), 4
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -361,6 +393,43 @@ def build_multitask_still(generator: torch.Generator, device=None) -> SihlModel:
     return build_multitask(generator, device, dropout=0.0)
 
 
+def build_autoencoder(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/autoencoding.py:9-11``'s model: ResNet-18 with level 1 frozen,
+    no neck, Autoencoding at its defaults (level 5, 256 channels, 3 refine
+    layers, a 1,024-wide representation, a 4 x 4 pre-bottleneck, a
+    sigmoid); the target is the input."""
+    backbone = Backbone("resnet18", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    return SihlModel(backbone, None, [Autoencoding(backbone.out_channels, generator=generator, device=device)])
+
+
+def build_view_invariance(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/view_invariance.py:11-13``'s model: ResNet-18 with level 1
+    frozen, no neck, ViewInvarianceLearning (Barlow Twins) at its defaults
+    (a 1,024-wide embedding, level 5, 256 channels, 4 layers)."""
+    backbone = Backbone("resnet18", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    head = ViewInvarianceLearning(backbone.out_channels, generator=generator, device=device)
+    return SihlModel(backbone, None, [head])
+
+
+def build_anomaly(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/anomaly_detection.py:14-19``'s model with its ``--pretrained``
+    structure: ResNet-18 with every level frozen and its BatchNorms in eval
+    mode (EfficientAD's teacher, from a seed here), AnomalyDetection at its
+    defaults (level 2, 256 channels, 1 layer, a 64-wide autoencoder up to
+    level 5, a ring of 65,536, 1,024 samples a step)."""
+    backbone = Backbone("resnet18", top_level=5, freeze_batchnorms=True, generator=generator, device=device)
+    backbone.set_frozen_levels(-1)
+    return SihlModel(backbone, None, [AnomalyDetection(backbone.out_channels, generator=generator, device=device)])
+
+
+def freeze_trunk(model: SihlModel) -> None:
+    """Freeze the trunk as every training path here does: level 1, or every
+    level of a teacher whose BatchNorms are frozen (the anomaly model)."""
+    model.backbone.set_frozen_levels(-1 if model.backbone.freeze_batchnorms else 1)
+
+
 def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Random BatchNorm running statistics, random affine parameters of every
     BatchNorm and LayerNorm, and random biases of every MLP Linear, so that
@@ -473,13 +542,13 @@ def classifier_batch(batch: int, seed: int = 0, device="cuda"):
     return images.contiguous().to(device), [t.to(device) for t in (classes, labels, values)]
 
 
-def varied_images(rng, batch: int) -> torch.Tensor:
-    """(B, 3, 640, 640) f32 noise images, each with its own brightness and
+def varied_images(rng, batch: int, size: int = SIZE) -> torch.Tensor:
+    """(B, 3, size, size) f32 noise images, each with its own brightness and
     contrast, as photographs have: images of i.i.d. noise pool to nearly the
     same value at SPPM's 1 x 1 size, and the train-mode BatchNorm behind that
     pooling would see nearly equal samples, whose f32 "fast variance"
     (E[x^2] - E[x]^2) cancels (``tests/test_torch_dense_slice.py``)."""
-    x = rng.rand(batch, SIZE, SIZE, 3) * rng.uniform(0.25, 1.0, (batch, 1, 1, 1))
+    x = rng.rand(batch, size, size, 3) * rng.uniform(0.25, 1.0, (batch, 1, 1, 1))
     x = (x + rng.uniform(0.0, 0.75, (batch, 1, 1, 1))).astype(np.float32)
     return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
 
@@ -570,6 +639,40 @@ def multitask_batch(batch: int, seed: int = 0, device="cuda"):
     det = {"classes": torch.from_numpy(classes).to(device), "boxes": torch.from_numpy(gt).to(device)}
     return images.to(device), [det, torch.from_numpy(texts).to(device),
                                {"targets": depth.to(device), "masks": masks.to(device)}, ids.to(device)]
+
+
+def autoencoder_batch(batch: int, seed: int = 0, size: int = SIZE, device="cuda"):
+    """Images (``varied_images``) from a seeded numpy generator, and the same
+    images as the target."""
+    images = varied_images(np.random.RandomState(seed), batch, size).to(device)
+    return images, images
+
+
+def view_batch(batch: int, seed: int = 0, size: int = SIZE, device="cuda"):
+    """Images (``varied_images``) and their second view as
+    ``examples/view_invariance.py:35-40`` makes it: the batch scaled in
+    brightness by U(0.8, 1.2), plus noise of standard deviation 0.05,
+    clipped to [0, 1]."""
+    rng = np.random.RandomState(seed)
+    images = varied_images(rng, batch, size)
+    view = torch.clamp(images * (0.8 + 0.4 * rng.rand()) + torch.from_numpy(
+        rng.randn(batch, size, size, 3).astype(np.float32)).permute(0, 3, 1, 2) * 0.05, 0, 1)
+    return images.to(device), view.contiguous().to(device)
+
+
+def anomaly_batch(batch: int, seed: int = 0, anomalous: bool = False, size: int = SIZE, device="cuda"):
+    """Images (``varied_images``) and the (B, H, W) anomaly mask the example
+    validates with (``examples/anomaly_detection.py:38-43``): all 0 for a
+    normal batch; all 1 for an anomalous one, whose images get the example's
+    patch of uniform noise (rows and columns ``ANOMALY_PATCH``, scaled with
+    ``size``)."""
+    rng = np.random.RandomState(seed)
+    images = varied_images(rng, batch, size)
+    if anomalous:
+        lo, hi = (v * size // SIZE for v in ANOMALY_PATCH)
+        images[:, :, lo:hi, lo:hi] = torch.from_numpy(rng.rand(batch, 3, hi - lo, hi - lo).astype(np.float32))
+    mask = torch.full((batch, size, size), float(anomalous))
+    return images.to(device), mask.to(device)
 
 
 def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -1330,7 +1433,7 @@ def check_outputs(head, outputs) -> None:
     for name, count in counts.items():
         if name in named and not ((0 <= named[name]).all() and (named[name] < count).all()):
             raise AssertionError(f"{name} out of [0, {count})")
-    for name in ("masks", "scores", "score_maps"):
+    for name in ("masks", "scores", "score_maps", "reconstructions", "anomaly_maps"):
         if name in named and not ((0 <= named[name]).all() and (named[name] <= 1).all()):
             raise AssertionError(f"{name} out of [0, 1]")
     if "embeddings" in named and ((named["embeddings"].norm(dim=1) - 1).abs() > 1e-5).any():
@@ -1584,7 +1687,9 @@ def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
 
 
 def to_cpu(tree):
-    """A target tree (a tensor, or dicts and lists of them) on the CPU."""
+    """A target tree (a tensor, or dicts and lists of them, or None) on the CPU."""
+    if tree is None:
+        return None
     if isinstance(tree, dict):
         return {k: to_cpu(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -1597,6 +1702,8 @@ def step_gradients(model: SihlModel, images, targets):
     forward and backward of ``model``; ``targets`` is one head's, or a list
     of them, one a head."""
     model.train()
+    if model.backbone.freeze_batchnorms:  # the frozen levels' BatchNorms in eval mode, as the Trainer sets them
+        model.backbone._set_frozen_bn_eval()
     loss, metrics = _losses(model, images, targets if isinstance(targets, list) else [targets])
     loss.backward()
     grads = {n: p.grad for n, p in model.named_parameters()}
@@ -1630,9 +1737,18 @@ MASK_BRANCH = ("heads.0.mask_lateral.", "heads.0.mask_head.")
 # heads' limit, they are held at the neck's.
 
 
+# The autoencoder's decoder is a chain of the same kind up to 640 x 640,
+# whose cotangent, 2 (reconstruction - image) / n, is nearly constant over
+# each image: its train-mode BatchNorms remove each channel's mean from it,
+# and f32 loses digits there too (the port's CPU f32 step read 1.3e-3 from
+# f64 on it at 64 px, tests/test_torch_ssl_slice.py).  It takes the same
+# rule.
+
+
 def decoder_prefixes(model: SihlModel) -> tuple:
-    """The parameter-name prefixes of ``model``'s PP-LiteSeg decoders."""
-    return tuple(f"{n}." for n, m in model.named_modules() if isinstance(m, SemanticSegmentation))
+    """The parameter-name prefixes of ``model``'s PP-LiteSeg decoders and
+    autoencoding heads."""
+    return tuple(f"{n}." for n, m in model.named_modules() if isinstance(m, (SemanticSegmentation, Autoencoding)))
 # BiFPN's fusion weights reach the loss through a softmax: each gradient is
 # a difference of dot products over whole feature maps, d(w_j) = s_j (dw_j -
 # sum_k s_k dw_k), and f32 cancels most of its digits (the CPU's own f32 step
@@ -1659,13 +1775,14 @@ def full_f32():
 
 
 def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flagship):
-    """The train slice's weights: a copy of ``model`` with level 1 frozen,
+    """The train slice's weights: a copy of ``model`` with its trunk frozen
+    (``freeze_trunk``),
     the residual branches damped (``damp_residual_branches``, drawn from
     ``gen``) and a detector's loc head's final bias at -5; and CPU models built by
     ``build`` in f64 and f32 with the same weights and buffers.  Returns
     ``(model, {torch.float64: ..., torch.float32: ...})``."""
     model = copy.deepcopy(model)
-    model.backbone.set_frozen_levels(1)
+    freeze_trunk(model)
     damp_residual_branches(model, gen)
     detector = getattr(model.heads[0], "instance", model.heads[0])
     if hasattr(detector, "loc_head"):
@@ -1675,7 +1792,7 @@ def train_slice_models(model: SihlModel, gen: torch.Generator, build=build_flags
     for dtype in (torch.float64, torch.float32):
         with compute_dtype_scope(dtype):
             ref = build(torch.Generator().manual_seed(0), device="cpu")
-        ref.backbone.set_frozen_levels(1)
+        freeze_trunk(ref)
         ref.load_state_dict(model.state_dict())
         cpu_models[dtype] = ref
     return model, cpu_models
@@ -1685,28 +1802,31 @@ def head_relu_sites(model: SihlModel) -> dict:
     """The heads' ReLUs on raw conv outputs, by name: (module, attribute that
     holds the activation).  The ConvNormAct blocks whose ReLU acts on the
     conv's output (conv → ReLU → norm), a transformer feed-forward's ReLU on
-    its first linear layer's output (the text head's decoder), and a depth
+    its first linear layer's output (the text head's decoder), a depth
     head's two ReLUs: on the bins' mean of a conv's output (``width_act``)
-    and on its logits (``weight_act``)."""
+    and on its logits (``weight_act``), and an autoencoding head's two on its
+    bottleneck's linear layers (``encode_act``, ``decode_act``)."""
     sites = {}
     for name, mod in model.named_modules():
         if name.startswith("heads.") and isinstance(mod, (ConvNormAct, _FeedForward)) and mod.act is relu:
             sites[name] = (mod, "act")
-        if isinstance(mod, DepthEstimation):
-            sites[f"{name}.width_act"] = (mod, "width_act")
-            sites[f"{name}.weight_act"] = (mod, "weight_act")
+        for cls, attrs in ((DepthEstimation, ("width_act", "weight_act")),
+                           (Autoencoding, ("encode_act", "decode_act"))):
+            if isinstance(mod, cls):
+                sites.update({f"{name}.{attr}": (mod, attr) for attr in attrs})
     return sites
 
 
 @contextlib.contextmanager
 def recorded_preactivations(model: SihlModel):
     """Inside the block, every forward of ``model`` records the inputs of its
-    ``head_relu_sites`` (on the CPU, in f64) into the dict it yields."""
+    ``head_relu_sites``, call by call (on the CPU, in f64), into the dict of
+    lists it yields: the view-invariance head's projector runs on both views."""
     out, sites = {}, head_relu_sites(model)
 
     def recorder(name, act):
         def recording(z):
-            out[name] = z.detach().cpu().double()
+            out.setdefault(name, []).append(z.detach().cpu().double())
             return act(z)
         return recording
 
@@ -1758,13 +1878,52 @@ def with_max_decisions(model: SihlModel, inputs: dict) -> SihlModel:
 
 
 def with_relu_decisions(model: SihlModel, preactivations: dict) -> SihlModel:
-    """A copy of ``model`` whose ``head_relu_sites`` pass their input where
-    ``preactivations`` (another forward's) are positive and give 0 elsewhere:
-    the same branch of every ReLU as that forward."""
+    """A copy of ``model`` whose ``head_relu_sites`` pass their input, call
+    by call, where ``preactivations`` (another forward's) are positive and
+    give 0 elsewhere: the same branch of every ReLU as that forward."""
     model = copy.deepcopy(model)
     for name, (mod, attr) in head_relu_sites(model).items():
-        keep = preactivations[name] > 0
-        setattr(mod, attr, lambda z, keep=keep: torch.where(keep.to(z.device), z, torch.zeros((), dtype=z.dtype)))
+        keeps = iter([z > 0 for z in preactivations[name]])
+        setattr(mod, attr, lambda z, keeps=keeps: torch.where(next(keeps).to(z.device), z, torch.zeros((), dtype=z.dtype)))
+    return model
+
+
+def head_topk_sites(model: SihlModel) -> dict:
+    """The anomaly heads' hard mining by name (``hard_mined``, one call a
+    training step): the top-k of each image's student-teacher distances,
+    which alone send the loss's gradient back."""
+    return {name: mod for name, mod in model.named_modules() if isinstance(mod, AnomalyDetection)}
+
+
+@contextlib.contextmanager
+def recorded_topk(model: SihlModel):
+    """Inside the block, every training step of ``model`` records its
+    ``head_topk_sites``' inputs (on the CPU, in f64) and picks, call by call,
+    into the dict of lists it yields; the values are those of the picks."""
+    out, sites = {}, head_topk_sites(model)
+
+    def recorder(name):
+        def recording(flat, k):
+            idx = torch.topk(flat, k, dim=1, sorted=False).indices
+            out.setdefault(name, []).append((flat.detach().cpu().double(), idx.cpu()))
+            return torch.gather(flat, 1, idx)
+        return recording
+
+    for name, mod in sites.items():
+        mod.hard_mined = recorder(name)
+    try:
+        yield out
+    finally:
+        for mod in sites.values():
+            mod.hard_mined = hard_mined
+
+
+def with_topk_decisions(model: SihlModel, recorded: dict) -> SihlModel:
+    """``model`` with its ``head_topk_sites`` taking, call by call, the picks
+    that ``recorded`` (another step's) made."""
+    for name, mod in head_topk_sites(model).items():
+        picks = iter([idx for _, idx in recorded[name]])
+        mod.hard_mined = lambda flat, k, picks=picks: torch.gather(flat, 1, next(picks).to(flat.device))
     return model
 
 
@@ -1805,18 +1964,30 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     references = {}
     for dtype, ref in cpu_models.items():
         t0 = time.perf_counter()
-        with recorded_preactivations(ref) as z, recorded_channel_maxima(ref) as m:
+        with recorded_preactivations(ref) as z, recorded_channel_maxima(ref) as m, recorded_topk(ref) as k:
             references[dtype] = step_gradients(ref, cpu_images, cpu_targets)
         references[dtype] += (time.perf_counter() - t0,)
         if dtype == torch.float64:
-            z_cpu, m_cpu = z, m
-    with full_f32(), recorded_preactivations(model) as z_card, recorded_channel_maxima(model) as m_card:
+            z_cpu, m_cpu, k_cpu = z, m, k
+    with (full_f32(), recorded_preactivations(model) as z_card, recorded_channel_maxima(model) as m_card,
+          recorded_topk(model) as k_card):
         loss, metrics, grads, bufs = step_gradients(model, images, targets)
     flips, kink = 0, 0.0
-    for name, z in z_cpu.items():
-        flipped = (z_card[name] > 0) != (z > 0)
-        flips += int(flipped.sum())
-        kink = max(kink, float(z[flipped].abs().max() / z.abs().max()) if flipped.any() else 0.0)
+    for name, zs in z_cpu.items():
+        for z, z_c in zip(zs, z_card[name]):
+            flipped = (z_c > 0) != (z > 0)
+            flips += int(flipped.sum())
+            kink = max(kink, float(z[flipped].abs().max() / z.abs().max()) if flipped.any() else 0.0)
+    topk_flips, topk_gap = 0, 0.0
+    for name, calls in k_cpu.items():
+        for (flat, idx), (_, idx_card) in zip(calls, k_card[name]):
+            picked = torch.zeros(flat.shape, dtype=torch.bool).scatter_(1, idx, True)
+            extra = torch.zeros(flat.shape, dtype=torch.bool).scatter_(1, idx_card, True) & ~picked
+            topk_flips += int(extra.sum())
+            if extra.any():
+                kth = flat.gather(1, idx).amin(dim=1, keepdim=True)
+                gap = (kth - flat) / flat.abs().amax(dim=1, keepdim=True)
+                topk_gap = max(topk_gap, float(gap[extra].max()))
     max_flips, max_gap = 0, 0.0
     for name, xs in m_cpu.items():
         for x, x_card in zip(xs, m_card[name]):
@@ -1826,31 +1997,39 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
             if flipped.any():
                 gap = (x.amax(dim=1, keepdim=True) - x.gather(1, pick)) / x.abs().max()
                 max_gap = max(max_gap, float(gap[flipped].max()))
-    if flips or max_flips:
-        ref = with_max_decisions(with_relu_decisions(ref64, z_card), m_card)
+    if flips or max_flips or topk_flips:
+        ref = with_topk_decisions(with_max_decisions(with_relu_decisions(ref64, z_card), m_card), k_card)
         references[torch.float64] = step_gradients(ref, cpu_images, cpu_targets) + (references[torch.float64][4],)
     c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
     f32_grads = references[torch.float32][2]
     if z_cpu:
-        print(f"  {label}: {flips} of {sum(z.numel() for z in z_cpu.values())} ReLU decisions on the heads' "
+        print(f"  {label}: {flips} of {sum(z.numel() for zs in z_cpu.values() for z in zs)} ReLU decisions on the heads' "
               f"raw conv outputs differ between the card's f32 and the CPU's f64 forward, the farthest "
               f"{kink:.3g} of its block's largest pre-activation from 0 (bound 1e-4)"
               + (f"; {max_flips} of {sum(x[:, :1].numel() for xs in m_cpu.values() for x in xs)} UAFM channel "
                  f"maxima pick another channel, the farthest {max_gap:.3g} of its map's largest magnitude below "
                  f"the maximum (bound 1e-4)" if m_cpu else "")
-              + ("; the f64 step is taken again with the card's decisions" if flips or max_flips else ""))
-    if kink > 1e-4 or max_gap > 1e-4:
-        raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0, or a channel "
-                             f"maximum picked a channel {max_gap} of its map's scale below the maximum")
+              + (f"; the hard mining's top-k picks {topk_flips} of "
+                 f"{sum(i.numel() for calls in k_cpu.values() for _, i in calls)} distances outside the CPU's top-k, "
+                 f"the farthest {topk_gap:.3g} of its image's largest below the CPU's k-th (bound 1e-4)"
+                 if k_cpu else "")
+              + ("; the f64 step is taken again with the card's decisions" if flips or max_flips or topk_flips
+                 else ""))
+    if kink > 1e-4 or max_gap > 1e-4 or topk_gap > 1e-4:
+        raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0, a channel "
+                             f"maximum picked a channel {max_gap} of its map's scale below the maximum, or a "
+                             f"top-k pick lay {topk_gap} of its image's scale below the k-th")
 
     if not math.isclose(loss, c_loss, rel_tol=1e-4):
         raise AssertionError(f"loss {loss} on the card, {c_loss} on the CPU")
     for k, v in metrics.items():
         if not math.isclose(v, c_metrics[k], rel_tol=1e-4, abs_tol=1e-6):
             raise AssertionError(f"{k}: {v} on the card, {c_metrics[k]} on the CPU")
-    stem_params = [n for n in grads if n.startswith("backbone.features.stem.")]
-    if not stem_params or any(grads[n] is not None or c_grads[n] is not None for n in stem_params):
-        raise AssertionError("the frozen stem got a gradient")
+    frozen = [n for n in grads
+              if n.startswith("backbone.features.") and model.backbone.is_frozen_param(n.split(".")[2:])]
+    if (not any(n.startswith("backbone.features.stem.") for n in frozen)
+            or any(grads[n] is not None or c_grads[n] is not None for n in frozen)):
+        raise AssertionError("a frozen parameter got a gradient")
     # integer buffers (the panoptic head's step counter) must be equal
     counters = {n: (int(bufs[n]), int(b)) for n, b in c_bufs.items() if not b.is_floating_point()}
     if any(card != cpu for card, cpu in counters.values()):
@@ -1863,15 +2042,17 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
         float((bufs[n].cpu().double() - c_bufs[n]).abs().max() / c_bufs[n].abs().max().clamp_min(1e-12))
         for n in ("backbone.features.stem.bn.running_mean", "backbone.features.stem.bn.running_var")
     )
-    print(f"  {label}, {images.shape[0]} images at {SIZE} px, card f32 against CPU f64: loss {loss:.6f} / "
+    print(f"  {label}, {images.shape[0]} images at {images.shape[-1]} px, card f32 against CPU f64: loss {loss:.6f} / "
           f"{c_loss:.6f}; " + "; ".join(
               f"{k.replace('/train', '')} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
           + (f"; counters after the step {counters}" if counters else "")
           + f"; running statistics' largest relative error {stats_err:.3g} (the stem's, through K4, "
-          f"{stem_stats_err:.3g}); the stem got no gradient; CPU f64 step {t_cpu:.1f} s, f32 step "
+          f"{stem_stats_err:.3g}); the {len(frozen)} frozen parameters got no gradient; CPU f64 step {t_cpu:.1f} s, "
+          f"f32 step "
           f"{references[torch.float32][4]:.1f} s")
-    parts = {part: limit for part, limit in GRADIENT_LIMITS.items() if any(n.split(".")[0] == part for n in grads)}
-    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=stem_params,
+    parts = {part: limit for part, limit in GRADIENT_LIMITS.items()
+             if any(n.split(".")[0] == part and n not in frozen for n in grads)}
+    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=frozen,
                              held_f32=MASK_BRANCH + decoder_prefixes(model))
     if failed:
         raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
@@ -1947,15 +2128,18 @@ def read_counts(names) -> dict:
 
 def train(build=build_flagship, batch=None,
           kernels=("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats"),
-          steps: int = 10, label: str = "training", schedule=None):
-    """Phases 7, 11 and 15: bf16 training steps through Trainer (level 1
-    frozen, bench.py's optimizer, and ``schedule``'s scheduler arguments)
-    on ``batch`` (the flagship's 16 images by default); every kernel in
-    ``kernels`` must launch."""
+          steps: int = 10, label: str = "training", schedule=None, prepare=None):
+    """Phases 7, 11 and 15: bf16 training steps through Trainer (the trunk
+    frozen by ``freeze_trunk``, bench.py's optimizer, and ``schedule``'s
+    scheduler arguments) on ``batch`` (the flagship's 16 images by
+    default); every kernel in ``kernels`` must launch.  ``prepare(trainer)``
+    runs first (the anomaly model's teacher statistics and pretraining)."""
     with compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(2))
-    model.backbone.set_frozen_levels(1)
+    freeze_trunk(model)
     trainer = Trainer(model, **OPTIMIZER, **(schedule or {}))
+    if prepare is not None:
+        prepare(trainer)
     images, targets = batch if batch is not None else training_batch(BATCH)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2273,8 +2457,8 @@ def cudnn_deterministic():
 
 def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/map_50",
               param_tol: float = 1e-5, schedule=None, prepare=None) -> dict:
-    """Phases 20-22, 27, 32 and 37: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
-    (16 images at 640 px, level 1 frozen, bench.py's optimizer, EMA 0.999),
+    """Phases 20-22, 27, 32, 37, 42, 47, 52, 57 and 62: ``Trainer.fit`` of four bf16 steps on ``batches[0]``
+    (16 images at 640 px, the trunk frozen by ``freeze_trunk``, bench.py's optimizer, EMA 0.999),
     validating on both batches every 2 steps and saving a checkpoint every
     2; then one ``validate`` between launch-count reads, which must launch
     every kernel in ``kernels`` and no backward kernel, and leave the
@@ -2290,12 +2474,14 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
     the checkpoint's save and restore seconds beside the card's name and
     power limit.  ``schedule`` adds scheduler arguments to the trainers;
     ``prepare(trainer)`` runs before the fit (the multitask model populates
-    its metric head's index there).  Returns the validate's launch counts."""
+    its metric head's index there, the anomaly model pretrains).  An anomaly
+    head's restored reservoirs and calibration are printed and must be
+    there.  Returns the validate's launch counts."""
 
     def fresh_trainer(seed):
         with compute_dtype_scope(torch.bfloat16):
             model = build(torch.Generator().manual_seed(seed))
-        model.backbone.set_frozen_levels(1)
+        freeze_trunk(model)
         return Trainer(model, ema_decay=0.999, **OPTIMIZER, **(schedule or {}))
 
     trainer = fresh_trainer(3)
@@ -2353,6 +2539,15 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
         t_restore = time.perf_counter() - t0
     if not states_equal(other.state_dict(), trainer.state_dict()):
         raise AssertionError(f"{label}: the restored state differs from the saved one")
+    for head in other.model.heads:
+        if isinstance(head, AnomalyDetection):
+            calibration = {n: float(getattr(head, n)) for n in ("q_st_start", "q_st_end", "q_ae_start", "q_ae_end")}
+            print(f"  {label}: the restored reservoirs hold {int(head.reservoir_filled)} of {head.reservoir_size} "
+                  f"entries, the ring at {int(head.reservoir_pos)}; calibration {calibration}; teacher std "
+                  f"{float(head.feature_std.min()):.4g}-{float(head.feature_std.max()):.4g}")
+            if int(head.reservoir_filled) == 0 or calibration["q_st_end"] == 0.1 or not torch.isfinite(
+                    head.feature_std).all():
+                raise AssertionError(f"{label}: the restored head carries no calibration")
     with cudnn_deterministic():
         loss = trainer.training_step(*train_batch)["trainer/loss"]
         other_loss = other.training_step(*train_batch)["trainer/loss"]
@@ -2362,7 +2557,7 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
         served = trainer.predict(train_batch[0])[0]
         with compute_dtype_scope(torch.bfloat16):
             ema_model = build(torch.Generator().manual_seed(5))
-        ema_model.backbone.set_frozen_levels(1)  # its stem through K4, as the trainer's
+        freeze_trunk(ema_model)  # its stem through K4, as the trainer's
         ema_model.load_state_dict({**model.state_dict(), **trainer.ema_params})
         with torch.no_grad():
             want = ema_model.eval()(train_batch[0])[0]
@@ -2566,6 +2761,173 @@ def multitask_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     return launches
 
 
+K4_ONLY = ("stem_conv_stats",)
+
+
+@torch.no_grad()
+def teacher_statistics(model: SihlModel, images: torch.Tensor) -> None:
+    """The trunk's BatchNorms take the statistics of one training-mode
+    forward of ``images`` as their running statistics: a random frozen
+    teacher's stand-in for pretrained ones.  With random running statistics
+    a stem filter that is negative on every pixel of images in [0, 1] can
+    leave a channel 0 everywhere, down to the anomaly head's level, whose
+    standard deviation is then 0 and its distances infinite."""
+    norms = [m for m in model.backbone.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.momentum = 0.0
+    model.backbone.train()
+    model.backbone(images)
+    for m in norms:
+        del m.momentum
+
+
+def pretrained_teacher(batches):
+    """A ``train`` / ``fit_phase`` ``prepare`` for the anomaly model: the
+    teacher's BatchNorm statistics from the first batch
+    (``teacher_statistics``), then ``Trainer.pretrain`` over ``batches``
+    (``examples/anomaly_detection.py:32``), whose frozen stem must launch
+    K4 once a batch; the teacher's mean and standard deviation must come
+    out finite, the deviations positive."""
+
+    def prepare(trainer):
+        teacher_statistics(trainer.model, batches[0][0])
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer.pretrain([(x, None) for x, _ in batches])
+        torch.cuda.synchronize()
+        t_pretrain = time.perf_counter() - t0
+        k4 = read_counts(K4_ONLY)["stem_conv_stats"]
+        head = trainer.model.heads[0]
+        std = head.feature_std
+        print(f"  pretrain over {len(batches)} batches of {batches[0][0].shape[0]} at {batches[0][0].shape[-1]} px: "
+              f"{t_pretrain:.3f} s; teacher mean {float(head.features_mean.min()):.4g}-"
+              f"{float(head.features_mean.max()):.4g}, std {float(std.min()):.4g}-{float(std.max()):.4g}; K4 "
+              f"launches {k4}")
+        if k4 != len(batches) or not torch.isfinite(head.features_mean).all() or not (std > 0).all():
+            raise AssertionError(f"pretrain launched K4 {k4} times, or left no usable teacher statistics")
+
+    return prepare
+
+
+@torch.no_grad()
+def calibrate_anomaly(model: SihlModel, batches) -> None:
+    """The anomaly model as training leaves it: the teacher's statistics
+    (``pretrained_teacher``), one reservoir write a batch in training mode,
+    then the quantiles (``on_validation_start``), so that its maps are not
+    all 0 or all 1."""
+    pretrained_teacher(batches)(Trainer(model, **OPTIMIZER))
+    model.train()
+    model.backbone._set_frozen_bn_eval()
+    for x, _ in batches:
+        model.heads[0].training_step(model.extract_features(x))
+    model.heads[0].on_validation_start()
+    model.eval()
+
+
+def check_ssl_slice(model: SihlModel, images: torch.Tensor, label: str) -> None:
+    """Phases 48, 53 and 58: one of the self-supervised or anomaly models in
+    f32 on two images, on the card (its frozen stem through K4's f32 body,
+    in full f32) and on the CPU (the plain versions) with the same weights:
+    each output (reconstructions and representations, embeddings, anomaly
+    maps) within 1e-4 of its largest magnitude; K4 must launch once."""
+    with torch.no_grad():
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        want = cpu_model(images)[0]
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        with full_f32():
+            got = model(images.cuda())[0]
+        k4 = read_counts(K4_ONLY)["stem_conv_stats"]
+    head = model.heads[0]
+    want = want if isinstance(want, tuple) else (want,)
+    got = [t.cpu() for t in (got if isinstance(got, tuple) else (got,))]
+    errors = {name: float((g - w).abs().max() / w.abs().max().clamp_min(1e-12))
+              for name, g, w in zip(head.output_shapes, got, want)}
+    extra = ""
+    if isinstance(head, AnomalyDetection):
+        maps = want[0]
+        extra = (f"; CPU maps at 0 {float((maps == 0).float().mean()):.4f}, at 1 {float((maps == 1).float().mean()):.4f}"
+                 f", between {float(((maps > 0) & (maps < 1)).float().mean()):.4f} of pixels")
+    print(f"  {label} f32, {images.shape[0]} images at {images.shape[-1]} px: largest errors relative to each "
+          f"output's largest magnitude {({k: f'{v:.3g}' for k, v in errors.items()})}{extra}; K4 launches {k4}; CPU "
+          f"forward {t_cpu:.1f} s")
+    if not all(torch.isfinite(g).all() for g in got):
+        raise AssertionError(f"{label}: non-finite outputs")
+    if k4 != 1:
+        raise AssertionError(f"{label}: the frozen stem launched K4 {k4} times")
+    if max(errors.values()) > 1e-4:
+        raise AssertionError(f"{label}: errors {errors} out of bounds")
+
+
+def autoencoder_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 48-52, the autoencoder (``build_autoencoder``): the f32 serving
+    slice against the CPU at ``SSL_SERVE_SIZE``, three bf16 requests, the f32
+    training slice against f64 on the CPU at ``SSL_TRAIN_SIZE``, ten bf16
+    steps and the fit; K4 launches in each.  Returns the launch counts of
+    serving, training and validation."""
+    model = build_autoencoder(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_ssl_slice(model, autoencoder_batch(2, seed=1, size=SSL_SERVE_SIZE, device="cpu")[0], "autoencoder slice")
+    launches = {"autoencoder_serve": serve_phase(model, build_autoencoder, cuda_gen, K4_ONLY, "autoencoder serving")}
+    check_train_slice(model, gen, build_autoencoder, autoencoder_batch(2, seed=1, size=SSL_TRAIN_SIZE),
+                      "autoencoder train slice")
+    del model
+    launches["autoencoder_train"] = train(build_autoencoder, autoencoder_batch(BATCH), K4_ONLY,
+                                          label="autoencoder training")
+    launches["autoencoder_validate"] = fit_phase(
+        build_autoencoder, [autoencoder_batch(BATCH), autoencoder_batch(BATCH, seed=4)], K4_ONLY, "autoencoder fit",
+        metric="head0/valid/mean_squared_error", param_tol=DENSE_PARAM_TOL)
+    return launches
+
+
+def view_invariance_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 53-57, the view-invariance model (``build_view_invariance``) as
+    phases 48-52, at 640 px throughout (its train slice takes four images:
+    standardised over two, every embedding is +-1/sqrt(2) and the loss has
+    no gradient); each step runs the trunk on both views."""
+    model = build_view_invariance(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_ssl_slice(model, view_batch(2, seed=1, device="cpu")[0], "view-invariance slice")
+    launches = {"view_serve": serve_phase(model, build_view_invariance, cuda_gen, K4_ONLY, "view-invariance serving")}
+    check_train_slice(model, gen, build_view_invariance, view_batch(4, seed=1), "view-invariance train slice")
+    del model
+    launches["view_train"] = train(build_view_invariance, view_batch(BATCH), K4_ONLY, label="view-invariance training")
+    launches["view_validate"] = fit_phase(
+        build_view_invariance, [view_batch(BATCH), view_batch(BATCH, seed=4)], K4_ONLY, "view-invariance fit",
+        metric="head0/valid/normalized_frobenius_norm")
+    return launches
+
+
+def anomaly_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 58-62, the anomaly model (``build_anomaly``) as phases 48-52:
+    its slices' weights calibrated first (``calibrate_anomaly``), its train
+    slice taking the card's top-k picks into the f64 step, its training and
+    fit after ``Trainer.pretrain`` over ``PRETRAIN_BATCHES`` batches of 16
+    (``pretrained_teacher``); the fit validates on a normal and an anomalous
+    batch and its restored checkpoint must carry the reservoirs, their
+    position and the calibration."""
+    model = build_anomaly(gen)
+    randomize_norms_and_biases(model, gen)
+    calibrate_anomaly(model, [anomaly_batch(4, seed=10 + i, size=SSL_SERVE_SIZE) for i in range(PRETRAIN_BATCHES)])
+    check_ssl_slice(model, anomaly_batch(2, seed=1, anomalous=True, size=SSL_SERVE_SIZE, device="cpu")[0],
+                    "anomaly slice")
+    launches = {"anomaly_serve": serve_phase(model, build_anomaly, cuda_gen, K4_ONLY, "anomaly serving")}
+    check_train_slice(model, gen, build_anomaly, (anomaly_batch(2, seed=1, size=SSL_TRAIN_SIZE)[0], None),
+                      "anomaly train slice")
+    del model
+    pretrain = pretrained_teacher([anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)])
+    launches["anomaly_train"] = train(build_anomaly, (anomaly_batch(BATCH)[0], None), K4_ONLY,
+                                      label="anomaly training", prepare=pretrain)
+    launches["anomaly_validate"] = fit_phase(
+        build_anomaly, [anomaly_batch(BATCH, seed=4), anomaly_batch(BATCH, seed=5, anomalous=True)], K4_ONLY,
+        "anomaly fit", metric="head0/valid/mean_iou", param_tol=DENSE_PARAM_TOL, prepare=pretrain)
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -2712,6 +3074,13 @@ def main() -> None:
     launches.update(multitask_phases(gen, cuda_gen))
     print(f"phases 43-47 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 48-62: the autoencoder, the view-invariance model and the
+    # anomaly model; each runs K4 alone, at the shape phase 3 held
+    for first, phases in ((48, autoencoder_phases), (53, view_invariance_phases), (58, anomaly_phases)):
+        t0 = time.perf_counter()
+        launches.update(phases(gen, cuda_gen))
+        print(f"phases {first}-{first + 4} in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -2826,6 +3195,9 @@ def main() -> None:
         *((f"stem_conv_stats@{path}", path, "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats")
           for path in ("hybrid_serve", "hybrid_train", "hybrid_validate", "multitask_serve", "multitask_train",
                        "multitask_validate")),
+        *((f"stem_conv_stats@{model}_{path}", f"{model}_{path}", "stem_conv_stats", "cuda", stem_cu, stem_py,
+           "stem_conv_stats")
+          for model in ("autoencoder", "view", "anomaly") for path in ("serve", "train", "validate")),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -11,6 +11,9 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --panoptic [--train] # the panoptic model
     python3 profile_serving.py --hybrid [--train]   # the canonical detector (HybridEncoder neck)
     python3 profile_serving.py --multitask [--train] # the four-head multitask model
+    python3 profile_serving.py --autoencoder [--train]     # the autoencoder
+    python3 profile_serving.py --view-invariance [--train] # the view-invariance (Barlow Twins) model
+    python3 profile_serving.py --anomaly [--train]         # the anomaly (EfficientAD) model
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -18,8 +21,13 @@ with ``--quad``, its quadrilateral detector, trained on 5-20 quads per image;
 with ``--dense`` and ``--panoptic`` its dense models, trained on the
 targets of ``chip_smoke.dense_batch`` and ``panoptic_batch``; with
 ``--hybrid`` its canonical detector, trained on bench.py's targets on the
-example's multistep schedule, and with ``--multitask`` its multitask model,
-trained on ``chip_smoke.multitask_batch``;
+example's multistep schedule, with ``--multitask`` its multitask model,
+trained on ``chip_smoke.multitask_batch``, and with ``--autoencoder``,
+``--view-invariance`` and ``--anomaly`` its self-supervised and anomaly
+models, trained on ``chip_smoke.autoencoder_batch``, ``view_batch`` and
+``anomaly_batch``, the anomaly model after its teacher's statistics and
+``Trainer.pretrain`` (``chip_smoke.pretrained_teacher``; served after
+``chip_smoke.calibrate_anomaly``);
 random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
@@ -44,9 +52,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, HYBRID_SCHEDULE, OPTIMIZER, SIZE, build_dense, build_flagship, build_hybrid, build_instance,
-    build_multitask, build_panoptic, build_quad, card_name, dense_batch, instance_batch, multitask_batch,
-    panoptic_batch, quad_batch, randomize_norms_and_biases, training_batch,
+    BATCH, HYBRID_SCHEDULE, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly,
+    build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_multitask, build_panoptic,
+    build_quad, build_view_invariance, calibrate_anomaly, card_name, dense_batch, freeze_trunk, instance_batch,
+    multitask_batch, panoptic_batch, pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch,
+    view_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -77,6 +87,11 @@ OP_CLASSES = (
     ("matrix products", ("aten::mm", "aten::bmm", "aten::addmm", "aten::baddbmm")),
     ("concatenation", ("aten::cat",)),
     ("GELU and SiLU", ("aten::gelu", "aten::gelu_backward", "aten::silu", "aten::silu_backward")),
+    ("bilinear resize", ("aten::upsample_bilinear2d", "aten::upsample_bilinear2d_backward")),
+    ("average pool", ("aten::avg_pool2d", "aten::avg_pool2d_backward")),
+    ("sigmoid", ("aten::sigmoid", "aten::sigmoid_backward")),
+    ("top-k and gather", ("aten::topk", "aten::gather", "aten::scatter")),
+    ("squares and powers", ("aten::pow",)),
 )
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
@@ -114,6 +129,9 @@ def main() -> None:
     models.add_argument("--panoptic", action="store_true", help="the panoptic model")
     models.add_argument("--hybrid", action="store_true", help="the canonical detector (HybridEncoder neck)")
     models.add_argument("--multitask", action="store_true", help="the four-head multitask model")
+    models.add_argument("--autoencoder", action="store_true", help="the autoencoder")
+    models.add_argument("--view-invariance", action="store_true", help="the view-invariance (Barlow Twins) model")
+    models.add_argument("--anomaly", action="store_true", help="the anomaly (EfficientAD) model")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -122,6 +140,9 @@ def main() -> None:
         else ("panoptic", build_panoptic, panoptic_batch) if args.panoptic
         else ("canonical detector", build_hybrid, training_batch) if args.hybrid
         else ("multitask", build_multitask, multitask_batch) if args.multitask
+        else ("autoencoder", build_autoencoder, autoencoder_batch) if args.autoencoder
+        else ("view invariance", build_view_invariance, view_batch) if args.view_invariance
+        else ("anomaly", build_anomaly, lambda b: (anomaly_batch(b)[0], None)) if args.anomaly
         else ("flagship", build_flagship, training_batch)
     )
     train = args.train
@@ -130,15 +151,20 @@ def main() -> None:
     print(f"card: {card_name()}")
     with compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(0))
+    pretraining = [anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)] if args.anomaly else None
     if train:
-        model.backbone.set_frozen_levels(1)
+        freeze_trunk(model)
         trainer = Trainer(model, **OPTIMIZER, **(HYBRID_SCHEDULE if args.hybrid else {}))
+        if pretraining:
+            pretrained_teacher(pretraining)(trainer)
         images, targets = batch(BATCH)
 
         def work():
             trainer.training_step(images, targets)
     else:
         randomize_norms_and_biases(model, torch.Generator().manual_seed(1))
+        if pretraining:
+            calibrate_anomaly(model, pretraining)
         model.eval()
         images = torch.rand(
             BATCH, 3, SIZE, SIZE, device="cuda", generator=torch.Generator("cuda").manual_seed(0)

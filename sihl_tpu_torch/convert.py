@@ -15,15 +15,23 @@ from sihl_tpu_torch.layers.transformer import MergeHeadsLinear, SplitHeadsLinear
 
 _LEAF_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
 # plain ``nnx.Variable`` leaves that the port keeps as buffers of the same
-# name and dtype: the panoptic head's step counter (int32)
-_VARIABLE_LEAVES = {"step_counter"}
+# name and dtype: the panoptic head's step counter (int32); the anomaly
+# head's calibration scalars, reservoirs (f32) and their position and fill
+# (int32)
+VARIABLE_LEAVES = frozenset({
+    "step_counter", "local_thresh", "global_thresh", "q_st_start", "q_st_end", "q_ae_start", "q_ae_end",
+    "st_reservoir", "stae_reservoir", "reservoir_pos", "reservoir_filled",
+})
+# ``nnx.Variable`` leaves of shape (1, 1, 1, C), which the port keeps as
+# (1, C, 1, 1) buffers: the anomaly head's teacher statistics
+NHWC_VARIABLE_LEAVES = frozenset({"features_mean", "feature_std"})
 
 
 def state_dict_from_flat(
     flat: Dict[str, np.ndarray], module: Optional[nn.Module] = None
 ) -> Dict[str, torch.Tensor]:
     """Turn the ``nnx.Param`` and ``nnx.BatchStat`` leaves of a JAX model,
-    and its ``step_counter`` variables, as numpy arrays under dotted nnx
+    and its variables named below, as numpy arrays under dotted nnx
     paths (``"neck.smooth.0.conv.kernel"``), into a state dict for the
     port's ``load_state_dict(strict=True)``.
 
@@ -49,8 +57,12 @@ def state_dict_from_flat(
     * BatchNorm ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
     * GroupNorm and LayerNorm ``scale/bias`` → ``weight/bias``;
     * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is;
-    * ``step_counter`` (an ``nnx.Variable``, int32) → the buffer
-      ``step_counter``, its dtype kept.
+    * the ``nnx.Variable`` leaves of :data:`VARIABLE_LEAVES` (the panoptic
+      head's ``step_counter``, the anomaly head's calibration, reservoirs
+      and their int32 position and fill) → buffers of the same name, their
+      shape and dtype kept;
+    * the anomaly head's ``features_mean`` and ``feature_std`` (1, 1, 1, C)
+      → buffers (1, C, 1, 1).
 
     Without ``module`` every 4-D kernel takes the conv rule: a transposed
     conv's weight then comes out in the conv's axis order, which
@@ -64,8 +76,11 @@ def state_dict_from_flat(
     out = {}
     for path, value in flat.items():
         prefix, _, leaf = path.rpartition(".")
-        if leaf in _VARIABLE_LEAVES:
+        if leaf in VARIABLE_LEAVES:
             out[path] = torch.from_numpy(np.array(value, order="C"))
+            continue
+        if leaf in NHWC_VARIABLE_LEAVES:
+            out[path] = torch.from_numpy(np.array(np.asarray(value).transpose(0, 3, 1, 2), order="C"))
             continue
         value = np.asarray(value, dtype=np.float32)
         if leaf == "kernel":

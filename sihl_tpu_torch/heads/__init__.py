@@ -1,5 +1,7 @@
 """Task heads of the port."""
 
+from sihl_tpu_torch.heads.anomaly_detection import AnomalyDetection
+from sihl_tpu_torch.heads.autoencoding import Autoencoding
 from sihl_tpu_torch.heads.base import Head, TensorShape
 from sihl_tpu_torch.heads.depth_estimation import DepthEstimation
 from sihl_tpu_torch.heads.instance_segmentation import InstanceSegmentation
@@ -12,8 +14,11 @@ from sihl_tpu_torch.heads.quadrilateral_detection import QuadrilateralDetection
 from sihl_tpu_torch.heads.regression import Regression
 from sihl_tpu_torch.heads.semantic_segmentation import SPPM, UAFM, SemanticSegmentation
 from sihl_tpu_torch.heads.text_recognition import TextRecognition
+from sihl_tpu_torch.heads.view_invariance_learning import ViewInvarianceLearning
 
 __all__ = [
+    "AnomalyDetection",
+    "Autoencoding",
     "DepthEstimation",
     "Head",
     "InstanceSegmentation",
@@ -29,6 +34,7 @@ __all__ = [
     "TensorShape",
     "TextRecognition",
     "UAFM",
+    "ViewInvarianceLearning",
     "panoptic_targets_from_maps",
     "soft_ordinal_category",
 ]

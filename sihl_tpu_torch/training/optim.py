@@ -47,7 +47,7 @@ def make_schedule(
         def main(step: int) -> float:
             return learning_rate * gamma ** sum(step >= m for m in milestones)
     else:
-        raise NotImplementedError(f"scheduler {scheduler!r} is not ported yet (ROADMAP.md, M7)")
+        raise NotImplementedError(f"scheduler {scheduler!r} is not ported yet (ROADMAP.md, M9b)")
 
     if not warmup:
         return main
@@ -109,7 +109,7 @@ def make_optimizer(
     if optimizer in ("adam", "adamw"):
         # decoupled decay, as optax.adamw; groups without decay are plain Adam
         return torch.optim.AdamW(groups, **kwargs), schedule
-    raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet (ROADMAP.md, M7)")
+    raise NotImplementedError(f"optimizer {optimizer!r} is not ported yet (ROADMAP.md, M9b)")
 
 
 @torch.no_grad()

@@ -15,7 +15,12 @@ without gradients, metric states on the device, ``aux`` collected on the
 host, results under ``head{i}/valid/...``), :meth:`Trainer.predict`, the
 EMA shadow of the parameters and the train state
 (:meth:`Trainer.state_dict` / :meth:`Trainer.load_state_dict`, saved by
-``sihl_tpu_torch.training.checkpoint``).
+``sihl_tpu_torch.training.checkpoint``), and the pretraining protocol
+(:meth:`Trainer.pretrain`: the heads' ``pretrain_init`` / ``pretrain_step``
+/ ``pretrain_end`` in eval mode, the anomaly head's teacher statistics).
+A head whose ``target_is_second_view`` is set (Barlow Twins) gets the
+trunk's features of its target, a second view of the images, as one
+argument, in training and in validation.
 
 Every write into the live parameters (EMA, :meth:`Trainer.use_ema_params`,
 :meth:`Trainer.load_state_dict`) is an in-place ``copy_``: the K1 pack cache
@@ -24,8 +29,7 @@ an in-place write bumps, so the next call repacks.
 
 Not ported: the scanned multi-step dispatch (``steps_per_dispatch > 1``,
 ROADMAP.md M9b), meshes and spatial partitioning (M19), visualization
-(M20), ``remat`` (a TPU memory lever, not ported) and the pretraining
-protocol of the anomaly head (M15).
+(M20) and ``remat`` (a TPU memory lever, not ported).
 """
 
 import os
@@ -48,12 +52,23 @@ def _call_step(head, method: str, feats, target, state=None):
     return fn(*lead, feats, *(() if target is None else (target,)))
 
 
+def _second_view(model: SihlModel, head, target):
+    """A ``target_is_second_view`` head's target: the trunk's features of
+    the second view, as one argument (not splat)."""
+    if getattr(head, "target_is_second_view", False):
+        return (model.extract_features(target),)
+    return target
+
+
 def _losses(model: SihlModel, x: torch.Tensor, targets):
     """The sum of the heads' losses, and every head's metrics under
-    ``head{i}/train/...``."""
+    ``head{i}/train/...``.  The trunk runs on ``x`` first, then on each
+    second view, as in the JAX package (in training mode each run moves the
+    BatchNorms' running statistics, in that order)."""
     feats = model.extract_features(x)
     losses, metrics = [], {}
     for idx, (head, target) in enumerate(zip(model.heads, targets)):
+        target = _second_view(model, head, target)
         loss, head_metrics = _call_step(head, "training_step", feats, target)
         losses.append(loss)
         metrics[f"head{idx}/train/loss"] = loss
@@ -68,11 +83,25 @@ def _eval_step(model: SihlModel, metric_states, x: torch.Tensor, targets):
     feats = model.extract_features(x)
     new_states, losses, auxes = [], [], []
     for head, state, target in zip(model.heads, metric_states, targets):
+        target = _second_view(model, head, target)
         state, loss, aux = _call_step(head, "validation_step", feats, target, state=state)
         new_states.append(state)
         losses.append(loss)
         auxes.append(aux)
     return new_states, torch.stack(losses).sum(), auxes
+
+
+def _pretrain_step(model: SihlModel, pre_states, x: torch.Tensor, targets):
+    """Each head's ``pretrain_step`` on the shared features, for the heads
+    that have a pretraining state; the new states."""
+    feats = model.extract_features(x)
+    new_states = []
+    for head, state, target in zip(model.heads, pre_states, targets):
+        if state is None or not hasattr(head, "pretrain_step"):
+            new_states.append(state)
+            continue
+        new_states.append(_call_step(head, "pretrain_step", feats, target, state=state))
+    return new_states
 
 
 def _to_host(tree):
@@ -286,6 +315,26 @@ class Trainer:
             if self.hyperparameters and hasattr(self.logger, "log_hyperparams"):
                 self.logger.log_hyperparams(self.hyperparameters, metrics, self.step)
         return metrics
+
+    # -- pretraining protocol (the anomaly head's teacher statistics) --------
+    @torch.no_grad()
+    def pretrain(self, data) -> None:
+        """Run the heads' pretraining protocol over ``data`` (an iterable of
+        ``(x, targets)``) in eval mode without gradients: ``pretrain_init``,
+        ``pretrain_step`` for every batch, ``pretrain_end``.  Nothing happens
+        when no head has a ``pretrain_init``.  The next
+        :meth:`training_step` returns the model to training mode."""
+        self.model.eval()
+        states = [head.pretrain_init() if hasattr(head, "pretrain_init") else None for head in self.model.heads]
+        if all(s is None for s in states):
+            return
+        for x, targets in data:
+            if not isinstance(targets, list):
+                targets = [targets]
+            states = _pretrain_step(self.model, states, x, targets)
+        for head, state in zip(self.model.heads, states):
+            if state is not None and hasattr(head, "pretrain_end"):
+                head.pretrain_end(state)
 
     @torch.no_grad()
     def use_ema_params(self) -> None:

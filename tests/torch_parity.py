@@ -8,7 +8,8 @@ import numpy as np
 import torch
 from flax import nnx
 
-from sihl_tpu_torch.convert import state_dict_from_flat
+from sihl_tpu_torch.convert import NHWC_VARIABLE_LEAVES, VARIABLE_LEAVES, state_dict_from_flat
+from sihl_tpu_torch.layers.convblocks import BatchNorm2d
 from sihl_tpu_torch.policy import set_default_device
 
 # the test suite runs several pytest workers on one host, none with a card
@@ -17,9 +18,12 @@ set_default_device("cpu")
 
 
 def flat_state(module) -> dict:
-    """The module's Param and BatchStat leaves, and the panoptic head's
-    ``step_counter`` variable, as numpy arrays under dotted paths."""
-    state = nnx.state(module, nnx.Any(nnx.Param, nnx.BatchStat, nnx.PathContains("step_counter")))
+    """The module's Param and BatchStat leaves, and the variables that
+    ``state_dict_from_flat`` carries (the panoptic head's ``step_counter``,
+    the anomaly head's calibration and reservoirs), as numpy arrays under
+    dotted paths."""
+    names = sorted(VARIABLE_LEAVES | NHWC_VARIABLE_LEAVES)
+    state = nnx.state(module, nnx.Any(nnx.Param, nnx.BatchStat, *(nnx.PathContains(n) for n in names)))
     return {
         ".".join(str(p) for p in path): np.asarray(v[...])
         for path, v in nnx.to_flat_state(state)
@@ -53,6 +57,35 @@ def damp_residual_branches(module, rng: np.random.RandomState, lo: float = 0.01,
     for path, sub in nnx.iter_graph(module):
         if isinstance(sub, nnx.BatchNorm) and tuple(path[-2:]) == ("conv3", "bn"):
             sub.scale[...] = jnp.asarray(rng.uniform(lo, hi, sub.scale[...].shape), jnp.float32)
+
+
+@torch.no_grad()
+def batch_stats_from_data(module: torch.nn.Module, images: torch.Tensor) -> None:
+    """Every BatchNorm of ``module`` (a port backbone) takes the statistics of
+    one training-mode forward of ``images`` as its running statistics: a
+    random frozen teacher's stand-in for pretrained statistics.  With the
+    initial ones, a stem filter that is negative on every pixel of images in
+    [0, 1] leaves its channel 0 everywhere, down to the anomaly head's
+    teacher level, whose standard deviation is then 0."""
+    norms = [m for m in module.modules() if isinstance(m, BatchNorm2d)]
+    for m in norms:
+        m.momentum = 0.0
+    module.train()
+    module(images)
+    module.eval()
+    for m in norms:
+        del m.momentum
+
+
+def copy_batch_stats(port_module: torch.nn.Module, jax_module) -> None:
+    """The port module's BatchNorm running statistics into the JAX module's
+    BatchNorms at the same paths."""
+    state = port_module.state_dict()
+    for path, sub in nnx.iter_graph(jax_module):
+        if isinstance(sub, nnx.BatchNorm):
+            prefix = ".".join(str(p) for p in path)
+            sub.mean[...] = jnp.asarray(state[f"{prefix}.running_mean"].numpy())
+            sub.var[...] = jnp.asarray(state[f"{prefix}.running_var"].numpy())
 
 
 def load_from_jax(port_module: torch.nn.Module, jax_module) -> torch.nn.Module:
