@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Eleven models run through the port's hand-written kernels, with random
+Twelve models run through the port's hand-written kernels, with random
 weights from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -32,8 +32,11 @@ self-supervised and anomaly models of ``examples/autoencoding.py``,
 ``view_invariance.py`` and ``anomaly_detection.py`` (ResNet-18, no neck;
 Autoencoding, ViewInvarianceLearning and AnomalyDetection at their
 defaults; the anomaly model's teacher wholly frozen with its BatchNorms in
-eval mode).  Every training step freezes level 1 at least, so its stem
-runs K4.  Phases, each of which raises on failure:
+eval mode), and the keypoint model of ``examples/keypoint_detection.py``
+(ResNet-18, FPN 128 channels over levels 3-5, KeypointDetection with
+COCO's 17 keypoints and 10 targets at its defaults: its kernel MLP
+predicts 2,737 dynamic weights an instance).  Every training step freezes
+level 1 at least, so its stem runs K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -41,7 +44,8 @@ runs K4.  Phases, each of which raises on failure:
    paths give it, with CUDA-event timings of both and the least time the
    card could take for the same work (the bound); K4's and K5f's SASS must
    show tensor-core instructions in their bf16 bodies, and K5f's no
-   f32 <-> bf16 conversion;
+   f32 <-> bf16 conversion; K5f and K5b also at the keypoint head's decodes
+   (c = 32, k = 17; 16 x 100 serving, 16 x 128 training, bf16);
 4. slice: one batch of two 640 px images, f32, served on the card and on the
    CPU (where the plain versions run) with the same weights;
 5. serving: three requests of 16 images at 640 px in bf16;
@@ -165,7 +169,16 @@ runs K4.  Phases, each of which raises on failure:
    example's noise patch, the train slice taking the card's top-k picks
    into the f64 step, and the fit validating on a normal and an anomalous
    batch, its restored checkpoint carrying the reservoirs, their position
-   and the calibration.
+   and the calibration;
+63-67. the same five for the keypoint model, after K1f and K1b at its
+   calls (the presence and kernel MLPs' outputs 17 and 2,737 wide, over
+   1,600 and 2,048 rows, bf16 and f32; the loc MLP over 6,400 rows) and K2
+   at its matching (160 x 400): the f32 serving slice (scores and presence
+   against the CPU, keypoints equal wherever a heatmap is clear of a near
+   tie; K4, K3, K1f and K5f must launch), three bf16 requests (K1f twice
+   a request), the f32 train slice against f64, ten bf16 steps (K1f, K1b,
+   K2, K3, K4, K5f and K5b must launch) and the fit, validating with PCK on
+   the host.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -192,9 +205,10 @@ import torch.nn.functional as F
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
 from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
-                                  MetricLearning, MulticlassClassification, MultilabelClassification, ObjectDetection,
-                                  PanopticSegmentation, QuadrilateralDetection, Regression, SemanticSegmentation,
-                                  TextRecognition, UAFM, ViewInvarianceLearning, anchors)
+                                  KeypointDetection, MetricLearning, MulticlassClassification,
+                                  MultilabelClassification, ObjectDetection, PanopticSegmentation,
+                                  QuadrilateralDetection, Regression, SemanticSegmentation, TextRecognition, UAFM,
+                                  ViewInvarianceLearning, anchors)
 from sihl_tpu_torch.heads.anomaly_detection import hard_mined
 from sihl_tpu_torch.heads.semantic_segmentation import channel_max
 from sihl_tpu_torch.layers import FPN, BiFPN, HybridEncoder
@@ -258,6 +272,14 @@ SSL_SERVE_SIZE, SSL_TRAIN_SIZE = 320, 160
 # the anomaly example's noise patch (rows and columns 30-60 at 128 px),
 # scaled to 640 px; its pretraining pass takes 4 batches
 ANOMALY_PATCH, PRETRAIN_BATCHES = (150, 300), 4
+# the keypoint model (examples/keypoint_detection.py:12-20): FPN 128 wide over
+# levels 3-5; KeypointDetection with COCO's 17 keypoints and 10 targets at its
+# defaults (256 channels, 4 layers, anchors at level 5: 20 x 20 an image,
+# heatmaps at level 3, 100 instances, 128 positives); its dynamic net has
+# c = 32 channels, 2,737 weights an instance
+KEYPOINTS, KP_TARGETS, KP_POSITIVES, KP_CHANNELS = 17, 10, 128, 32
+KP_ANCHORS = (SIZE // 32) ** 2
+KP_PARAMS = dynconv.param_count(KP_CHANNELS, KEYPOINTS)
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -422,6 +444,17 @@ def build_anomaly(generator: torch.Generator, device=None) -> SihlModel:
     backbone = Backbone("resnet18", top_level=5, freeze_batchnorms=True, generator=generator, device=device)
     backbone.set_frozen_levels(-1)
     return SihlModel(backbone, None, [AnomalyDetection(backbone.out_channels, generator=generator, device=device)])
+
+
+def build_keypoint(generator: torch.Generator, device=None) -> SihlModel:
+    """``examples/keypoint_detection.py:16-21``'s model: ResNet-18 (the
+    examples' default) with level 1 frozen, FPN 128 wide over levels 3-5,
+    KeypointDetection with 17 keypoints and 10 targets at its defaults."""
+    backbone = Backbone("resnet18", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, DENSE_WIDTH, bottom_level=3, top_level=5, generator=generator, device=device)
+    head = KeypointDetection(neck.out_channels, KEYPOINTS, max_targets=KP_TARGETS, generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
 
 
 def freeze_trunk(model: SihlModel) -> None:
@@ -673,6 +706,37 @@ def anomaly_batch(batch: int, seed: int = 0, anomalous: bool = False, size: int 
         images[:, :, lo:hi, lo:hi] = torch.from_numpy(rng.rand(batch, 3, hi - lo, hi - lo).astype(np.float32))
     mask = torch.full((batch, size, size), float(anomalous))
     return images.to(device), mask.to(device)
+
+
+def keypoint_batch(batch: int, seed: int = 0, device="cuda"):
+    """Images and padded keypoint targets from a seeded numpy generator,
+    after the example's synthetic data (``examples/keypoint_detection.py:58-70``)
+    scaled from 128 to 640 px: per image 1-3 people, each 17 keypoints about
+    a centre (spread 50 px), each visible with probability 0.7.  Keypoints
+    are whole pixels, at least two visible, the visible box of positive
+    width and height with odd sums of opposite edges (its centre on a half
+    pixel, never midway between two anchor centres, so no two anchors tie
+    for a target's best IoU); keypoints (B, 10, 17, 2) f32 in pixels,
+    presence (B, 10, 17) bool."""
+    rng = np.random.RandomState(seed)
+    images = torch.from_numpy(rng.rand(batch, SIZE, SIZE, 3).astype(np.float32)).permute(0, 3, 1, 2)
+    keypoints = np.zeros((batch, KP_TARGETS, KEYPOINTS, 2), np.float32)
+    presence = np.zeros((batch, KP_TARGETS, KEYPOINTS), bool)
+    for b in range(batch):
+        for t in range(rng.randint(1, 4)):
+            while True:
+                center = rng.rand(1, 2) * (SIZE - 320) + 160
+                kp = np.clip(np.round(center + rng.randn(KEYPOINTS, 2) * 50), 0, SIZE - 1)
+                vis = rng.rand(KEYPOINTS) > 0.3
+                if vis.sum() < 2:
+                    continue
+                low, high = kp[vis].min(axis=0), kp[vis].max(axis=0)
+                if (high > low).all() and ((low + high) % 2 == 1).all():
+                    break
+            keypoints[b, t], presence[b, t] = kp, vis
+    return images.contiguous().to(device), {
+        "keypoints": torch.from_numpy(keypoints).to(device), "presence": torch.from_numpy(presence).to(device),
+    }
 
 
 def bound(num_bytes: float, ops: float, dtype: torch.dtype) -> dict:
@@ -1038,22 +1102,24 @@ def k5b_case(cuda_gen, label, batch, instances, c, k, dtype, path: bool = True) 
 
 def k5b_cases(cuda_gen) -> dict:
     """K5b at the instance training path's decode (bf16 and f32 inputs) and
-    at the keypoint head's shape (c = 32, k = 17, f32; off this slice's
-    paths)."""
+    at the keypoint head's (c = 32, k = 17): its training path's bf16
+    decode of 16 x 128 positives, and f32 inputs at 16 x 100 (off the
+    paths, kept as the yardstick of the f32 body)."""
     results = {"dynconv_decode_backward": [
         k5b_case(cuda_gen, "training", BATCH, MASK_POSITIVES, MASK_CHANNELS, 1, dtype, path=dtype == torch.bfloat16)
         for dtype in (torch.bfloat16, torch.float32)
     ]}
     results["dynconv_decode_backward@keypoint"] = [
-        k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, torch.float32, path=False)]
+        k5b_case(cuda_gen, "keypoint training", BATCH, KP_POSITIVES, KP_CHANNELS, KEYPOINTS, torch.bfloat16),
+        k5b_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, KP_CHANNELS, KEYPOINTS, torch.float32, path=False)]
     return results
 
 
 def k5f_k2_cases(cuda_gen) -> None:
     """K2 at the detector's and the instance model's matchings (1,600 x
     8,525 and 1,600 x 8,400) and K5f at the instance path's decodes (serving
-    16 x 100, training 16 x 256) and the keypoint shape (c = 32, k = 17),
-    bf16, each held against its plain version and timed a call and alone.
+    16 x 100, training 16 x 256) and the keypoint path's (c = 32, k = 17,
+    16 x 100 and 16 x 128), bf16, each held against its plain version and timed a call and alone.
     With another tree's package first on the path (run from that tree,
     loading this file by path), times that tree's kernels the same way."""
     _, targets = training_batch(BATCH)
@@ -1061,18 +1127,20 @@ def k5f_k2_cases(cuda_gen) -> None:
         work = anchor_ious(levels, targets["boxes"], targets["classes"])
         k2_case(f"levels {levels.start}-{levels.stop - 1}", work)
     for label, instances, c, k in (("serving", MAX_INSTANCES, MASK_CHANNELS, 1),
-                                   ("training", MASK_POSITIVES, MASK_CHANNELS, 1), ("keypoint", MAX_INSTANCES, 32, 17)):
+                                   ("training", MASK_POSITIVES, MASK_CHANNELS, 1),
+                                   ("keypoint serving", MAX_INSTANCES, KP_CHANNELS, KEYPOINTS),
+                                   ("keypoint training", KP_POSITIVES, KP_CHANNELS, KEYPOINTS)):
         k5f_case(cuda_gen, label, BATCH, instances, c, k, torch.bfloat16)
 
 
 def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets) -> dict:
     """Phase 3, instance-segmentation shapes: K1f and K1b at the head's calls,
     K2 at its matching, K5f and K5b at its decodes and at the keypoint
-    head's (c = 32, k = 17; off this slice's paths)."""
+    head's (c = 32, k = 17: serving 16 x 100, training 16 x 128)."""
     results = {key: [] for key in (
         "fused_mlp@instance_serve", "fused_mlp@instance_train", "fused_mlp_backward@instance_train",
         "row_kth@instance_train", "dynconv_decode", "dynconv_decode@train", "dynconv_decode_backward",
-        "dynconv_decode@keypoint", "dynconv_decode_backward@keypoint",
+        "dynconv_decode@keypoint_serve", "dynconv_decode@keypoint_train", "dynconv_decode_backward@keypoint",
     )}
     dense = BATCH * INSTANCE_ANCHORS
     # serving: loc dense over every anchor, cls + kernel over the top 100
@@ -1093,8 +1161,10 @@ def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, trai
     check_decode_sass()
     results["dynconv_decode"].append(k5f_case(cuda_gen, "serving", BATCH, MAX_INSTANCES, c, 1, bf16))
     results["dynconv_decode@train"].append(k5f_case(cuda_gen, "training", BATCH, MASK_POSITIVES, c, 1, bf16))
-    results["dynconv_decode@keypoint"].append(
-        k5f_case(cuda_gen, "keypoint", BATCH, MAX_INSTANCES, 32, 17, bf16, path=False))
+    results["dynconv_decode@keypoint_serve"].append(
+        k5f_case(cuda_gen, "keypoint serving", BATCH, MAX_INSTANCES, KP_CHANNELS, KEYPOINTS, bf16))
+    results["dynconv_decode@keypoint_train"].append(
+        k5f_case(cuda_gen, "keypoint training", BATCH, KP_POSITIVES, KP_CHANNELS, KEYPOINTS, bf16))
     results.update(k5b_cases(cuda_gen))
     return results
 
@@ -1411,7 +1481,8 @@ def check_quad_slice(model: SihlModel, gen: torch.Generator) -> None:
 def check_outputs(head, outputs) -> None:
     """One head's outputs at batch 16 and 640 px: the shapes ``output_shapes``
     gives, finite, class, label, instance and token ids in range,
-    probabilities in [0, 1] (a text head's scores are logits), multilabel
+    probabilities in [0, 1] (a text head's scores are logits), keypoints
+    inside the image, multilabel
     scores in descending order, values and depths within the head's bounds,
     embeddings of unit length."""
     named = dict(zip(head.output_shapes, outputs if isinstance(outputs, (tuple, list)) else (outputs,)))
@@ -1433,9 +1504,11 @@ def check_outputs(head, outputs) -> None:
     for name, count in counts.items():
         if name in named and not ((0 <= named[name]).all() and (named[name] < count).all()):
             raise AssertionError(f"{name} out of [0, {count})")
-    for name in ("masks", "scores", "score_maps", "reconstructions", "anomaly_maps"):
+    for name in ("masks", "scores", "score_maps", "reconstructions", "anomaly_maps", "presence"):
         if name in named and not ((0 <= named[name]).all() and (named[name] <= 1).all()):
             raise AssertionError(f"{name} out of [0, 1]")
+    if "keypoints" in named and not ((0 <= named["keypoints"]).all() and (named["keypoints"] <= SIZE).all()):
+        raise AssertionError(f"keypoints out of [0, {SIZE}]")
     if "embeddings" in named and ((named["embeddings"].norm(dim=1) - 1).abs() > 1e-5).any():
         raise AssertionError("embeddings not of unit length")
     if "labels" in named and (named["scores"][:, 1:] > named["scores"][:, :-1]).any():
@@ -2030,6 +2103,12 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     if (not any(n.startswith("backbone.features.stem.") for n in frozen)
             or any(grads[n] is not None or c_grads[n] is not None for n in frozen)):
         raise AssertionError("a frozen parameter got a gradient")
+    # parameters that no head reaches get no gradient on either side (the
+    # FPN's level-4 output conv under the keypoint head, which reads levels
+    # 3 and 5 only)
+    unused = [n for n in grads if n not in frozen and grads[n] is None]
+    if any((grads[n] is None) != (c_grads[n] is None) for n in grads):
+        raise AssertionError("a parameter got a gradient on one side only")
     # integer buffers (the panoptic head's step counter) must be equal
     counters = {n: (int(bufs[n]), int(b)) for n, b in c_bufs.items() if not b.is_floating_point()}
     if any(card != cpu for card, cpu in counters.values()):
@@ -2047,12 +2126,14 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
               f"{k.replace('/train', '')} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
           + (f"; counters after the step {counters}" if counters else "")
           + f"; running statistics' largest relative error {stats_err:.3g} (the stem's, through K4, "
-          f"{stem_stats_err:.3g}); the {len(frozen)} frozen parameters got no gradient; CPU f64 step {t_cpu:.1f} s, "
+          f"{stem_stats_err:.3g}); the {len(frozen)} frozen parameters got no gradient"
+          + (f", nor the {len(unused)} that no head reaches ({unused})" if unused else "")
+          + f"; CPU f64 step {t_cpu:.1f} s, "
           f"f32 step "
           f"{references[torch.float32][4]:.1f} s")
     parts = {part: limit for part, limit in GRADIENT_LIMITS.items()
              if any(n.split(".")[0] == part and n not in frozen for n in grads)}
-    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=frozen,
+    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=frozen + unused,
                              held_f32=MASK_BRANCH + decoder_prefixes(model))
     if failed:
         raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
@@ -2928,6 +3009,109 @@ def anomaly_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     return launches
 
 
+KP_SERVE = ("fused_mlp", "upsample_add", "dynconv_decode", "stem_conv_stats")
+KP_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode", "dynconv_decode_backward",
+            "stem_conv_stats")
+KP_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "dynconv_decode", "stem_conv_stats")
+
+
+def keypoint_kernels(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phase 63: K1f, K1b and K2 at the keypoint head's calls.  Its loc MLP
+    runs dense over level 5's 6,400 anchors (one output, serving and
+    training); its presence and kernel MLPs (17 and 2,737 outputs, the
+    kernel MLP's output layer on the tensor cores) over the top 1,600 rows
+    serving and the 2,048 positives training, bf16 and f32; its matching
+    hands K2 160 x 400 IoUs.  K5f and K5b at its decodes are phase 3's."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    dense, gathered = BATCH * KP_ANCHORS, (KEYPOINTS, KP_PARAMS)
+    results = {"fused_mlp@keypoint_serve": [k1f_case(gen, cuda_gen, "dense", dense, (1,), bf16, 5e-2, 5e-2)],
+               "fused_mlp@keypoint_train": [], "fused_mlp_backward@keypoint_train": []}
+    for dtype, atol, rtol in ((bf16, 5e-2, 5e-2), (f32, 1e-3, 0.0)):
+        results["fused_mlp@keypoint_serve"].append(
+            k1f_case(gen, cuda_gen, "gathered", BATCH * MAX_INSTANCES, gathered, dtype, atol, rtol))
+    for label, m, outs, dtype in (("dense", dense, (1,), bf16), ("gathered", BATCH * KP_POSITIVES, gathered, bf16),
+                                  ("gathered", BATCH * KP_POSITIVES, gathered, f32)):
+        tol, f_atol, f_rtol = (1e-1, 5e-2, 5e-2) if dtype == bf16 else (1e-3, 1e-3, 0.0)
+        fwd, bwd = k1_train_case(gen, cuda_gen, label, m, outs, dtype, tol, f_atol, f_rtol)
+        results["fused_mlp@keypoint_train"].append(fwd)
+        results["fused_mlp_backward@keypoint_train"].append(bwd)
+    _, targets = keypoint_batch(BATCH)
+    boxes_ = KeypointDetection.keypoints_to_boxes(targets["keypoints"], targets["presence"])
+    classes = torch.where(targets["presence"].any(dim=2), 0, -1)
+    results["row_kth@keypoint_train"] = [k2_case("level 5, 10 targets", anchor_ious(range(5, 6), boxes_, classes))]
+    results["fused_mlp@keypoint_validate"] = results["fused_mlp@keypoint_serve"] + results["fused_mlp@keypoint_train"]
+    return results
+
+
+def check_keypoint_slice(model: SihlModel, gen: torch.Generator) -> None:
+    """Phase 63: the f32 keypoint serving slice on the card against the CPU
+    (plain versions): num_instances equal, top-100 indices agreeing in >=
+    98% of slots, and in those slots scores and presence within 1e-3 and
+    keypoints at the same pixel (within 1e-3 px: the pixel centre's scaling
+    rounds on each side; another pixel is 8 px away) wherever the CPU's
+    heatmap's two largest probabilities lie more than 1e-4 of the largest
+    apart (the first maximum of two values within f32 rounding of each
+    other may differ), which must hold for at least 95% of them; K4, K3,
+    K1f and K5f must launch."""
+    images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
+    with torch.no_grad():
+        loc_bias = set_loc_bias(model, images.cuda())
+        cpu_model = copy.deepcopy(model).to("cpu")
+        t0 = time.perf_counter()
+        (c_num, c_scores, c_presence, c_kpts), c_idx = detect_with_indices(cpu_model, images)
+        heat = cpu_model.heads[0](cpu_model.extract_features(images), output_heatmaps=True)
+        t_cpu = time.perf_counter() - t0
+        reset_counts()
+        (num, scores, presence, kpts), idx = detect_with_indices(model, images.cuda())
+        launches = read_counts(KP_SERVE)
+    b, i, h, w, k = heat.shape
+    top = heat.reshape(b, i, h * w, k).topk(2, dim=2).values
+    clear = (idx == c_idx)[..., None] & ((top[:, :, 0] - top[:, :, 1]) > 1e-4 * top[:, :, 0])
+    agree = idx == c_idx
+    share, clear_share = float(agree.float().mean()), float(clear.float().sum() / (agree.sum() * k))
+    score_err = float((scores - c_scores).abs()[agree].max())
+    presence_err = float((presence - c_presence).abs()[agree].max())
+    kpt_err = float((kpts - c_kpts).abs()[clear].max()) if clear.any() else 0.0
+    print(f"  keypoint slice f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
+          f"{num.tolist()} cpu {c_num.tolist()}; top-k indices agree in {share:.4f} of slots; max score err "
+          f"{score_err:.3g}, max presence err {presence_err:.3g}; keypoints of {clear_share:.4f} of those slots' "
+          f"heatmaps clear of a near tie, their largest difference {kpt_err:.3g} px; CPU forward {t_cpu:.1f} s; "
+          f"kernel launches {launches}")
+    if not 0 < int(c_num.sum()) < 2 * MAX_INSTANCES:
+        raise AssertionError(f"num_instances {c_num.tolist()} leave nothing to compare")
+    if not torch.equal(num, c_num):
+        raise AssertionError("num_instances differ between card and CPU")
+    if share < 0.98 or clear_share < 0.95:
+        raise AssertionError(f"top-k indices agree in only {share:.4f} of slots, or {clear_share:.4f} of their "
+                             f"heatmaps are clear of a near tie")
+    if score_err > 1e-3 or presence_err > 1e-3 or kpt_err > 1e-3:
+        raise AssertionError(f"score err {score_err}, presence err {presence_err} or keypoint err {kpt_err} px")
+    if any(n == 0 for n in launches.values()):
+        raise AssertionError(f"the keypoint slice's forward launched {launches}")
+
+
+def keypoint_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 63-67, the keypoint model (``build_keypoint``), as phases
+    38-42: the f32 serving slice against the CPU, three bf16 requests
+    (K1f twice a request), the f32 training slice against f64 on the CPU,
+    ten bf16 steps and the fit, validating with PCK on the host.  Returns
+    the launch counts of serving, training and validation."""
+    model = build_keypoint(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_keypoint_slice(model, gen)
+    launches = {"keypoint_serve": serve_phase(model, build_keypoint, cuda_gen, KP_SERVE, "keypoint serving")}
+    if launches["keypoint_serve"]["fused_mlp"] != 2 * 3:
+        raise AssertionError(f"three keypoint requests launched K1f {launches['keypoint_serve']['fused_mlp']} times")
+    check_train_slice(model, gen, build_keypoint, keypoint_batch(2, seed=1), "keypoint train slice")
+    del model
+    launches["keypoint_train"] = train(build_keypoint, keypoint_batch(BATCH), KP_TRAIN, label="keypoint training")
+    launches["keypoint_validate"] = fit_phase(
+        build_keypoint, [keypoint_batch(BATCH), keypoint_batch(BATCH, seed=4)], KP_VALIDATE, "keypoint fit",
+        metric="head0/valid/PCK")
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3081,12 +3265,21 @@ def main() -> None:
         launches.update(phases(gen, cuda_gen))
         print(f"phases {first}-{first + 4} in {time.perf_counter() - t0:.1f} s")
 
+    # phases 63-67: the keypoint model; first K1 and K2 at its calls (K1f and
+    # K1b with the 2,737-wide kernel MLP), its K5f and K5b held in phase 3
+    t0 = time.perf_counter()
+    kernels.update(keypoint_kernels(gen, cuda_gen))
+    launches.update(keypoint_phases(gen, cuda_gen))
+    print(f"phases 63-67 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
     kernels["fused_mlp@instance_validate"] = kernels["fused_mlp@instance_serve"] + kernels["fused_mlp@instance_train"]
     kernels["fused_mlp@quad_validate"] = kernels["fused_mlp@quad_serve"] + kernels["fused_mlp@quad_train"]
     kernels["dynconv_decode@validate"] = kernels["dynconv_decode"] + kernels["dynconv_decode@train"]
+    kernels["dynconv_decode@keypoint_validate"] = (kernels["dynconv_decode@keypoint_serve"]
+                                                   + kernels["dynconv_decode@keypoint_train"])
 
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)
@@ -3197,7 +3390,19 @@ def main() -> None:
                        "multitask_validate")),
         *((f"stem_conv_stats@{model}_{path}", f"{model}_{path}", "stem_conv_stats", "cuda", stem_cu, stem_py,
            "stem_conv_stats")
-          for model in ("autoencoder", "view", "anomaly") for path in ("serve", "train", "validate")),
+          for model in ("autoencoder", "view", "anomaly", "keypoint") for path in ("serve", "train", "validate")),
+        *((f"fused_mlp@keypoint_{path}", f"keypoint_{path}", f"fused_mlp@keypoint_{path}", "cuda", mlp_cu,
+           f"{mlp_py}:204", "fused_mlp") for path in ("serve", "train", "validate")),
+        ("fused_mlp_backward@keypoint_train", "keypoint_train", "fused_mlp_backward@keypoint_train", "cuda", mlp_cu,
+         f"{mlp_py}:365", "fused_mlp_backward"),
+        *((f"row_kth@keypoint_{path}", f"keypoint_{path}", "row_kth@keypoint_train", "cuda", topk_cu, topk_py,
+           "row_kth") for path in ("train", "validate")),
+        *((f"upsample_add@keypoint_{path}", f"keypoint_{path}", "upsample_add@fpn128", "triton", fusion_tr, fusion_py,
+           "upsample_add") for path in ("serve", "train", "validate")),
+        *((f"dynconv_decode@keypoint_{path}", f"keypoint_{path}", f"dynconv_decode@keypoint_{path}", "cuda", dyn_cu,
+           f"{dyn_py}:257", "dynconv_decode") for path in ("serve", "train", "validate")),
+        ("dynconv_decode_backward@keypoint_train", "keypoint_train", "dynconv_decode_backward@keypoint", "cuda",
+         dyn_cu, f"{dyn_py}:290", "dynconv_decode_backward"),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

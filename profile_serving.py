@@ -14,6 +14,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --autoencoder [--train]     # the autoencoder
     python3 profile_serving.py --view-invariance [--train] # the view-invariance (Barlow Twins) model
     python3 profile_serving.py --anomaly [--train]         # the anomaly (EfficientAD) model
+    python3 profile_serving.py --keypoint [--train]        # the keypoint (FCPose) model
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -27,7 +28,8 @@ trained on ``chip_smoke.multitask_batch``, and with ``--autoencoder``,
 models, trained on ``chip_smoke.autoencoder_batch``, ``view_batch`` and
 ``anomaly_batch``, the anomaly model after its teacher's statistics and
 ``Trainer.pretrain`` (``chip_smoke.pretrained_teacher``; served after
-``chip_smoke.calibrate_anomaly``);
+``chip_smoke.calibrate_anomaly``), and with ``--keypoint`` its keypoint
+model, trained on ``chip_smoke.keypoint_batch``;
 random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
@@ -53,10 +55,10 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     BATCH, HYBRID_SCHEDULE, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly,
-    build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_multitask, build_panoptic,
-    build_quad, build_view_invariance, calibrate_anomaly, card_name, dense_batch, freeze_trunk, instance_batch,
-    multitask_batch, panoptic_batch, pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch,
-    view_batch,
+    build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_keypoint, build_multitask,
+    build_panoptic, build_quad, build_view_invariance, calibrate_anomaly, card_name, dense_batch, freeze_trunk,
+    instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_teacher, quad_batch,
+    randomize_norms_and_biases, training_batch, view_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -92,6 +94,7 @@ OP_CLASSES = (
     ("sigmoid", ("aten::sigmoid", "aten::sigmoid_backward")),
     ("top-k and gather", ("aten::topk", "aten::gather", "aten::scatter")),
     ("squares and powers", ("aten::pow",)),
+    ("sort", ("aten::sort",)),
 )
 # (label, substrings of the kernel's name): the port's hand-written kernels
 KERNEL_CLASSES = (
@@ -132,6 +135,7 @@ def main() -> None:
     models.add_argument("--autoencoder", action="store_true", help="the autoencoder")
     models.add_argument("--view-invariance", action="store_true", help="the view-invariance (Barlow Twins) model")
     models.add_argument("--anomaly", action="store_true", help="the anomaly (EfficientAD) model")
+    models.add_argument("--keypoint", action="store_true", help="the keypoint (FCPose) model")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -143,6 +147,7 @@ def main() -> None:
         else ("autoencoder", build_autoencoder, autoencoder_batch) if args.autoencoder
         else ("view invariance", build_view_invariance, view_batch) if args.view_invariance
         else ("anomaly", build_anomaly, lambda b: (anomaly_batch(b)[0], None)) if args.anomaly
+        else ("keypoint", build_keypoint, keypoint_batch) if args.keypoint
         else ("flagship", build_flagship, training_batch)
     )
     train = args.train

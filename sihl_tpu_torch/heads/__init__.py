@@ -5,6 +5,7 @@ from sihl_tpu_torch.heads.autoencoding import Autoencoding
 from sihl_tpu_torch.heads.base import Head, TensorShape
 from sihl_tpu_torch.heads.depth_estimation import DepthEstimation
 from sihl_tpu_torch.heads.instance_segmentation import InstanceSegmentation
+from sihl_tpu_torch.heads.keypoint_detection import KeypointDetection
 from sihl_tpu_torch.heads.metric_learning import MetricLearning
 from sihl_tpu_torch.heads.multiclass_classification import MulticlassClassification, soft_ordinal_category
 from sihl_tpu_torch.heads.multilabel_classification import MultilabelClassification
@@ -22,6 +23,7 @@ __all__ = [
     "DepthEstimation",
     "Head",
     "InstanceSegmentation",
+    "KeypointDetection",
     "MetricLearning",
     "MulticlassClassification",
     "MultilabelClassification",

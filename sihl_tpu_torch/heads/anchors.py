@@ -39,6 +39,13 @@ def _level_grid(feature: torch.Tensor):
     return xg, yg, x_min, y_min
 
 
+def mask_grid(feature: torch.Tensor) -> torch.Tensor:
+    """Normalised (x, y) pixel-centre coordinates (H, W, 2) of one (B, C, H,
+    W) map: the grid of the dynamic mask and heatmap decodes."""
+    xg, yg, _, _ = _level_grid(feature)
+    return torch.stack([xg, yg], dim=1).reshape(*feature.shape[2:], 2)
+
+
 def cell_anchors(inputs, levels) -> Tuple[torch.Tensor, torch.Tensor]:
     """Normalised cell-centre offsets (A, 4) and cell-box scales (A, 4) over
     all ``levels``, h-major then w within a level."""

@@ -133,13 +133,7 @@ class InstanceSegmentation(Head):
 
     def _mask_grid(self, inputs) -> torch.Tensor:
         """Normalised (x, y) pixel-centre coordinates (H, W, 2) of the mask level."""
-        feature = inputs[self.mask_level]
-        h, w = feature.shape[2:]
-        y_min, x_min = 1.0 / h / 2.0, 1.0 / w / 2.0
-        kw = dict(dtype=torch.float32, device=feature.device)
-        ys = torch.linspace(y_min, 1 - y_min, h, **kw)
-        xs = torch.linspace(x_min, 1 - x_min, w, **kw)
-        return torch.stack([xs[None, :].expand(h, w), ys[:, None].expand(h, w)], dim=2)
+        return anchors.mask_grid(inputs[self.mask_level])
 
     def _mask_features(self, inputs) -> torch.Tensor:
         return self.mask_head(self.mask_lateral(inputs[self.mask_level]))

@@ -33,9 +33,18 @@
 //    (and, where warpgroups split a row, over the parts through shared
 //    memory in a fixed order).  The next layer's A operand is written once
 //    to a swizzled tile in shared memory.
-//  * The narrow output Linear (n_out 1 .. 256) runs from registers: per
+//  * The output Linear, narrow (n_out 1 .. 256), runs from registers: per
 //    output, a dot product of the thread's values with the weight's row,
 //    summed over the quad; its backward the same way, g from a tile image.
+//  * A wide output Linear (n_out > 256, any width; the keypoint head's
+//    kernel MLP has 2,737 outputs) runs on wgmma in blocks of 256 outputs.
+//    The wrapper packs wo, padded with zero rows to whole blocks, into the
+//    weight image after the hidden layers, each block laid out as a hidden
+//    layer, so the same ring streams it: the forward takes out = h_{L-1}
+//    wo^T + bo block by block from the last hidden tile (K-major B, as
+//    y = h W^T); the backward takes dh_{L-1} = g wo as the sum over blocks
+//    of the cotangent's 256-column tile image times the block read MN-major
+//    (as dh = dy W), and dWo = g^T h_{L-1} through the dW GEMM.
 //  * K1b keeps a small stash and spreads the row-wise work.  The training
 //    forward (K1f with a stash) writes x and h_0 .. h_{L-1} as swizzled
 //    64-row tile images, the one copy of the forward that the backward
@@ -78,7 +87,8 @@ using bf16 = __nv_bfloat16;
 
 constexpr int D = 256;          // input and hidden width
 constexpr int MAX_MLPS = 4;     // MLPs of one call
-constexpr int MAX_OUT = 256;    // widest output layer
+constexpr int NARROW_OUT = 256; // widest output layer of the register path
+constexpr int OUT_BLOCK = 256;  // outputs of one block of a wide output layer
 constexpr float LN_EPS = 1e-5f;
 
 // -- bf16 body: shapes of the shared-memory images --------------------------
@@ -97,8 +107,21 @@ constexpr int KC32 = 32;      // weight rows staged per step
 constexpr size_t SMEM32 = (size_t)(TILE_M * HS32 + KC32 * D) * sizeof(float);
 constexpr size_t SMEM32_BWD = SMEM32 + (size_t)3 * 8 * D * sizeof(float);  // + per-warp column sums
 
-// One MLP of a call.  bf16: w is the packed hidden-weight image (L x CHUNKS x
-// CHUNK_BYTES), wt unused.  f32: w is (L, D, D) as [in][out], wt the same as
+// Blocks of a wide output layer (0 for a narrow one): its image's "layers".
+__host__ __device__ constexpr int out_blocks(int n_out) {
+  return n_out > NARROW_OUT ? (n_out + OUT_BLOCK - 1) / OUT_BLOCK : 0;
+}
+// 64-column blocks of the cotangent's tile images: a wide layer's whole
+// output blocks.
+__host__ __device__ constexpr int g_col_blocks(int n_out) {
+  return n_out > NARROW_OUT ? 4 * out_blocks(n_out) : (n_out + 63) / 64;
+}
+// Blocks of the dW GEMM over `rows` output rows, 128 rows (two warpgroups) each.
+__host__ __device__ constexpr int dw_pairs(int rows) { return ((rows + 63) / 64 + 1) / 2; }
+
+// One MLP of a call.  bf16: w is the packed weight image ((L + out_blocks)
+// x CHUNKS x CHUNK_BYTES: the hidden layers, then a wide output layer's
+// blocks), wt unused.  f32: w is (L, D, D) as [in][out], wt the same as
 // [out][in].  wo is (n_out, D), the output Linear's own layout.  io is the
 // output (forward) or the output cotangent (backward), (m, n_out).  h and dy
 // are the backward's stashes: bf16 tile images (L of each, tiles x
@@ -117,6 +140,7 @@ struct Mlp {
   unsigned char* h;
   unsigned char* dy;
   unsigned char* g_img;
+  int dw_row0;             // the MLP's first row of dw: L x D hidden rows, then n_out
 };
 
 struct Call {
@@ -127,7 +151,9 @@ struct Call {
   Mlp mlp[MAX_MLPS];
   unsigned char* x_img;    // bf16: x as tile images, written by the training forward
   float* col_part;         // (tiles, mlps, L, 3, D): sum dz * n, dz, dy per tile
-  float* bo_part;          // (tiles, mlps, MAX_OUT): sum g per tile
+  float* bo_part;          // (tiles, mlps, bo_stride): sum g per tile
+  int bo_stride;           // the widest n_out of the call
+  int dw_rows;             // rows of dw: over the MLPs, L x D + n_out each
   float* dx_part;          // (mlps, m, D) f32 per-MLP dx, or null for one MLP
   void* dx;                // (m, D) compute type, written by the tile kernel for one MLP
 };
@@ -321,9 +347,10 @@ struct Producer {
   }
 };
 
-// The hidden-weight ring of the tile kernels: four 32 KiB stages, one layer.
-// The consumers take K-chunks in the order of a fixed sequence of layers
-// (sequence position p is chunk p % 4 of layer layer_at(p / 4)).  Thread 0
+// The weight ring of the tile kernels: four 32 KiB stages, one layer.  The
+// consumers take K-chunks in the order of a fixed sequence of layers of the
+// image (sequence position p is chunk p % 4 of layer layer_at(p / 4); a wide
+// output layer's blocks are the image's layers L, L + 1, ...).  Thread 0
 // fills the first four positions; afterwards the last consumer warp to
 // release position p (a shared-memory count per stage) loads position p + 4
 // into the stage.  So no warp is set aside for copies and none waits to
@@ -338,13 +365,15 @@ struct Ring {
   bool backward;          // which sequence
   int warps;              // consumer warps
   int t;                  // positions taken
+  int out_blocks = 0;     // blocks of a wide output layer
 
-  // forward: W_0 .. W_{L-1}; backward: W_{L-1}, then for l = L-2 .. 0 W_l and
-  // W_{l+1}, then W_0
+  // forward: W_0 .. W_{L-1}, then the output blocks; backward: W_{L-1}, the
+  // output blocks, then for l = L-2 .. 0 W_l and W_{l+1}, then W_0
   __device__ int layer_at(int k) const {
     if (!backward) return k;
     if (k == 0) return num_layers - 1;
-    k -= 1;
+    if (k <= out_blocks) return num_layers + k - 1;
+    k -= 1 + out_blocks;
     if (k < 2 * (num_layers - 1)) return num_layers - 2 - k / 2 + (k & 1);
     return 0;
   }
@@ -427,13 +456,13 @@ __device__ __forceinline__ void product_kmajor(float (&acc)[NC][32], uint32_t a,
   fence_acc(acc);
 }
 
-// acc = A . W over the 64 NC columns from col0: A a 64 x 256 tile image (the
-// reduction runs over its columns), W the next layer of the ring read
+// acc (+)= A . W over the 64 NC columns from col0: A a 64 x 256 tile image
+// (the reduction runs over its columns), W the next layer of the ring read
 // MN-major: chunk kc gives output columns 64 kc .. 64 kc + 63, so this
 // warpgroup multiplies by NC of the four chunks and passes the others on.
-template <int NC>
+template <int NC, bool ACCUMULATE = false>
 __device__ __forceinline__ void product_mnmajor(float (&acc)[NC][32], uint32_t a, Ring& ring, int col0) {
-  zero_acc(acc);
+  if constexpr (!ACCUMULATE) zero_acc(acc);
 #pragma unroll
   for (int kc = 0; kc < CHUNKS; ++kc) {
     const int s = ring.take();
@@ -622,6 +651,28 @@ __device__ __forceinline__ void output_rows(const float (&h)[4][32], const Mlp& 
   }
 }
 
+// The wide output Linear on wgmma: out = h . wo^T + bo for the warpgroup's
+// valid rows, h its 64-row tile image at shared address `tile`, wo's blocks
+// of 256 outputs the next layers of the ring.
+__device__ __forceinline__ void output_blocks(float (&acc)[4][32], uint32_t tile, Ring& ring, const Mlp& p, int q,
+                                              int row_a, int m) {
+  bf16* out = static_cast<bf16*>(p.io);
+  const int n_out = p.n_out, row_b = row_a + 8;
+#pragma unroll 1
+  for (int b = 0; b < out_blocks(n_out); ++b) {
+    product_kmajor(acc, tile, ring, 0);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int o = b * OUT_BLOCK + col_of(c, i, q) + (j & 1), row = j < 2 ? row_a : row_b;
+          if (o < n_out && row < m) out[(size_t)row * n_out + o] = __float2bfloat16(acc[c][i * 4 + j] + p.bo[o]);
+        }
+  }
+}
+
 // dh = g . wo (wo as (n_out, D)) for the thread's rows and the 64 NC columns
 // from col0, from registers; g from its tile image (zero past the input).
 template <int NC>
@@ -747,10 +798,11 @@ constexpr size_t fwd_smem() {
 }
 
 // Block (tile, mlp): NWG consumer warpgroups of 64 whole rows each; the ring
-// streams the MLP's hidden weights.  When p.h is set (a training forward),
-// each warpgroup also writes its tile's images for the backward: x (MLP 0
-// only) and h_0 .. h_{L-1}.
-template <int NWG>
+// streams the MLP's hidden weights (and, with WIDE, a wide output layer's
+// blocks; a call without one runs the instance without that code).  When
+// p.h is set (a training forward), each warpgroup also writes its tile's
+// images for the backward: x (MLP 0 only) and h_0 .. h_{L-1}.
+template <int NWG, bool WIDE>
 __global__ void __launch_bounds__(NWG * WG, 1) fused_mlp_fwd_bf16_kernel(const __grid_constant__ Call a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* sm = align_1024(smem_raw);
@@ -761,8 +813,9 @@ __global__ void __launch_bounds__(NWG * WG, 1) fused_mlp_fwd_bf16_kernel(const _
   const int num_layers = a.num_layers;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   __shared__ int released[RING_STAGES];
-  Ring ring{ring_base, bars, released, static_cast<const unsigned char*>(p.w), num_layers, num_layers * CHUNKS,
-            false, 4 * NWG, 0};
+  const int nob = WIDE ? out_blocks(p.n_out) : 0;
+  Ring ring{ring_base, bars, released, static_cast<const unsigned char*>(p.w), num_layers,
+            (num_layers + nob) * CHUNKS, false, 4 * NWG, 0, nob};
   if (threadIdx.x == 0) init_ring(bars, released);
   __syncthreads();
   if (threadIdx.x == 0) ring.start();
@@ -786,7 +839,7 @@ __global__ void __launch_bounds__(NWG * WG, 1) fused_mlp_fwd_bf16_kernel(const _
     product_kmajor(acc, smem_addr(tile), ring, 0);
     layer_norm_rows(acc, p.bh + l * D, q, whole_rows, mu, rstd);
     affine_silu_rows<4, false, true>(acc, p.sc + l * D, p.bi + l * D, q, mu, rstd, unused);
-    if (l + 1 < num_layers || stash) {
+    if (l + 1 < num_layers || stash || nob) {
       wg_bar(wg);  // every warp's products have read the tile
       store_rows(acc, tile, r0, q, 0);
       fence_proxy_async();
@@ -794,7 +847,10 @@ __global__ void __launch_bounds__(NWG * WG, 1) fused_mlp_fwd_bf16_kernel(const _
       if (stash) save_tile<WG>(tile, p.h + ((size_t)l * tiles + t64) * TILE_BYTES, TILE_BYTES, tid);
     }
   }
-  output_rows(acc, p, q, row0 + r0, row0 + r0 + 8, a.m);
+  if (nob)
+    output_blocks(acc, smem_addr(tile), ring, p, q, row0 + r0, a.m);
+  else
+    output_rows(acc, p, q, row0 + r0, row0 + r0 + 8, a.m);
 }
 
 // -- bf16 backward (K1b): the tile kernel --------------------------------------
@@ -813,7 +869,9 @@ constexpr size_t BWD_SMEM = 1024 + BWD_BARS + RING_STAGES * 8;
 // the training forward (K1f); the ring streams, in the order the products
 // take them: W_{L-1} (recompute of y_{L-1}), then for l = L-2 .. 0 W_l
 // (recompute of y_l) and W_{l+1} (dh_l = dy_{l+1} W_{l+1}), then W_0
-// (dx = dy_0 W_0).
+// (dx = dy_0 W_0); with WIDE, a wide output layer's blocks after W_{L-1}
+// (dh_{L-1} = g wo).
+template <bool WIDE>
 __global__ void __launch_bounds__(BWD_THREADS, 1) fused_mlp_bwd_bf16_kernel(const __grid_constant__ Call a) {
   extern __shared__ unsigned char smem_raw[];
   __shared__ int released[RING_STAGES];
@@ -826,8 +884,9 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_mlp_bwd_bf16_kernel(cons
   const Mlp& p = a.mlp[mlp];
   const int num_layers = a.num_layers, m = a.m;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nob = WIDE ? out_blocks(p.n_out) : 0;
   Ring ring{smem_addr(sm + BWD_RING), bars, released, static_cast<const unsigned char*>(p.w), num_layers,
-            2 * num_layers * CHUNKS, true, 4 * BWD_WGS, 0};
+            (2 * num_layers + nob) * CHUNKS, true, 4 * BWD_WGS, 0, nob};
   if (threadIdx.x == 0) init_ring(bars, released);
   __syncthreads();
   if (threadIdx.x == 0) ring.start();
@@ -874,23 +933,36 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_mlp_bwd_bf16_kernel(cons
   affine_silu_rows<NC, true, false>(acc, p.sc + last * D + col0, p.bi + last * D + col0, q, mu, rstd, zn);
   consumers_bar();  // every warp's products have read the h tile
 
-  // the output layer: the cotangent's tile image (for dWo), the tile's sum of
-  // g (the output bias gradient), dh_{L-1}
+  // the output layer: the cotangent's tile images (for dWo), the tile's sum
+  // of g (the output bias gradient), dh_{L-1}; a wide layer block by block
+  // through the dy tile, 256 columns at a time
   const bf16* g = static_cast<const bf16*>(p.io);
-  const int n_out = p.n_out, ncb = (n_out + 63) / 64;
-  for (int e = tid; e < WG_ROWS * ncb * 64; e += NT) {
-    const int r = e / (ncb * 64), o = e % (ncb * 64);
-    const bf16 v = r < rows && o < n_out ? g[(size_t)(row0 + r) * n_out + o] : __float2bfloat16(0.f);
-    *reinterpret_cast<bf16*>(dt + img_off(r, o)) = v;
+  const int n_out = p.n_out, ncb = g_col_blocks(n_out);
+  const int block_cols = nob ? OUT_BLOCK : ncb * 64;
+  float* bo_part = a.bo_part + ((size_t)tile * a.num_mlps + mlp) * a.bo_stride;
+  if (nob) zero_acc(acc);
+#pragma unroll 1
+  for (int b = 0; b < max(nob, 1); ++b) {
+    const int o0 = b * OUT_BLOCK;
+    for (int e = tid; e < WG_ROWS * block_cols; e += NT) {
+      const int r = e / block_cols, o = e % block_cols;
+      const bf16 v = r < rows && o0 + o < n_out ? g[(size_t)(row0 + r) * n_out + o0 + o] : __float2bfloat16(0.f);
+      *reinterpret_cast<bf16*>(dt + img_off(r, o)) = v;
+    }
+    if (nob) fence_proxy_async();  // wgmma reads the tile
+    consumers_bar();
+    for (int o = warp; o < block_cols && o0 + o < n_out; o += NT / 32) {  // rows past the input are zeros
+      const float s = warp_sum(__bfloat162float(*reinterpret_cast<const bf16*>(dt + img_off(lane, o))) +
+                               __bfloat162float(*reinterpret_cast<const bf16*>(dt + img_off(lane + 32, o))));
+      if (lane == 0) bo_part[o0 + o] = s;
+    }
+    save_tile<NT>(dt, p.g_img + ((size_t)tile * ncb + 4 * b) * KC_BYTES, block_cols / 64 * KC_BYTES, tid);
+    if (nob) {
+      product_mnmajor<NC, true>(acc, smem_addr(dt), ring, col0);  // dh_{L-1} += g_b wo_b
+      consumers_bar();  // every warp's products and copies have read the cotangent tile
+    }
   }
-  consumers_bar();
-  for (int o = warp; o < n_out; o += NT / 32) {  // rows past the input are zeros in the image
-    const float s = warp_sum(__bfloat162float(*reinterpret_cast<const bf16*>(dt + img_off(lane, o))) +
-                             __bfloat162float(*reinterpret_cast<const bf16*>(dt + img_off(lane + 32, o))));
-    if (lane == 0) a.bo_part[((size_t)tile * a.num_mlps + mlp) * MAX_OUT + o] = s;
-  }
-  save_tile<NT>(dt, p.g_img + (size_t)tile * ncb * KC_BYTES, ncb * KC_BYTES, tid);
-  output_backward(acc, static_cast<const bf16*>(p.wo), n_out, dt, r0, q, col0);
+  if (!nob) output_backward(acc, static_cast<const bf16*>(p.wo), n_out, dt, r0, q, col0);
   consumers_bar();  // the cotangent tile is saved and read
   if (num_layers >= 2) reload_h(num_layers - 3);
   ln_silu_backward(acc, zn, p.sc + (num_layers - 1) * D + col0, rstd, va, vb, red, lane, warp, col0, parts);
@@ -934,13 +1006,14 @@ __global__ void __launch_bounds__(BWD_THREADS, 1) fused_mlp_bwd_bf16_kernel(cons
 
 // -- bf16 backward: dW as a split-M wgmma GEMM ----------------------------------
 
-// Job j = mlp * (L + 1) + l.  l < L: dW_l[n][k] = sum_rows dy_l[row][n] h_{l-1}[row][k]
-// (h_{-1} = x); l = L: dWo[o][k] = sum_rows g[row][o] h_{L-1}[row][k].  Block
-// (half, job, chunk): two consumer warpgroups own output rows 128 half .. +127
-// (64 each) over all 256 columns; the rows of chunk `chunk` stream through a
-// ring, each stage one 64-row tile: two column blocks of the dy image (A, read
-// MN-major as dy^T) and the whole h image (B, MN-major).  Writes
-// part[chunk][job][n][k].
+// Per MLP, jobs l < L: dW_l[n][k] = sum_rows dy_l[row][n] h_{l-1}[row][k]
+// (h_{-1} = x), and l = L: dWo[o][k] = sum_rows g[row][o] h_{L-1}[row][k].
+// Block (item, chunk): item walks the MLPs' jobs in order, dw_pairs(rows of
+// the job) items each, item `pair` of a job owning its output rows 128 pair
+// .. +127, two consumer warpgroups of 64 rows over all 256 columns; the rows
+// of chunk `chunk` stream through a ring, each stage one 64-row tile: two
+// column blocks of the dy image (A, read MN-major as dy^T) and the whole h
+// image (B, MN-major).  Writes part[chunk][dw_row0 + l D + n][k].
 constexpr int DW_STAGES = 4;
 constexpr uint32_t DW_A_BYTES = 2 * KC_BYTES;
 constexpr uint32_t DW_STAGE = DW_A_BYTES + TILE_BYTES;
@@ -951,20 +1024,32 @@ struct DwArgs {
   float* part;
   int tiles;
   int chunk_tiles;
-  int jobs;
 };
 
+// The blocks of the dW GEMM: every job's dw_pairs.
+int dw_items(const Call& c) {
+  int items = 0;
+  for (int i = 0; i < c.num_mlps; ++i) items += c.num_layers * dw_pairs(D) + dw_pairs(c.mlp[i].n_out);
+  return items;
+}
+
 __global__ void __launch_bounds__(2 * WG + 32, 1) dw_bf16_kernel(const __grid_constant__ DwArgs a) {
-  const int num_layers = a.call.num_layers, job = blockIdx.y, chunk = blockIdx.z;
-  const Mlp& p = a.call.mlp[job / (num_layers + 1)];
-  const int l = job % (num_layers + 1);
+  const int num_layers = a.call.num_layers, chunk = blockIdx.y;
+  int item = blockIdx.x, mlp = 0;
+  for (; mlp + 1 < a.call.num_mlps; ++mlp) {
+    const int n = num_layers * dw_pairs(D) + dw_pairs(a.call.mlp[mlp].n_out);
+    if (item < n) break;
+    item -= n;
+  }
+  const Mlp& p = a.call.mlp[mlp];
+  const int l = min(item / dw_pairs(D), num_layers);
+  const int pair = item - l * dw_pairs(D);
   const unsigned char* a_img = l < num_layers ? p.dy + (size_t)l * a.tiles * TILE_BYTES : p.g_img;
   const unsigned char* b_img = l == 0 ? a.call.x_img : p.h + (size_t)(l - 1) * a.tiles * TILE_BYTES;
-  const int ncb = l < num_layers ? 4 : (p.n_out + 63) / 64;
+  const int ncb = l < num_layers ? 4 : g_col_blocks(p.n_out);  // 64-column blocks of A's images
   const int n_valid = l < num_layers ? D : p.n_out;
-  const int nb0 = blockIdx.x * 2;
-  if (nb0 >= ncb) return;
-  const int nwg = min(2, ncb - nb0);
+  const int nb0 = pair * 2;
+  const int nwg = min(2, (n_valid + 63) / 64 - nb0);
   const int t0 = chunk * a.chunk_tiles, t1 = min(a.tiles, t0 + a.chunk_tiles);
 
   extern __shared__ unsigned char smem_raw[];
@@ -1018,7 +1103,7 @@ __global__ void __launch_bounds__(2 * WG + 32, 1) dw_bf16_kernel(const __grid_co
 
   const int q = lane & 3;
   const int n_a = (nb0 + wg) * 64 + (warp & 3) * 16 + (lane >> 2), n_b = n_a + 8;
-  float* out = a.part + ((size_t)chunk * a.jobs + job) * D * D;
+  float* out = a.part + ((size_t)chunk * a.call.dw_rows + p.dw_row0 + l * D) * D;
 #pragma unroll
   for (int c = 0; c < 4; ++c)
 #pragma unroll
@@ -1127,8 +1212,10 @@ __global__ void __launch_bounds__(THREADS, 2) fused_mlp_fwd_f32_kernel(const __g
   __syncthreads();  // hs holds the last hidden layer
   const float* wo = static_cast<const float*>(p.wo);
   float* out = static_cast<float*>(p.io);
+  // a warp's threads take one output's row of wo (a broadcast) over
+  // consecutive rows of hs (HS32 = 257: no bank conflicts)
   for (int idx = threadIdx.x; idx < rows * p.n_out; idx += THREADS) {
-    const int r = idx / p.n_out, o = idx % p.n_out;
+    const int o = idx / rows, r = idx % rows;
     float s = 0.f;
     for (int k = 0; k < D; ++k) s = fmaf(hs[r * HS32 + k], wo[(size_t)o * D + k], s);
     out[(size_t)(row0 + r) * p.n_out + o] = s + p.bo[o];
@@ -1177,7 +1264,7 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_bwd_f32_kernel(const __g
   for (int o = tid; o < n_out; o += THREADS) {
     float s = 0.f;
     for (int r = 0; r < rows; ++r) s += g[(size_t)(row0 + r) * n_out + o];
-    a.bo_part[((size_t)tile * a.num_mlps + mlp) * MAX_OUT + o] = s;
+    a.bo_part[((size_t)tile * a.num_mlps + mlp) * a.bo_stride + o] = s;
   }
   __syncthreads();  // the stash is visible to the block
 
@@ -1260,17 +1347,17 @@ __global__ void __launch_bounds__(THREADS, 1) fused_mlp_bwd_f32_kernel(const __g
   }
 }
 
-// part[s][job][i][j] = sum over rows k of chunk s of A[k][i] B[k][j] with
-// FMAs; job = mlp * (L + 1) + l: l < L: A = dy_l, B = x or h_{l-1}; l = L:
-// A = g (n_out wide), B = h_{L-1}.  A block computes 64 x 64 outputs; thread
-// (tid / 16, tid % 16) holds 4 x 4.
+// part[s][dw_row0 + l D + i][j] = sum over rows k of chunk s of A[k][i]
+// B[k][j] with FMAs; job = mlp * (L + 1) + l: l < L: A = dy_l, B = x or
+// h_{l-1}; l = L: A = g (n_out wide), B = h_{L-1}.  A block computes 64 x 64
+// outputs; thread (tid / 16, tid % 16) holds 4 x 4.
 constexpr int DWF_K = 32;
 
 __global__ void __launch_bounds__(THREADS) dw_f32_kernel(const __grid_constant__ Call a, float* part,
                                                          int chunk_rows, int chunks) {
   __shared__ __align__(16) float as[DWF_K][64];
   __shared__ __align__(16) float bs[DWF_K][64];
-  const int num_layers = a.num_layers, jobs = a.num_mlps * (num_layers + 1), m = a.m;
+  const int num_layers = a.num_layers, m = a.m;
   const int job = blockIdx.z / chunks, s = blockIdx.z % chunks;
   const Mlp& p = a.mlp[job / (num_layers + 1)];
   const int l = job % (num_layers + 1);
@@ -1308,7 +1395,7 @@ __global__ void __launch_bounds__(THREADS) dw_f32_kernel(const __grid_constant__
         for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(ar[i], br[j], acc[i][j]);
     }
   }
-  float* out = part + ((size_t)s * jobs + job) * D * D;
+  float* out = part + ((size_t)s * a.dw_rows + p.dw_row0 + l * D) * D;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int row = i0 + ti * 4 + i;
@@ -1374,6 +1461,8 @@ Call make_call(const void* x, void* x_img, int m, int num_layers, int num_mlps, 
   c.m = m;
   c.num_layers = num_layers;
   c.num_mlps = num_mlps;
+  c.bo_stride = 1;
+  c.dw_rows = 0;
   for (int i = 0; i < num_mlps; ++i) {
     const long long* q = ptrs + PTRS * i;
     Mlp& p = c.mlp[i];
@@ -1387,6 +1476,9 @@ Call make_call(const void* x, void* x_img, int m, int num_layers, int num_mlps, 
     p.io = reinterpret_cast<void*>(q[7]);
     p.h = reinterpret_cast<unsigned char*>(q[8]);
     p.n_out = n_outs[i];
+    p.dw_row0 = c.dw_rows;
+    c.dw_rows += num_layers * D + p.n_out;
+    c.bo_stride = p.n_out > c.bo_stride ? p.n_out : c.bo_stride;
   }
   return c;
 }
@@ -1397,6 +1489,11 @@ struct BwdWorkspace {
   size_t h[MAX_MLPS], dy[MAX_MLPS], g[MAX_MLPS], col_part, bo_part, dw_part, dx_part, bytes;
 
   BwdWorkspace(int is_bf16, int m, int num_layers, int num_mlps, const int* n_outs) {
+    int bo_stride = 1, dw_rows = 0;
+    for (int i = 0; i < num_mlps; ++i) {
+      bo_stride = n_outs[i] > bo_stride ? n_outs[i] : bo_stride;
+      dw_rows += num_layers * D + n_outs[i];
+    }
     tiles = (m + 63) / 64;
     if (is_bf16) {
       const int target = tiles < 16 ? tiles : 16;
@@ -1418,11 +1515,11 @@ struct BwdWorkspace {
     for (int i = 0; i < num_mlps; ++i) {
       h[i] = take(is_bf16 ? 0 : stash);
       dy[i] = take(stash);
-      g[i] = take(is_bf16 ? (size_t)tiles * ((n_outs[i] + 63) / 64) * KC_BYTES : 0);
+      g[i] = take(is_bf16 ? (size_t)tiles * g_col_blocks(n_outs[i]) * KC_BYTES : 0);
     }
     col_part = take((size_t)tiles * num_mlps * num_layers * 3 * D * 4);
-    bo_part = take((size_t)tiles * num_mlps * MAX_OUT * 4);
-    dw_part = take((size_t)chunks * num_mlps * (num_layers + 1) * D * D * 4);
+    bo_part = take((size_t)tiles * num_mlps * bo_stride * 4);
+    dw_part = take((size_t)chunks * dw_rows * D * 4);
     dx_part = take(num_mlps > 1 ? (size_t)num_mlps * m * D * 4 : 0);
     bytes = off;
   }
@@ -1434,6 +1531,22 @@ int reduce_parts(const float* part, int num_parts, size_t n, T* out, cudaStream_
   return (int)cudaGetLastError();
 }
 
+// Whether an MLP of the call has a wide output layer.
+bool wide(const Call& c) {
+  for (int i = 0; i < c.num_mlps; ++i)
+    if (out_blocks(c.mlp[i].n_out)) return true;
+  return false;
+}
+
+template <int NWG>
+int launch_fwd(const Call& c, bool is_wide, dim3 grid, cudaStream_t stream) {
+  const auto kernel = is_wide ? fused_mlp_fwd_bf16_kernel<NWG, true> : fused_mlp_fwd_bf16_kernel<NWG, false>;
+  const cudaError_t err = allow_smem(kernel, fwd_smem<NWG>());
+  if (err) return (int)err;
+  kernel<<<grid, NWG * WG, fwd_smem<NWG>(), stream>>>(c);
+  return (int)cudaGetLastError();
+}
+
 int forward(int is_bf16, const Call& c, cudaStream_t stream) {
   cudaError_t err;
   if (!is_bf16) {
@@ -1442,14 +1555,8 @@ int forward(int is_bf16, const Call& c, cudaStream_t stream) {
     return (int)cudaGetLastError();
   }
   const int tiles128 = (c.m + 2 * WG_ROWS - 1) / (2 * WG_ROWS);
-  if (tiles128 * c.num_mlps >= num_sms()) {
-    if ((err = allow_smem(fused_mlp_fwd_bf16_kernel<2>, fwd_smem<2>()))) return (int)err;
-    fused_mlp_fwd_bf16_kernel<2><<<dim3(tiles128, c.num_mlps), 2 * WG, fwd_smem<2>(), stream>>>(c);
-  } else {
-    if ((err = allow_smem(fused_mlp_fwd_bf16_kernel<1>, fwd_smem<1>()))) return (int)err;
-    fused_mlp_fwd_bf16_kernel<1><<<dim3((c.m + WG_ROWS - 1) / WG_ROWS, c.num_mlps), WG, fwd_smem<1>(), stream>>>(c);
-  }
-  return (int)cudaGetLastError();
+  if (tiles128 * c.num_mlps >= num_sms()) return launch_fwd<2>(c, wide(c), dim3(tiles128, c.num_mlps), stream);
+  return launch_fwd<1>(c, wide(c), dim3((c.m + WG_ROWS - 1) / WG_ROWS, c.num_mlps), stream);
 }
 
 int backward(int is_bf16, Call& c, char* workspace, const int* n_outs, float* dw, float* dcols, float* dbo,
@@ -1457,6 +1564,8 @@ int backward(int is_bf16, Call& c, char* workspace, const int* n_outs, float* dw
   const int m = c.m, num_layers = c.num_layers, num_mlps = c.num_mlps;
   const BwdWorkspace w(is_bf16, m, num_layers, num_mlps, n_outs);
   const int jobs = num_mlps * (num_layers + 1);
+  int widest = D;
+  for (int i = 0; i < num_mlps; ++i) widest = n_outs[i] > widest ? n_outs[i] : widest;
   for (int i = 0; i < num_mlps; ++i) {
     if (!is_bf16) c.mlp[i].h = reinterpret_cast<unsigned char*>(workspace + w.h[i]);
     c.mlp[i].dy = reinterpret_cast<unsigned char*>(workspace + w.dy[i]);
@@ -1469,23 +1578,25 @@ int backward(int is_bf16, Call& c, char* workspace, const int* n_outs, float* dw
 
   cudaError_t err;
   if (is_bf16) {
-    if ((err = allow_smem(fused_mlp_bwd_bf16_kernel, BWD_SMEM))) return (int)err;
-    fused_mlp_bwd_bf16_kernel<<<dim3(w.tiles, num_mlps), BWD_THREADS, BWD_SMEM, stream>>>(c);
+    const auto tile_kernel = wide(c) ? fused_mlp_bwd_bf16_kernel<true> : fused_mlp_bwd_bf16_kernel<false>;
+    if ((err = allow_smem(tile_kernel, BWD_SMEM))) return (int)err;
+    tile_kernel<<<dim3(w.tiles, num_mlps), BWD_THREADS, BWD_SMEM, stream>>>(c);
     if ((err = cudaGetLastError())) return (int)err;
     if ((err = allow_smem(dw_bf16_kernel, DW_SMEM))) return (int)err;
-    const DwArgs da{c, dw_part, w.tiles, w.chunk, jobs};
-    dw_bf16_kernel<<<dim3(2, jobs, w.chunks), 2 * WG + 32, DW_SMEM, stream>>>(da);
+    const DwArgs da{c, dw_part, w.tiles, w.chunk};
+    dw_bf16_kernel<<<dim3(dw_items(c), w.chunks), 2 * WG + 32, DW_SMEM, stream>>>(da);
   } else {
     if ((err = allow_smem(fused_mlp_bwd_f32_kernel, SMEM32_BWD))) return (int)err;
     fused_mlp_bwd_f32_kernel<<<dim3(w.tiles, num_mlps), THREADS, SMEM32_BWD, stream>>>(c);
     if ((err = cudaGetLastError())) return (int)err;
-    dw_f32_kernel<<<dim3(D / 64, D / 64, jobs * w.chunks), THREADS, 0, stream>>>(c, dw_part, w.chunk, w.chunks);
+    dw_f32_kernel<<<dim3((widest + 63) / 64, D / 64, jobs * w.chunks), THREADS, 0, stream>>>(c, dw_part, w.chunk,
+                                                                                         w.chunks);
   }
   if ((err = cudaGetLastError())) return (int)err;
   int e;
-  if ((e = reduce_parts(dw_part, w.chunks, (size_t)jobs * D * D, dw, stream))) return e;
+  if ((e = reduce_parts(dw_part, w.chunks, (size_t)c.dw_rows * D, dw, stream))) return e;
   if ((e = reduce_parts(c.col_part, w.tiles, (size_t)num_mlps * num_layers * 3 * D, dcols, stream))) return e;
-  if ((e = reduce_parts(c.bo_part, w.tiles, (size_t)num_mlps * MAX_OUT, dbo, stream))) return e;
+  if ((e = reduce_parts(c.bo_part, w.tiles, (size_t)num_mlps * c.bo_stride, dbo, stream))) return e;
   if (num_mlps > 1) {
     if (is_bf16) return reduce_parts(c.dx_part, num_mlps, (size_t)m * D, static_cast<bf16*>(c.dx), stream);
     return reduce_parts(c.dx_part, num_mlps, (size_t)m * D, static_cast<float*>(c.dx), stream);
@@ -1497,11 +1608,13 @@ int backward(int is_bf16, Call& c, char* workspace, const int* n_outs, float* dw
 
 extern "C" {
 
-// The feature width, the most MLPs of one call and the widest output layer
-// the kernels are compiled for.
+// The feature width, the most MLPs of one call, the widest output layer of
+// the register path and the outputs of a wide layer's block, as the kernels
+// are compiled.
 int sihl_fused_mlp_width() { return D; }
 int sihl_fused_mlp_max_mlps() { return MAX_MLPS; }
-int sihl_fused_mlp_max_out() { return MAX_OUT; }
+int sihl_fused_mlp_narrow_out() { return NARROW_OUT; }
+int sihl_fused_mlp_out_block() { return OUT_BLOCK; }
 
 // The forward of num_mlps MLPs of num_layers hidden layers over m >= 1 rows
 // of x (m, D), in one launch.  is_bf16 selects __nv_bfloat16 for x, the
@@ -1509,7 +1622,8 @@ int sihl_fused_mlp_max_out() { return MAX_OUT; }
 // of (w, wt, bh, sc, bi, wo, bo, out, h): w the packed hidden-weight image
 // (bf16) or (L, D, D) as [in][out] (f32), wt (f32 only) the same as
 // [out][in], biases and LayerNorm parameters (L, D) f32, wo (n_out, D) in the
-// compute type, bo (n_out) f32, out (m, n_out).  bf16 only, for the
+// compute type, bo (n_out) f32, out (m, n_out); n_out >= 1, any width (bf16:
+// w holds a wide output layer's blocks after the hidden layers).  bf16 only, for the
 // backward: h (L tile images of sihl_fused_mlp_tile_bytes(m) each) and x_img
 // (one such image) receive the stash, or are null.  Launches on `stream`
 // without synchronising and returns the cudaError_t of the launch.
@@ -1530,11 +1644,12 @@ size_t sihl_fused_mlp_bwd_workspace(int is_bf16, int m, int num_layers, int num_
 // The backward of the same MLPs given each output's cotangent (the `out`
 // slot of ptrs holds g, (m, n_out) in the compute type) and, in bf16, the
 // stash that their training forward wrote (h and x_img).  Writes f32 dw
-// (num_mlps, L + 1, D, D): per MLP the hidden weights' gradients in the
-// Linear layout [out][in], then the output weight's in rows 0 .. n_out - 1;
-// dcols (num_mlps, L, 3, D): the LayerNorm scale, LayerNorm shift and hidden
-// bias gradients; dbo (num_mlps, 256): the output bias gradient in its first
-// n_out entries; dx (m, D) in the compute type, summed over the MLPs in
+// (sum over the MLPs of L x D + n_out rows, D): per MLP in order the hidden
+// weights' gradients in the Linear layout [out][in], then the output
+// weight's, n_out rows; dcols (num_mlps, L, 3, D): the LayerNorm scale,
+// LayerNorm shift and hidden bias gradients; dbo (num_mlps, widest n_out):
+// the output bias gradient in the first n_out entries of its row; dx (m, D)
+// in the compute type, summed over the MLPs in
 // order.  workspace holds sihl_fused_mlp_bwd_workspace bytes, 256-byte
 // aligned.  Launches on `stream` without synchronising and returns the first
 // cudaError_t.
@@ -1549,7 +1664,8 @@ int sihl_fused_mlp_bwd(int is_bf16, const void* x, void* x_img, int m, int num_l
 
 // Bytes of scratch for sihl_fused_mlp_dw_alone.
 size_t sihl_fused_mlp_dw_alone_workspace(int m) {
-  const BwdWorkspace w(1, m, 1, 1, &m);
+  const int n_out = 1;
+  const BwdWorkspace w(1, m, 1, 1, &n_out);
   return 2 * align_up((size_t)w.tiles * TILE_BYTES) + (size_t)w.chunks * 2 * D * D * 4;
 }
 
@@ -1558,13 +1674,16 @@ size_t sihl_fused_mlp_dw_alone_workspace(int m) {
 // reduction as the backward.
 int sihl_fused_mlp_dw_alone(const void* h, const void* dy, int m, void* workspace, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const BwdWorkspace w(1, m, 1, 1, &m);
+  const int n_out = 1;
+  const BwdWorkspace w(1, m, 1, 1, &n_out);
   char* base = static_cast<char*>(workspace);
   const size_t img = align_up((size_t)w.tiles * TILE_BYTES);
   Call c{};
   c.m = m;
   c.num_layers = 1;
   c.num_mlps = 1;
+  c.dw_rows = D;  // the hidden job alone: its two items
+  c.mlp[0].n_out = 1;
   c.x_img = reinterpret_cast<unsigned char*>(base);
   c.mlp[0].dy = reinterpret_cast<unsigned char*>(base + img);
   const unsigned units = (unsigned)((size_t)w.tiles * 64 * D / 8);
@@ -1574,8 +1693,8 @@ int sihl_fused_mlp_dw_alone(const void* h, const void* dy, int m, void* workspac
   if ((err = cudaGetLastError())) return (int)err;
   if ((err = allow_smem(dw_bf16_kernel, DW_SMEM))) return (int)err;
   float* part = reinterpret_cast<float*>(base + 2 * img);
-  const DwArgs da{c, part, w.tiles, w.chunk, 1};
-  dw_bf16_kernel<<<dim3(2, 1, w.chunks), 2 * WG + 32, DW_SMEM, s>>>(da);
+  const DwArgs da{c, part, w.tiles, w.chunk};
+  dw_bf16_kernel<<<dim3(dw_pairs(D), w.chunks), 2 * WG + 32, DW_SMEM, s>>>(da);
   if ((err = cudaGetLastError())) return (int)err;
   return reduce_parts(part, w.chunks, (size_t)D * D, out, s);
 }

@@ -169,7 +169,7 @@ __device__ __forceinline__ void layer_norm_rows_mxu(float (&y)[4][32], const flo
   }
 }
 
-// Block (tile, mlp): K1f's forward (fused_mlp_fwd_bf16_kernel<2>, no stash)
+// Block (tile, mlp): K1f's forward (fused_mlp_fwd_bf16_kernel<2, false>, no stash)
 // in mode MODE.
 template <int MODE>
 __global__ void __launch_bounds__(PIPE_NWG * WG, 1) mlp_pipeline_kernel(const __grid_constant__ Call a) {

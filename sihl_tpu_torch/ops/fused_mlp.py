@@ -16,7 +16,11 @@ the dW GEMM and the fixed-order reductions that finish it).
 
 The kernels read each MLP's parameters as :func:`pack_mlp_params` lays them
 out: in bf16, the hidden weights as one swizzled image that the kernels'
-bulk copies move as it is (:func:`pack_hidden_image`).  A pack is cached per
+bulk copies move as it is (:func:`pack_hidden_image`), followed, for an
+output layer wider than 256 (the keypoint head's 2,737 dynamic weights),
+by the output weight in blocks of 256 outputs laid out as further layers
+(:func:`pack_output_image`), which the kernels multiply on the tensor cores;
+an output layer of at most 256 runs from registers.  A pack is cached per
 MLP and rebuilt only when a parameter changes (its ``_version`` or
 ``data_ptr``), so a warm request packs nothing and a training step packs
 once.  The autograd Function takes the MLPs' own parameters as inputs, packs
@@ -39,8 +43,9 @@ from sihl_tpu_torch.ops.build import cuda_library
 
 _KERNEL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _CHUNK = 64  # columns of one K-chunk of the packed image: 128 bytes of bf16
-_MAX_MLPS = 4  # MLPs of one call, and the widest output layer, as csrc/fused_mlp.cu is compiled
-_MAX_OUT = 256
+# as csrc/fused_mlp.cu is compiled: MLPs of one call, the widest output layer
+# of the register path, the outputs of a wide output layer's block
+_MAX_MLPS, _NARROW_OUT, _OUT_BLOCK = 4, 256, 256
 
 
 def fused_mlps_reference(x_2d: torch.Tensor, mlps: Sequence[torch.nn.Module]) -> List[torch.Tensor]:
@@ -62,10 +67,23 @@ def pack_hidden_image(weights: torch.Tensor) -> torch.Tensor:
     return torch.gather(w, 3, index).contiguous().reshape(-1)
 
 
+def pack_output_image(weight: torch.Tensor) -> torch.Tensor:
+    """A wide output Linear's weight (n_out, D), n_out > 256, as the image
+    its kernels stream after the hidden layers': zero rows up to whole blocks
+    of 256 outputs, each block laid out as a hidden layer
+    (:func:`pack_hidden_image`)."""
+    n_out, d = weight.shape
+    blocks = -(-n_out // _OUT_BLOCK)
+    padded = torch.zeros((blocks * _OUT_BLOCK, d), dtype=weight.dtype, device=weight.device)
+    padded[:n_out] = weight
+    return pack_hidden_image(padded.reshape(blocks, _OUT_BLOCK, d))
+
+
 class MLPPack(NamedTuple):
     """One MLP's parameters as the kernels read them.  bf16: ``w`` is the
-    hidden-weight image and ``wt`` None; f32: ``w`` is (L, D, D) as [in][out]
-    and ``wt`` as [out][in].  ``bh``, ``sc``, ``bi`` (L, D) and ``bo`` (n_out)
+    weight image (the hidden layers', then a wide output layer's blocks) and
+    ``wt`` None; f32: ``w`` is (L, D, D) as [in][out] and ``wt`` as
+    [out][in].  ``bh``, ``sc``, ``bi`` (L, D) and ``bo`` (n_out)
     are f32; ``wo`` is (n_out, D) in the compute dtype."""
 
     w: torch.Tensor
@@ -112,6 +130,8 @@ def pack_mlp_params(mlp, dtype: torch.dtype) -> MLPPack:
         wt = torch.stack([lin.weight for lin in linears[:-1]]).to(dtype)
         if dtype == torch.bfloat16:
             w, wt = pack_hidden_image(wt), None
+            if linears[-1].weight.shape[0] > _NARROW_OUT:
+                w = torch.cat([w, pack_output_image(linears[-1].weight.to(dtype))])
         else:
             w, wt = wt.transpose(1, 2).contiguous(), wt.contiguous()
         pack = MLPPack(
@@ -131,7 +151,8 @@ def pack_mlp_params(mlp, dtype: torch.dtype) -> MLPPack:
 def _library() -> ctypes.CDLL:
     lib = cuda_library("fused_mlp")
     p, i, size = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
-    for name in ("sihl_fused_mlp_width", "sihl_fused_mlp_max_mlps", "sihl_fused_mlp_max_out"):
+    for name in ("sihl_fused_mlp_width", "sihl_fused_mlp_max_mlps", "sihl_fused_mlp_narrow_out",
+                 "sihl_fused_mlp_out_block"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
     lib.sihl_fused_mlp_fwd.argtypes = [i, p, p, i, i, i, p, p, p]
@@ -148,7 +169,8 @@ def _library() -> ctypes.CDLL:
     lib.sihl_fused_mlp_dw_alone.restype = i
     lib.sihl_cuda_error_string.argtypes = [i]
     lib.sihl_cuda_error_string.restype = ctypes.c_char_p
-    if (lib.sihl_fused_mlp_max_mlps(), lib.sihl_fused_mlp_max_out()) != (_MAX_MLPS, _MAX_OUT):
+    compiled = (lib.sihl_fused_mlp_max_mlps(), lib.sihl_fused_mlp_narrow_out(), lib.sihl_fused_mlp_out_block())
+    if compiled != (_MAX_MLPS, _NARROW_OUT, _OUT_BLOCK):
         raise RuntimeError("csrc/fused_mlp.cu and ops/fused_mlp.py disagree on the call limits")
     return lib
 
@@ -170,8 +192,8 @@ def _check_supported(x_2d: torch.Tensor, mlps, width: int) -> torch.dtype:
         for lin in linears[:-1]:
             if tuple(lin.weight.shape) != (width, width):
                 raise ValueError(f"hidden layers must be {width} wide, got {tuple(lin.weight.shape)}")
-        if not 1 <= linears[-1].weight.shape[0] <= _MAX_OUT:
-            raise ValueError(f"the output layer must have 1 to {_MAX_OUT} outputs")
+        if linears[-1].weight.shape[0] < 1:
+            raise ValueError("the output layer must have at least 1 output")
         if any(p.device != x_2d.device for p in m.parameters()):
             raise ValueError("MLP parameters and input must be on one device")
     return next(iter(dtypes))
@@ -237,7 +259,7 @@ def fused_mlps_backward(x: torch.Tensor, packs: Sequence[MLPPack], gs,
     in the compute dtype and, in bf16, the ``stash`` their forward filled.
     Returns dx (M, D) in the compute dtype, summed over the MLPs, and per MLP
     the f32 gradients (dwh (L, D, D) in the Linear layout, dbh, dsc, dbi
-    (L, D), dwo (n_out, D), dbo (n_out))."""
+    (L, D), dwo (n_out, D), dbo (n_out)), any n_out."""
     lib = _library()
     m, d = x.shape
     num_layers, num = packs[0].num_layers, len(packs)
@@ -256,9 +278,10 @@ def fused_mlps_backward(x: torch.Tensor, packs: Sequence[MLPPack], gs,
     ptrs, n_outs = _pointer_table(packs, gs, stash)
     workspace = torch.empty(lib.sihl_fused_mlp_bwd_workspace(is_bf16, m, num_layers, num, n_outs),
                             dtype=torch.uint8, device=x.device)
-    dw = torch.empty((num, num_layers + 1, d, d), **f32)
+    # per MLP in order: L x D hidden weights' rows, then n_out output rows
+    dw = torch.empty((sum(num_layers * d + pk.n_out for pk in packs), d), **f32)
     dcols = torch.empty((num, num_layers, 3, d), **f32)  # LN scale, LN shift, hidden bias
-    dbo = torch.empty((num, _MAX_OUT), **f32)
+    dbo = torch.empty((num, max(pk.n_out for pk in packs)), **f32)
     dx = torch.empty_like(x)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -268,10 +291,12 @@ def fused_mlps_backward(x: torch.Tensor, packs: Sequence[MLPPack], gs,
                                      dx.data_ptr(), stream)
     _check_launch(lib, err, "backward")
     fused_mlps_backward.launches += 1
-    grads = []
+    grads, row0 = [], 0
     for i, pk in enumerate(packs):
-        grads += [dw[i, :num_layers], dcols[i, :, 2], dcols[i, :, 0], dcols[i, :, 1],
-                  dw[i, num_layers, : pk.n_out], dbo[i, : pk.n_out]]
+        hidden = row0 + num_layers * d
+        grads += [dw[row0:hidden].view(num_layers, d, d), dcols[i, :, 2], dcols[i, :, 0], dcols[i, :, 1],
+                  dw[hidden : hidden + pk.n_out], dbo[i, : pk.n_out]]
+        row0 = hidden + pk.n_out
     return dx, grads
 
 

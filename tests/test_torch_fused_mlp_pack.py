@@ -54,6 +54,25 @@ def test_packed_image_unpacks_to_the_linear_weights(layers):
     assert pack.bh.dtype == pack.sc.dtype == pack.bi.dtype == pack.bo.dtype == torch.float32
 
 
+@pytest.mark.parametrize("n_out", [257, 600])
+def test_wide_output_packs_after_the_hidden_layers(n_out):
+    """An output layer wider than 256 follows the hidden layers in the bf16
+    image: zero rows up to whole blocks of 256 outputs, each block laid out
+    as a hidden layer."""
+    mlp = _mlp(n_out, seed=n_out, dtype=torch.bfloat16, layers=2)
+    pack = fused_mlp.pack_mlp_params(mlp, torch.bfloat16)
+    blocks = -(-n_out // 256)
+    assert pack.w.shape == ((2 + blocks) * D * D,) and pack.n_out == n_out
+    hidden = np.stack([lin.weight.detach().to(torch.bfloat16).float().numpy() for lin in list(mlp.linears)[:-1]])
+    unpacked = _unpack_image(pack.w, 2 + blocks)
+    np.testing.assert_array_equal(unpacked[:2], hidden)
+    wo = np.zeros((blocks * 256, D), np.float32)
+    wo[:n_out] = mlp.linears[-1].weight.detach().to(torch.bfloat16).float().numpy()
+    np.testing.assert_array_equal(unpacked[2:].reshape(-1, D), wo)
+    np.testing.assert_array_equal(fused_mlp.pack_output_image(mlp.linears[-1].weight.detach().to(torch.bfloat16))
+                                  .float().numpy(), pack.w[2 * D * D :].float().numpy())
+
+
 def test_f32_pack_holds_both_weight_layouts():
     mlp = _mlp(3, seed=1)
     pack = fused_mlp.pack_mlp_params(mlp, torch.float32)
@@ -86,9 +105,10 @@ def test_call_checks_refuse_what_the_kernels_do_not_take():
         fused_mlp._check_supported(x, [_mlp(1, seed=s) for s in range(5)], width=D)
     with pytest.raises(ValueError, match="one depth"):
         fused_mlp._check_supported(x, [_mlp(1, seed=0), _mlp(1, seed=1, layers=3)], width=D)
-    with pytest.raises(ValueError, match="1 to 256 outputs"):
-        fused_mlp._check_supported(x, [_mlp(257, seed=0)], width=D)
-    assert fused_mlp._check_supported(x, [_mlp(1, seed=0), _mlp(256, seed=1)], width=D) == torch.float32
+    with pytest.raises(ValueError, match="at least 1 output"):
+        fused_mlp._check_supported(x, [_mlp(0, seed=0)], width=D)
+    wide = [_mlp(1, seed=0), _mlp(256, seed=1), _mlp(257, seed=2), _mlp(4420, seed=3)]
+    assert fused_mlp._check_supported(x, wide, width=D) == torch.float32
 
 
 def _chain_from_pack(x, pk):

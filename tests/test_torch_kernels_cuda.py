@@ -192,6 +192,52 @@ def test_fused_mlp_backward_kernel_at_ragged_rows_on_card(outs):
                 assert err <= tol * max(float(w.abs().max()), 1e-6), (tuple(g.shape), m, tdt, err)
 
 
+# output layers wider than 256 (the tensor-core output path): one block and
+# one output past it, the keypoint head's kernel MLP (2,737) beside its
+# presence MLP (17) in one call, and c = 32 with 68 keypoints (4,420)
+WIDE_OUTPUTS = [(257,), (17, 2737), (4420, 1)]
+WIDE_IDS = ["one_past", "keypoint", "face_landmarks"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("outs", WIDE_OUTPUTS, ids=WIDE_IDS)
+def test_fused_mlp_wide_output_kernels_match_plain_versions_on_card(outs):
+    """K1f and K1b with an output layer wider than 256, at ragged row counts
+    and the keypoint path's gathered rows (1,600 serving, 2,048 training),
+    against the plain chain and its autograd at the tolerances of the tests
+    above, dx held as the parameter gradients are (its largest error within
+    ``tol`` of its largest magnitude: dh sums n_out products, so dx grows
+    with the output width and a fixed atol tightens with it); one launch a
+    call, and two K1b calls bitwise equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(9)
+    for tdt, atol, tol in ((torch.bfloat16, 5e-2, 1e-1), (torch.float32, 1e-3, 1e-3)):
+        with compute_dtype_scope(tdt):
+            mlps = [_random_mlp(n, gen) for n in outs]
+        for m in (1, 65, 1600, 2048):
+            x = torch.randn(m, 256, generator=gen).to("cuda", tdt)
+            with torch.no_grad():
+                before = fused_mlp.fused_mlps.launches
+                got = fused_mlp.fused_mlps(x, mlps)
+                assert fused_mlp.fused_mlps.launches == before + 1
+                ref = fused_mlp.fused_mlps_reference(x, mlps)
+            for g, r in zip(got, ref):
+                assert g.shape == r.shape == (m, g.shape[1])
+                torch.testing.assert_close(g.float(), r.float(), atol=atol, rtol=atol)
+            weights = [torch.randn(m, n, generator=gen).cuda() for n in outs]
+            before = fused_mlp.fused_mlps_backward.launches
+            grads = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
+            again = mlp_gradients(fused_mlp.fused_mlps, x, mlps, weights)
+            assert fused_mlp.fused_mlps_backward.launches == before + 2
+            want = mlp_gradients(fused_mlp.fused_mlps_reference, x, mlps, weights)
+            for g, a in zip(grads, again):
+                assert torch.equal(g, a), "two K1b calls differ"
+            assert grads[0].shape == want[0].shape and grads[0].dtype == want[0].dtype == tdt
+            for g, w in zip(grads, want):
+                err = float((g.float() - w.float()).abs().max())
+                assert err <= tol * max(float(w.float().abs().max()), 1e-6), (tuple(g.shape), m, tdt, err)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m", [1, 64, 65, 1600, 14400])
 def test_fused_mlp_weight_gradient_gemm_on_card(m):
@@ -444,6 +490,26 @@ def test_dynconv_decode_backward_kernel_matches_plain_autograd_on_card(b, i, h, 
         rtol = 2e-3 + (2**-7 if dtype == torch.bfloat16 else 0.0)
         torch.testing.assert_close(k_mf.float(), want_mf.float(), atol=2e-3, rtol=rtol)
         torch.testing.assert_close(k_dyn.float(), want_dyn.float(), atol=2e-3, rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_dynconv_decode_backward_kernel_at_the_keypoint_training_shape_on_card():
+    """K5b in bf16 at the keypoint head's training decode (16 images x 128
+    positives at 80 x 80, c = 32, k = 17) against autograd of the plain
+    chain, at the tolerances of the test above; two calls bitwise equal."""
+    _need_card()
+    gen = torch.Generator().manual_seed(5)
+    c, k = 32, 17
+    mf, grid, centers, dyn = _decode_inputs(gen, 16, 128, 80, 80, c, k, torch.bfloat16)
+    gout = torch.randn(16, 128, 80, 80, k, generator=gen).cuda()
+    got = dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k)
+    again = dynconv.dynamic_pointwise_decode_backward(mf, grid, centers, dyn, gout, c, k)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [mf.detach().requires_grad_(True), dyn.detach().requires_grad_(True)]
+    want = torch.autograd.grad(dynconv.reference_decode(leaves[0], grid, centers, leaves[1], c, k), leaves, gout)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.bfloat16
+        torch.testing.assert_close(g.float(), w.float(), atol=2e-3, rtol=2e-3 + 2**-7)
 
 
 @pytest.mark.cuda
