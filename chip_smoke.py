@@ -4,8 +4,8 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Twelve models run through the port's hand-written kernels, with random
-weights from a seed: the flagship (ResNet-50, FPN 256 channels over levels
+Fourteen models run through the port's hand-written kernels, with weights
+from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
 FPN 256 channels over levels 3-5, InstanceSegmentation with 80 classes),
@@ -35,8 +35,13 @@ defaults; the anomaly model's teacher wholly frozen with its BatchNorms in
 eval mode), and the keypoint model of ``examples/keypoint_detection.py``
 (ResNet-18, FPN 128 channels over levels 3-5, KeypointDetection with
 COCO's 17 keypoints and 10 targets at its defaults: its kernel MLP
-predicts 2,737 dynamic weights an instance).  Every training step freezes
-level 1 at least, so its stem runs K4.  Phases, each of which raises on failure:
+predicts 2,737 dynamic weights an instance), and the flagship twice more:
+with its neck swapped for PAN 256 wide (levels 3-7, SiLU) and its ResNet-50
+pretrained, read from a torchvision-format file that the script writes from
+a seed into a temporary ``TORCH_HOME`` (ImageNet normalisation in front,
+level 1 frozen), and on timm's pre-activation ``resnetv2_50`` under the
+flagship's FPN and head.  Every training step freezes level 1 at least, so
+its stem runs K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -178,7 +183,18 @@ level 1 at least, so its stem runs K4.  Phases, each of which raises on failure:
    tie; K4, K3, K1f and K5f must launch), three bf16 requests (K1f twice
    a request), the f32 train slice against f64, ten bf16 steps (K1f, K1b,
    K2, K3, K4, K5f and K5b must launch) and the fit, validating with PCK on
-   the host.
+   the host;
+68-72. the same five for the pretrained PAN detector, after its trunk is
+   held equal to the file's tensors with ``Normalize`` in front and level 1
+   frozen: the f32 serving slice as phase 4, three bf16 requests, the f32
+   train slice against f64, ten bf16 steps and the fit (K1f, K3 and K4 in
+   serving; K1f, K1b, K2, K3 and K4 in training; K1f, K2, K3 and K4 in the
+   validate), at the flagship's kernel shapes;
+73-76. the first four for the ResNetV2 detector (every pre-activation
+   branch's last conv damped in the train slice), with the same kernels;
+77. M16: CBAM, CrossCBAM, PadToMultipleOf, the adaptive pools, ``edges``,
+   ``gaussian_blur``, the four losses and ``polygon_iou`` on CUDA tensors
+   against the CPU in f32 (``m16_phase``), no kernel involved.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -186,6 +202,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 import contextlib
 import copy
+import hashlib
 import json
 import math
 import os
@@ -202,8 +219,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sihl_tpu_torch import Backbone, SihlModel
-from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck
+from sihl_tpu_torch import Backbone, SihlModel, TimmBackbone
+from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck, PreactBottleneck, make_resnet_features
+from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict
 from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
                                   KeypointDetection, MetricLearning, MulticlassClassification,
                                   MultilabelClassification, ObjectDetection, PanopticSegmentation,
@@ -211,12 +229,14 @@ from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimatio
                                   ViewInvarianceLearning, anchors)
 from sihl_tpu_torch.heads.anomaly_detection import hard_mined
 from sihl_tpu_torch.heads.semantic_segmentation import channel_max
-from sihl_tpu_torch.layers import FPN, BiFPN, HybridEncoder
+from sihl_tpu_torch.layers import CBAM, FPN, PAN, BiFPN, CrossCBAM, HybridEncoder, PadToMultipleOf
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, ConvNormAct
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
 from sihl_tpu_torch.layers.transformer import _FeedForward
 from sihl_tpu_torch.ops.image import interpolate
-from sihl_tpu_torch.ops import boxes, conv_probes, dynconv, fused_mlp, fusion, mlp_pipeline, stem, stem_variants, topk
+from sihl_tpu_torch.ops import (adaptive_avg_pool, adaptive_max_pool, binary_cross_entropy, boxes, conv_probes, dynconv,
+                                edges, focal_loss, fused_mlp, fusion, gaussian_blur, mlp_pipeline, ssim_loss, stem,
+                                stem_variants, topk, tversky_loss)
 from sihl_tpu_torch.ops.relu import relu
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.tools import (probe_conv1x1, probe_conv3x3, probe_mlp_pipeline, probe_stem_variants,
@@ -224,6 +244,7 @@ from sihl_tpu_torch.tools import (probe_conv1x1, probe_conv3x3, probe_mlp_pipeli
 from sihl_tpu_torch.tools.probe_timing import card_name, cublas_products_ms, graph_ms, median_ms, within_one_bf16_step
 from sihl_tpu_torch.training import Trainer, restore_checkpoint, save_checkpoint
 from sihl_tpu_torch.training.trainer import _losses
+from sihl_tpu_torch.utils import polygon_iou
 
 BATCH, SIZE, NUM_CLASSES, WIDTH = 16, 640, 80, 256
 # anchors of levels 3-7 at 640 px: 80^2 + 40^2 + 20^2 + 10^2 + 5^2
@@ -457,6 +478,33 @@ def build_keypoint(generator: torch.Generator, device=None) -> SihlModel:
     return SihlModel(backbone, neck, [head])
 
 
+def build_pan(generator: torch.Generator, device=None) -> SihlModel:
+    """The flagship with its neck swapped and its trunk pretrained, as the
+    examples' ``--pretrained`` runs load it (``examples/common.py:60-63``):
+    ResNet-50 from torchvision's cached file (``pretrained_home``), ImageNet
+    normalisation in front and level 1 frozen → PAN 256 wide over levels 3-7
+    (``sihl_tpu/layers/pan.py``, SiLU) → ObjectDetection (80 classes, levels
+    3-7, 100 targets)."""
+    backbone = Backbone("resnet50", pretrained=True, frozen_levels=1, generator=generator, device=device)
+    neck = PAN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
+def build_resnetv2(generator: torch.Generator, device=None) -> SihlModel:
+    """The flagship on timm's pre-activation trunk (``TimmBackbone("resnetv2_50")``,
+    ``sihl_tpu/backbones/__init__.py:150-219``), random weights, level 1
+    frozen as bench.py's step freezes it → FPN 256 wide over levels 3-7 →
+    ObjectDetection (80 classes, levels 3-7, 100 targets)."""
+    backbone = TimmBackbone("resnetv2_50", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
 def freeze_trunk(model: SihlModel) -> None:
     """Freeze the trunk as every training path here does: level 1, or every
     level of a teacher whose BatchNorms are frozen (the anomaly model)."""
@@ -486,16 +534,20 @@ def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generato
 
 def damp_residual_branches(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Scale the last BatchNorm of every residual branch (``conv3.bn`` of a
-    bottleneck, ``conv2.bn`` of a basic block) to U(0.01, 0.03), so that each
-    residual block starts near the identity, as zero-init-residual ResNets
-    do; at full scales the f32 gradients of these random-weight models lose
-    most of their digits."""
+    bottleneck, ``conv2.bn`` of a basic block) to U(0.01, 0.03), and the
+    last conv of a pre-activation branch (``conv3``) by U(0.01, 0.03), so
+    that each residual block starts near the identity, as zero-init-residual
+    ResNets (timm's ``zero_init_last``) do; at full scales the f32 gradients
+    of these random-weight models lose most of their digits."""
     with torch.no_grad():
         for m in model.modules():
             last = {Bottleneck: "conv3", BasicBlock: "conv2"}.get(type(m))
             if last is not None:
                 bn = getattr(m, last).bn
                 bn.weight.copy_(torch.rand(bn.weight.shape, generator=generator) * 0.02 + 0.01)
+            if isinstance(m, PreactBottleneck):  # no norm ends its branch: its last conv, per output channel
+                w = m.conv3.weight
+                w.mul_((torch.rand(w.shape[0], generator=generator) * 0.02 + 0.01).to(w.device)[:, None, None, None])
 
 
 def training_batch(batch: int, seed: int = 0, device="cuda"):
@@ -2238,7 +2290,7 @@ def train(build=build_flagship, batch=None,
     print(f"  {label} bf16, batch {BATCH} at {SIZE} px, {steps} steps: losses "
           f"{[round(v, 4) for v in losses]}; step times {[round(t * 1000, 3) for t in times]} ms; "
           f"median of steps 3-{steps} {steady * 1000:.3f} ms, {BATCH / steady:.2f} images/s; "
-          f"peak memory {peak_gib:.2f} GiB; kernel launches {launches}")
+          f"peak memory {peak_gib:.2f} GiB [{card_name()}]; kernel launches {launches}")
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError("non-finite training loss")
     for name, n in launches.items():
@@ -2262,7 +2314,7 @@ def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
     steady = statistics.median(latencies[1:])
     print(f"  {label} bf16, batch {BATCH} at {SIZE} px: request latencies "
           f"{[round(t * 1000, 3) for t in latencies]} ms; {BATCH / steady:.2f} images/s from "
-          f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB; "
+          f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB [{card_name()}]; "
           f"kernel launches {launches}")
     for name, n in launches.items():
         if n == 0:
@@ -3112,6 +3164,178 @@ def keypoint_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     return launches
 
 
+PAN_SERVE = ("fused_mlp", "upsample_add", "stem_conv_stats")
+PAN_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats")
+PAN_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats")
+PRETRAINED_SEED = 23
+
+
+def write_pretrained_weights(torch_home: str, seed: int = PRETRAINED_SEED) -> str:
+    """torchvision's cached ResNet-50 file, made from a seed, in
+    ``torch_home/hub/checkpoints``: the port's torchvision-format export
+    (``dump_state_dict``) of a ResNet-50 drawn from ``seed`` with random
+    BatchNorm statistics and affine parameters, and a classifier and
+    BatchNorm counters beside it, as torchvision's files hold them; named
+    ``resnet50-<the first 8 hex digits of its SHA-256>.pth``, as torchvision
+    names its files.  Returns its path."""
+    generator = torch.Generator().manual_seed(seed)
+    features = make_resnet_features("resnet50", generator=generator, device="cpu")
+    randomize_norms_and_biases(features, generator)
+    sd = dump_state_dict(features, "resnet50")
+    sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
+               for k in list(sd) if k.endswith("running_mean")})
+    sd.update({"fc.weight": torch.randn(1000, 2048, generator=generator) * 0.01, "fc.bias": torch.zeros(1000)})
+    directory = os.path.join(torch_home, "hub", "checkpoints")
+    os.makedirs(directory, exist_ok=True)
+    partial = os.path.join(directory, "resnet50.partial")
+    torch.save(sd, partial)
+    with open(partial, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:8]
+    path = os.path.join(directory, f"resnet50-{digest}.pth")
+    os.replace(partial, path)
+    return path
+
+
+@contextlib.contextmanager
+def pretrained_home():
+    """A temporary ``TORCH_HOME`` holding ``write_pretrained_weights``'s file,
+    set for the block; yields the file's path."""
+    before = os.environ.get("TORCH_HOME")
+    with tempfile.TemporaryDirectory(prefix="torch_home_") as home:
+        os.environ["TORCH_HOME"] = home
+        try:
+            yield write_pretrained_weights(home)
+        finally:
+            if before is None:
+                del os.environ["TORCH_HOME"]
+            else:
+                os.environ["TORCH_HOME"] = before
+
+
+def check_pretrained(model: SihlModel, path: str, t_build: float) -> None:
+    """The trunk holds the file's tensors, runs ImageNet normalisation in
+    front and has level 1 frozen (stem parameters out of the optimizer, no
+    backward)."""
+    want = torch.load(path, weights_only=True, map_location="cpu")
+    got = dump_state_dict(model.backbone.features, "resnet50")
+    unequal = [k for k, v in got.items() if not torch.equal(v, want[k])]
+    bb = model.backbone
+    print(f"  pan: {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f} MiB) read from "
+          f"torch.hub.get_dir()/checkpoints; {len(got) - len(unequal)} of {len(got)} trunk tensors equal to the "
+          f"file's; Normalize in front: {bb.normalize is not None}; frozen levels {bb.frozen_levels}; model built in "
+          f"{t_build:.2f} s")
+    if unequal or bb.normalize is None or bb.frozen_levels != 1 or bb.features._sg_levels != 1:
+        raise AssertionError(f"the pretrained trunk: {len(unequal)} tensors differ from the file's (e.g. "
+                             f"{unequal[:3]}), normalize {bb.normalize}, frozen levels {bb.frozen_levels}")
+
+
+def pan_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 68-72, the pretrained PAN detector (``build_pan``), its trunk
+    read from ``write_pretrained_weights``'s file: the f32 serving slice
+    against the CPU, three bf16 requests, the f32 training slice against
+    f64 on the CPU, ten bf16 steps and the fit.  The neck's and head's norms
+    and biases are randomised, the trunk keeps the file's.  Returns the
+    launch counts of serving, training and validation."""
+    with pretrained_home() as path:
+        t0 = time.perf_counter()
+        model = build_pan(gen)
+        check_pretrained(model, path, time.perf_counter() - t0)
+        randomize_norms_and_biases(model.neck, gen)
+        randomize_norms_and_biases(model.heads, gen)
+        model.eval()
+        check_slice(model, gen, "pan slice", kernels=PAN_SERVE)
+        launches = {"pan_serve": serve_phase(model, build_pan, cuda_gen, PAN_SERVE, "pan serving")}
+        check_train_slice(model, gen, build_pan, training_batch(2, seed=1), "pan train slice")
+        del model
+        launches["pan_train"] = train(build_pan, training_batch(BATCH), PAN_TRAIN, label="pan training")
+        launches["pan_validate"] = fit_phase(
+            build_pan, [training_batch(BATCH), training_batch(BATCH, seed=4)], PAN_VALIDATE, "pan fit")
+    return launches
+
+
+def resnetv2_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 73-76, the ResNetV2 detector (``build_resnetv2``): the f32
+    serving slice against the CPU, three bf16 requests, the f32 training
+    slice against f64 on the CPU (every pre-activation branch's last conv
+    damped, ``damp_residual_branches``) and ten bf16 steps.  Returns the
+    launch counts of serving and training."""
+    model = build_resnetv2(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_slice(model, gen, "resnetv2 slice", kernels=PAN_SERVE)
+    launches = {"v2_serve": serve_phase(model, build_resnetv2, cuda_gen, PAN_SERVE, "resnetv2 serving")}
+    check_train_slice(model, gen, build_resnetv2, training_batch(2, seed=1), "resnetv2 train slice")
+    del model
+    launches["v2_train"] = train(build_resnetv2, training_batch(BATCH), PAN_TRAIN, label="resnetv2 training")
+    return launches
+
+
+def random_quads(gen: torch.Generator, n: int) -> torch.Tensor:
+    """``n`` rotated rectangles (n, 4, 2), counter-clockwise, in a 64-pixel field."""
+    centre = torch.rand(n, 1, 2, generator=gen) * 64
+    half = torch.rand(n, 1, 2, generator=gen) * 12 + 2
+    angle = torch.rand(n, 1, generator=gen) * math.pi
+    corners = torch.tensor([[-1.0, -1.0], [1.0, -1.0], [1.0, 1.0], [-1.0, 1.0]]) * half
+    cos, sin = torch.cos(angle), torch.sin(angle)
+    rotated = torch.stack([corners[..., 0] * cos - corners[..., 1] * sin,
+                           corners[..., 0] * sin + corners[..., 1] * cos], dim=-1)
+    return centre + rotated
+
+
+M16_TOL = 1e-5
+
+
+def m16_phase(gen: torch.Generator) -> None:
+    """Phase 77: the rest of the public layers, ops and utils on CUDA tensors
+    against the CPU, f32 (TF32 off): CBAM, CrossCBAM and PadToMultipleOf on
+    (16, 256, 80, 80) maps; the adaptive pools (a size that divides and one
+    that does not, the linear resize), ``edges`` and ``gaussian_blur`` on 16
+    images at 640 px; the BCE and focal losses on (16, 80, 80, 80)
+    probabilities, the Tversky loss on (16, 133, 80, 80) logits with void
+    pixels, the SSIM loss on 16 images at 320 px; ``polygon_iou`` on 16,000
+    pairs of rotated rectangles.  Each within ``M16_TOL`` of its largest
+    CPU magnitude (PadToMultipleOf bitwise)."""
+    t0 = time.perf_counter()
+    cl = torch.channels_last
+    maps = [torch.randn(BATCH, WIDTH, 80, 80, generator=gen).contiguous(memory_format=cl) for _ in range(2)]
+    images = torch.rand(BATCH, 3, SIZE, SIZE, generator=gen)
+    probs = torch.rand(BATCH, NUM_CLASSES, 80, 80, generator=gen)
+    labels = (torch.rand(BATCH, NUM_CLASSES, 80, 80, generator=gen) > 0.9).float()
+    logits = torch.randn(BATCH, STUFF_CLASSES + THING_CLASSES, 80, 80, generator=gen)
+    classes = torch.randint(0, STUFF_CLASSES + THING_CLASSES, (BATCH, 80, 80), generator=gen)
+    classes[:, :10] = VOID
+    quads = [random_quads(gen, BATCH * 1000) for _ in range(2)]
+    cbam, cross = CBAM(WIDTH, generator=gen, device="cpu"), CrossCBAM(WIDTH, generator=gen, device="cpu")
+    cases = (
+        ("CBAM", cbam, maps[:1]),
+        ("CrossCBAM", cross, maps),
+        ("PadToMultipleOf(32) of (16, 256, 75, 70)", PadToMultipleOf(32), [maps[0][:, :, :75, :70]]),
+        ("adaptive_avg_pool 80 -> 20", lambda x: adaptive_avg_pool(x, 20), maps[:1]),
+        ("adaptive_avg_pool 80 -> 7 (linear resize)", lambda x: adaptive_avg_pool(x, 7), maps[:1]),
+        ("adaptive_max_pool 80 -> 10", lambda x: adaptive_max_pool(x, 10), maps[:1]),
+        ("edges", edges, [images]),
+        ("gaussian_blur", gaussian_blur, [images]),
+        ("binary_cross_entropy", binary_cross_entropy, [probs, labels]),
+        ("focal_loss", focal_loss, [probs, labels]),
+        ("tversky_loss", lambda x, t: tversky_loss(x, t, ignore_index=VOID), [logits, classes]),
+        ("ssim_loss", ssim_loss, [images[:, :, :320, :320], images[:, :, 320:, 320:]]),
+        ("polygon_iou", polygon_iou, quads),
+    )
+    rows = []
+    with full_f32(), torch.no_grad():
+        for label, fn, inputs in cases:
+            want = fn(*inputs)
+            card_fn = copy.deepcopy(fn).cuda() if isinstance(fn, torch.nn.Module) else fn
+            got = card_fn(*[x.cuda() for x in inputs]).cpu()
+            err = float((got.double() - want.double()).abs().max() / want.double().abs().max().clamp_min(1e-30))
+            exact = isinstance(fn, PadToMultipleOf)
+            rows.append(f"{label} {tuple(got.shape)} {err:.3g}")
+            if got.shape != want.shape or not torch.isfinite(got).all() or (err > 0 if exact else err > M16_TOL):
+                raise AssertionError(f"{label}: card against CPU {err} (shape {tuple(got.shape)})")
+    print(f"  M16 on the card against the CPU, f32, largest error relative to the CPU's largest magnitude "
+          f"(bound {M16_TOL:g}, PadToMultipleOf 0): " + "; ".join(rows) + f"; {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -3272,6 +3496,16 @@ def main() -> None:
     launches.update(keypoint_phases(gen, cuda_gen))
     print(f"phases 63-67 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 68-76: the pretrained PAN detector and the ResNetV2 detector, at
+    # the flagship's kernel shapes (phase 3); phase 77: the rest of M16
+    t0 = time.perf_counter()
+    launches.update(pan_phases(gen, cuda_gen))
+    print(f"phases 68-72 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(resnetv2_phases(gen, cuda_gen))
+    print(f"phases 73-76 in {time.perf_counter() - t0:.1f} s")
+    m16_phase(gen)
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -3403,6 +3637,19 @@ def main() -> None:
            f"{dyn_py}:257", "dynconv_decode") for path in ("serve", "train", "validate")),
         ("dynconv_decode_backward@keypoint_train", "keypoint_train", "dynconv_decode_backward@keypoint", "cuda",
          dyn_cu, f"{dyn_py}:290", "dynconv_decode_backward"),
+        # the PAN and ResNetV2 detectors run the flagship's kernel shapes
+        *((f"fused_mlp@{model}_{path}", f"{model}_{path}", key, "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp")
+          for model in ("pan", "v2")
+          for path, key in (("serve", "fused_mlp"), ("train", "fused_mlp@train"), ("validate", "fused_mlp@validate"))
+          if (model, path) != ("v2", "validate")),
+        *((f"fused_mlp_backward@{model}_train", f"{model}_train", "fused_mlp_backward", "cuda", mlp_cu,
+           f"{mlp_py}:365", "fused_mlp_backward") for model in ("pan", "v2")),
+        *((f"row_kth@{path}", path, "row_kth", "cuda", topk_cu, topk_py, "row_kth")
+          for path in ("pan_train", "pan_validate", "v2_train")),
+        *((f"upsample_add@{path}", path, "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add")
+          for path in ("pan_serve", "pan_train", "pan_validate", "v2_serve", "v2_train")),
+        *((f"stem_conv_stats@{path}", path, "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats")
+          for path in ("pan_serve", "pan_train", "pan_validate", "v2_serve", "v2_train")),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

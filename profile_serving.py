@@ -15,6 +15,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --view-invariance [--train] # the view-invariance (Barlow Twins) model
     python3 profile_serving.py --anomaly [--train]         # the anomaly (EfficientAD) model
     python3 profile_serving.py --keypoint [--train]        # the keypoint (FCPose) model
+    python3 profile_serving.py --pan [--train]             # the pretrained PAN detector
+    python3 profile_serving.py --resnetv2 [--train]        # the ResNetV2 detector
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -29,7 +31,10 @@ models, trained on ``chip_smoke.autoencoder_batch``, ``view_batch`` and
 ``anomaly_batch``, the anomaly model after its teacher's statistics and
 ``Trainer.pretrain`` (``chip_smoke.pretrained_teacher``; served after
 ``chip_smoke.calibrate_anomaly``), and with ``--keypoint`` its keypoint
-model, trained on ``chip_smoke.keypoint_batch``;
+model, trained on ``chip_smoke.keypoint_batch``; with ``--pan`` its
+pretrained PAN detector, its trunk read from the file that
+``chip_smoke.pretrained_home`` writes from a seed, and with ``--resnetv2``
+its ResNetV2 detector, both trained on bench.py's targets;
 random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
@@ -47,6 +52,7 @@ ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 """
 
 import argparse
+import contextlib
 import statistics
 import time
 
@@ -56,9 +62,9 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import (
     BATCH, HYBRID_SCHEDULE, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly,
     build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_keypoint, build_multitask,
-    build_panoptic, build_quad, build_view_invariance, calibrate_anomaly, card_name, dense_batch, freeze_trunk,
-    instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_teacher, quad_batch,
-    randomize_norms_and_biases, training_batch, view_batch,
+    build_pan, build_panoptic, build_quad, build_resnetv2, build_view_invariance, calibrate_anomaly, card_name,
+    dense_batch, freeze_trunk, instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_home,
+    pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch, view_batch,
 )
 from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
@@ -136,6 +142,8 @@ def main() -> None:
     models.add_argument("--view-invariance", action="store_true", help="the view-invariance (Barlow Twins) model")
     models.add_argument("--anomaly", action="store_true", help="the anomaly (EfficientAD) model")
     models.add_argument("--keypoint", action="store_true", help="the keypoint (FCPose) model")
+    models.add_argument("--pan", action="store_true", help="the pretrained PAN detector")
+    models.add_argument("--resnetv2", action="store_true", help="the ResNetV2 detector")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -148,13 +156,15 @@ def main() -> None:
         else ("view invariance", build_view_invariance, view_batch) if args.view_invariance
         else ("anomaly", build_anomaly, lambda b: (anomaly_batch(b)[0], None)) if args.anomaly
         else ("keypoint", build_keypoint, keypoint_batch) if args.keypoint
+        else ("pretrained PAN detector", build_pan, training_batch) if args.pan
+        else ("ResNetV2 detector", build_resnetv2, training_batch) if args.resnetv2
         else ("flagship", build_flagship, training_batch)
     )
     train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
-    with compute_dtype_scope(torch.bfloat16):
+    with pretrained_home() if args.pan else contextlib.nullcontext(), compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(0))
     pretraining = [anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)] if args.anomaly else None
     if train:

@@ -9,8 +9,21 @@ Hopper under ``sihl_tpu_torch/ops``; a CUDA tensor runs the kernel and a
 CPU tensor its plain PyTorch version.
 """
 
-from sihl_tpu_torch.backbones import Backbone, backbone_names
+from sihl_tpu_torch.backbones import _TIMM_ALIASES, Backbone, TimmBackbone, TorchvisionBackbone, backbone_names
 from sihl_tpu_torch.model import SihlModel
 from sihl_tpu_torch.policy import compute_dtype, set_compute_dtype
 
-__all__ = ["Backbone", "SihlModel", "backbone_names", "compute_dtype", "set_compute_dtype"]
+# the names the port builds; both grow with the other families (ROADMAP.md, M17)
+TORCHVISION_BACKBONE_NAMES = backbone_names()
+TIMM_BACKBONE_NAMES = tuple(sorted(n for n, native in _TIMM_ALIASES.items() if native in TORCHVISION_BACKBONE_NAMES))
+
+
+def Trainer(*args, **kwargs):
+    """Lazy alias for :class:`sihl_tpu_torch.training.Trainer`."""
+    from sihl_tpu_torch.training import Trainer as _Trainer
+
+    return _Trainer(*args, **kwargs)
+
+
+__all__ = ["Backbone", "SihlModel", "TIMM_BACKBONE_NAMES", "TORCHVISION_BACKBONE_NAMES", "TimmBackbone",
+           "TorchvisionBackbone", "Trainer", "backbone_names", "compute_dtype", "set_compute_dtype"]

@@ -6,7 +6,9 @@ Contract: the output is ``[input] + [level1..top_level]`` where
 are made by :class:`AntialiasedDownscaler`\\ s (``downscalers``), each from
 the level below; input H and W must be divisible by ``2**top_level``.  The
 input is moved to channels_last memory here, once, and every layer after
-keeps that layout.
+keeps that layout.  ImageNet normalisation (:class:`Normalize`) runs in
+front of the feature net only when ``pretrained and input_channels == 3``;
+``outputs[0]`` is the raw input all the same.
 
 A feature net plugged into this wrapper exposes ``feature_channels`` (the
 channels of levels 1..n), ``level_modules`` (attribute names per level, for
@@ -20,8 +22,12 @@ import torch
 from torch import nn
 
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, default_generator
+from sihl_tpu_torch.layers.preprocessing import Normalize
 from sihl_tpu_torch.layers.scalers import AntialiasedDownscaler
 from sihl_tpu_torch.ops.image import interpolate
+
+IMAGENET_MEAN = [0.485, 0.456, 0.406]
+IMAGENET_STD = [0.229, 0.224, 0.225]
 
 
 class PyramidBackbone(nn.Module):
@@ -33,11 +39,16 @@ class PyramidBackbone(nn.Module):
         features: nn.Module,
         input_channels: int = 3,
         top_level: int = 5,
+        frozen_levels: int = 0,
+        pretrained: bool = False,
         freeze_batchnorms: bool = False,
         *,
         generator: Optional[torch.Generator] = None,
         device=None,
     ):
+        """``frozen_levels`` takes effect only with ``pretrained``, as in the
+        JAX package; a random-weight trunk is frozen with
+        :meth:`set_frozen_levels`."""
         super().__init__()
         if top_level < 1:
             raise ValueError(f"top_level must be >= 1, got {top_level}")
@@ -45,6 +56,9 @@ class PyramidBackbone(nn.Module):
         self.input_channels = input_channels
         self.top_level = top_level
         self.features = features
+        self.normalize = (
+            Normalize(IMAGENET_MEAN, IMAGENET_STD, device=device) if pretrained and input_channels == 3 else None
+        )
         self.native_levels = min(top_level, len(features.feature_channels))
         channels = [input_channels] + list(features.feature_channels[: self.native_levels])
         top_c = channels[-1]
@@ -55,7 +69,9 @@ class PyramidBackbone(nn.Module):
         )
         self.out_channels = channels + [top_c] * (top_level - self.native_levels)
         self.freeze_batchnorms = freeze_batchnorms
-        self.set_frozen_levels(0)
+        self.set_frozen_levels(frozen_levels if pretrained else 0)
+        if self.frozen_levels != 0 and freeze_batchnorms:
+            self._set_frozen_bn_eval()
 
     def set_frozen_levels(self, frozen_levels: int) -> None:
         """Freeze the first ``frozen_levels`` levels (all of them if < 0):
@@ -84,6 +100,14 @@ class PyramidBackbone(nn.Module):
                 if isinstance(sub, BatchNorm2d):
                     sub.eval()
 
+    @property
+    def dummy_input(self) -> torch.Tensor:
+        """The smallest valid input: zeros of (1, input_channels,
+        2^(top_level+1), 2^(top_level+1)) on the backbone's device."""
+        size = 2 ** (self.top_level + 1)
+        device = next(self.features.parameters()).device
+        return torch.zeros(1, self.input_channels, size, size, device=device)
+
     def forward(self, input: torch.Tensor) -> List[torch.Tensor]:
         h, w = input.shape[2:]
         if h % 2**self.top_level or w % 2**self.top_level:
@@ -91,7 +115,8 @@ class PyramidBackbone(nn.Module):
                 f"input spatial dims {(h, w)} must be divisible by 2^{self.top_level}"
             )
         input = input.contiguous(memory_format=torch.channels_last)
-        feats = self.features(input)[: self.native_levels]
+        x = self.normalize(input) if self.normalize is not None else input
+        feats = self.features(x)[: self.native_levels]
         outputs = [input] + [
             interpolate(f, size=(h // 2**level, w // 2**level))
             for f, level in zip(feats, range(1, self.native_levels + 1))

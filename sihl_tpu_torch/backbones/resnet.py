@@ -1,5 +1,7 @@
 """ResNet / ResNeXt / Wide ResNet feature nets (counterpart of
-``sihl_tpu/backbones/resnet.py``), torchvision v1.5 structure.
+``sihl_tpu/backbones/resnet.py``), torchvision v1.5 structure, and the
+pre-activation ResNetV2 (timm's ``resnetv2_50`` / ``resnetv2_101``) on the
+same stem.
 
 Level 1 is the stem's ReLU output (stride 2); levels 2..5 are layer1..layer4
 (strides 4..32).  A frozen stem (``_sg_levels >= 1``) runs its conv and its
@@ -201,7 +203,67 @@ class ResNetFeatures(nn.Module):
         return [c1, c2, c3, c4, c5]
 
 
-# The pre-activation ResNetV2 entries of the JAX registry wait (ROADMAP.md, M10).
+class PreactBottleneck(nn.Module):
+    """Pre-activation bottleneck (He et al. 2016; timm ``resnetv2_*``):
+    BatchNorm → ReLU before each conv, a bare 1x1 conv as the shortcut's
+    downsample (fed the pre-activated input), no activation after the sum."""
+
+    expansion = 4
+
+    def __init__(self, in_planes, planes, stride=1, groups=1, base_width=64, *, generator, device=None):
+        super().__init__()
+        width = int(planes * (base_width / 64.0)) * groups
+        out_planes = planes * self.expansion
+        self.norm1 = make_norm("batch", in_planes, device=device)
+        self.conv1 = make_conv(in_planes, width, 1, bias=False, generator=generator, device=device)
+        self.norm2 = make_norm("batch", width, device=device)
+        self.conv2 = make_conv(
+            width, width, 3, stride=stride, groups=groups, bias=False, generator=generator, device=device
+        )
+        self.norm3 = make_norm("batch", width, device=device)
+        self.conv3 = make_conv(width, out_planes, 1, bias=False, generator=generator, device=device)
+        self.downsample = (
+            make_conv(in_planes, out_planes, 1, stride=stride, bias=False, generator=generator, device=device)
+            if (stride != 1 or in_planes != out_planes)
+            else None
+        )
+
+    def forward(self, x):
+        pre = relu(self.norm1(x))
+        identity = self.downsample(pre) if self.downsample is not None else x
+        out = self.conv1(pre)
+        out = self.conv2(relu(self.norm2(out)))
+        out = self.conv3(relu(self.norm3(out)))
+        return out + identity
+
+
+class ResNetV2Features(ResNetFeatures):
+    """Pre-activation ResNet: level 5 is layer4's output through
+    ``final_norm`` and a ReLU.  ``final_norm`` belongs to no level, so no
+    ``frozen_levels`` freezes it; with all five levels frozen it runs
+    without a gradient, as the JAX package's ``stop_gradient`` cuts it."""
+
+    def __init__(self, block, layers, input_channels=3, groups=1, base_width=64, *, generator=None, device=None):
+        generator = default_generator(generator)
+        super().__init__(block, layers, input_channels=input_channels, groups=groups, base_width=base_width,
+                         generator=generator, device=device)
+        self.final_norm = make_norm("batch", self.feature_channels[-1], device=device)
+
+    def forward(self, x: torch.Tensor) -> List[torch.Tensor]:
+        sg = self._sg_levels
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 1):
+            c1 = self.stem(x, fwd_only=sg >= 1)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 2):
+            c2 = self.layer1(max_pool2d(c1, 3, stride=2, padding=1))
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 3):
+            c3 = self.layer2(c2)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 4):
+            c4 = self.layer3(c3)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and sg < 5):
+            c5 = relu(self.final_norm(self.layer4(c4)))
+        return [c1, c2, c3, c4, c5]
+
+
 RESNET_CONFIGS = {
     "resnet18": dict(block=BasicBlock, layers=[2, 2, 2, 2]),
     "resnet26": dict(block=Bottleneck, layers=[2, 2, 2, 2]),
@@ -214,6 +276,8 @@ RESNET_CONFIGS = {
     "resnext101_64x4d": dict(block=Bottleneck, layers=[3, 4, 23, 3], groups=64, base_width=4),
     "wide_resnet50_2": dict(block=Bottleneck, layers=[3, 4, 6, 3], base_width=128),
     "wide_resnet101_2": dict(block=Bottleneck, layers=[3, 4, 23, 3], base_width=128),
+    "resnetv2_50": dict(block=PreactBottleneck, layers=[3, 4, 6, 3], v2=True),
+    "resnetv2_101": dict(block=PreactBottleneck, layers=[3, 4, 23, 3], v2=True),
 }
 
 
@@ -221,7 +285,8 @@ def make_resnet_features(
     name: str, input_channels: int = 3, *, generator=None, device=None
 ) -> ResNetFeatures:
     cfg = dict(RESNET_CONFIGS[name])
-    return ResNetFeatures(
+    cls = ResNetV2Features if cfg.pop("v2", False) else ResNetFeatures
+    return cls(
         cfg.pop("block"), cfg.pop("layers"), input_channels=input_channels,
         generator=generator, device=device, **cfg,
     )

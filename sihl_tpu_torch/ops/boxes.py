@@ -99,6 +99,11 @@ def masks_to_boxes(masks: torch.Tensor) -> torch.Tensor:
     return torch.where(rows.any(dim=-1, keepdim=True), boxes, 0.0)
 
 
+def points_to_bbox(points: torch.Tensor) -> torch.Tensor:
+    """(N, K, 2) point sets to their (N, 4) enclosing boxes (x0, y0, x1, y1)."""
+    return torch.cat([points.amin(dim=-2), points.amax(dim=-2)], dim=-1)
+
+
 def bbox_matching(
     anchors: torch.Tensor,
     gt_boxes: torch.Tensor,

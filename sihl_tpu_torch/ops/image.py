@@ -1,10 +1,9 @@
 """Image-space ops on NCHW tensors (counterpart of ``sihl_tpu/ops/image.py``).
 
-Ported so far: nearest 2x upsampling, ``interpolate`` (nearest and
-bilinear, by size or scale), average and max pooling, the linear resize of
-mask targets, the binomial blur-pool, and the bit packing of binary masks
-for validation.  The adaptive pools, ``edges`` and ``gaussian_blur`` wait
-(ROADMAP.md, M16).
+Nearest 2x upsampling, ``interpolate`` (nearest and bilinear, by size or
+scale), average and max pooling and their adaptive forms, the linear
+resize of mask targets, the binomial blur-pool, Sobel ``edges``,
+``gaussian_blur``, and the bit packing of binary masks for validation.
 """
 
 from typing import Optional, Sequence, Tuple, Union
@@ -96,6 +95,34 @@ def max_pool2d(
     )
 
 
+def _pair(v) -> Tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
+def adaptive_avg_pool(x: torch.Tensor, output_size: Union[int, Tuple[int, int]]) -> torch.Tensor:
+    """Adaptive average pool of (B, C, H, W) to (B, C, oh, ow): exact block
+    means where the sizes divide, else the JAX package's fallback, a linear
+    resize (:func:`resize_linear`)."""
+    oh, ow = _pair(output_size)
+    b, c, h, w = x.shape
+    if oh == 1 and ow == 1:
+        return x.mean(dim=(2, 3), keepdim=True)
+    if h % oh == 0 and w % ow == 0:
+        return x.reshape(b, c, oh, h // oh, ow, w // ow).mean(dim=(3, 5))
+    return resize_linear(x, (oh, ow))
+
+
+def adaptive_max_pool(x: torch.Tensor, output_size: Union[int, Tuple[int, int]]) -> torch.Tensor:
+    """Adaptive max pool of (B, C, H, W) to (B, C, oh, ow); the sizes must divide."""
+    oh, ow = _pair(output_size)
+    b, c, h, w = x.shape
+    if oh == 1 and ow == 1:
+        return x.amax(dim=(2, 3), keepdim=True)
+    if h % oh or w % ow:
+        raise ValueError(f"adaptive_max_pool needs sizes that divide, got {(h, w)} to {(oh, ow)}")
+    return x.reshape(b, c, oh, h // oh, ow, w // ow).amax(dim=(3, 5))
+
+
 def _depthwise_conv(x: torch.Tensor, kernel_hw: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """Depthwise conv of (B, C, H, W) ``x`` with one (kh, kw) kernel shared by
     every channel, unpadded, in the kernel's dtype."""
@@ -117,6 +144,29 @@ def blur_pool_2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 1) -> torc
     xp = F.pad(xp, (pad, pad, pad, pad), mode="reflect")
     out = _depthwise_conv(xp, k1[:, None] * k1[None, :], stride=stride)
     return out.to(dtype=x.dtype, memory_format=torch.channels_last)
+
+
+def edges(x: torch.Tensor) -> torch.Tensor:
+    """Sobel edge magnitude of each channel of (B, C, H, W), zero-padded,
+    divided by its largest value over the whole tensor (plus 1e-12); in f32
+    (f64 for f64 inputs), returned in ``x``'s dtype."""
+    xp = F.pad(upcast(x), (1, 1, 1, 1))
+    kx = torch.tensor([[-1, 0, 1], [-2, 0, 2], [-1, 0, 1]], dtype=xp.dtype, device=x.device)
+    mag = torch.sqrt(_depthwise_conv(xp, kx) ** 2 + _depthwise_conv(xp, kx.T.contiguous()) ** 2)
+    return (mag / (mag.max() + 1e-12)).to(x.dtype)
+
+
+def gaussian_blur(x: torch.Tensor, kernel_size: int = 5, sigma: Optional[float] = None) -> torch.Tensor:
+    """Depthwise Gaussian blur of (B, C, H, W) with zero padding; ``sigma``
+    defaults to OpenCV's ``0.3 * ((k - 1) / 2 - 1) + 0.8``.  In f32 (f64 for
+    f64 inputs), returned in ``x``'s dtype."""
+    sigma = sigma or (0.3 * ((kernel_size - 1) * 0.5 - 1) + 0.8)
+    half = kernel_size // 2
+    xp = F.pad(upcast(x), (half, half, half, half))
+    coords = torch.arange(-half, half + 1, dtype=xp.dtype, device=x.device)
+    k1 = torch.exp(-(coords**2) / (2.0 * sigma**2))
+    k1 = k1 / k1.sum()
+    return _depthwise_conv(xp, k1[:, None] * k1[None, :]).to(x.dtype)
 
 
 def packbits_last(x: torch.Tensor) -> torch.Tensor:

@@ -8,7 +8,17 @@ from typing import Optional, Union
 import torch
 import torch.nn.functional as F
 
+from sihl_tpu_torch.ops.image import avg_pool2d
 from sihl_tpu_torch.policy import upcast
+
+EPS = 1e-5
+
+
+def binary_cross_entropy(probs: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Elementwise BCE on probabilities clipped to [EPS, 1 - EPS]."""
+    probs, targets = upcast(probs), upcast(targets)
+    p = torch.clamp(probs, EPS, 1.0 - EPS)
+    return -(targets * torch.log(p) + (1.0 - targets) * torch.log(1.0 - p))
 
 
 def binary_cross_entropy_with_logits(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
@@ -45,6 +55,15 @@ def cross_entropy(
     return torch.where(valid, loss, 0.0)
 
 
+def focal_loss(probs: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25, gamma: float = 2.0) -> torch.Tensor:
+    """Elementwise focal loss on probabilities (reference ``utils/__init__.py:203-213``)."""
+    probs, targets = upcast(probs), upcast(targets)
+    ce = binary_cross_entropy(probs, targets)
+    p_t = probs * targets + (1.0 - probs) * (1.0 - targets)
+    alpha_t = alpha * targets + (1.0 - alpha) * (1.0 - targets)
+    return alpha_t * ce * (1.0 - p_t) ** gamma
+
+
 def sigmoid_focal_loss(
     logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.25, gamma: float = 2.0
 ) -> torch.Tensor:
@@ -65,3 +84,42 @@ def log_cosh_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     ``|x| + log1p(exp(-2|x|)) - log(2)`` for ``x = pred - target``."""
     x = upcast(pred) - upcast(target)
     return x.abs() + torch.log1p(torch.exp(-2.0 * x.abs())) - math.log(2.0)
+
+
+def tversky_loss(logits: torch.Tensor, targets: torch.Tensor, alpha: float = 0.5, beta: float = 0.5,
+                 ignore_index: int = -100) -> torch.Tensor:
+    """Tversky loss of dense logits (B, C, H, W) against class maps (B, H, W):
+    one minus the batch mean of each image's and class's (TP + EPS) /
+    (TP + alpha FP + beta FN + EPS); pixels at ``ignore_index`` count nowhere,
+    and a class outside [0, C) has an all-zero one-hot row, as
+    ``jax.nn.one_hot`` gives it."""
+    logits = upcast(logits)
+    valid = (targets != ignore_index)[:, None].to(logits.dtype)
+    classes = torch.arange(logits.shape[1], device=logits.device)[None, :, None, None]
+    one_hot = (torch.where(targets == ignore_index, 0, targets)[:, None] == classes).to(logits.dtype) * valid
+    probs = torch.softmax(logits, dim=1) * valid
+    tp = (probs * one_hot).sum(dim=(2, 3))
+    fn = ((1.0 - probs) * one_hot).sum(dim=(2, 3))
+    fp = (probs * (1.0 - one_hot)).sum(dim=(2, 3))
+    return 1.0 - ((tp + EPS) / (tp + alpha * fp + beta * fn + EPS)).mean()
+
+
+def ssim_loss(pred: torch.Tensor, gt: torch.Tensor, window_size: int = 11, size_average: bool = True) -> torch.Tensor:
+    """Structural-similarity loss of (B, C, H, W) images (reference
+    ``utils:184-200``): |1 - SSIM| with means over a ``window_size`` box,
+    zero padding counted."""
+    pred, gt = upcast(pred), upcast(gt)
+    pad = window_size // 2
+    c1, c2 = 0.01**2, 0.03**2
+
+    def pool(x):
+        return avg_pool2d(x, window_size, stride=1, padding=pad)
+
+    mu1, mu2 = pool(pred), pool(gt)
+    mu1_sq, mu2_sq, mu1_mu2 = mu1 * mu1, mu2 * mu2, mu1 * mu2
+    sigma1_sq = pool(pred * pred) - mu1_sq
+    sigma2_sq = pool(gt * gt) - mu2_sq
+    sigma12 = pool(pred * gt) - mu1_mu2
+    ssim_map = ((2 * mu1_mu2 + c1) * (2 * sigma12 + c2)) / ((mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
+    reduced = ssim_map.mean() if size_average else ssim_map.sum()
+    return (1.0 - reduced).abs()

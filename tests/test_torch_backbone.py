@@ -40,10 +40,13 @@ def test_resnet18_pyramid_matches_jax():
     _assert_pyramid_matches_jax("resnet18")
 
 
-def test_backbone_refusals():
+def test_backbone_refusals(tmp_path, monkeypatch):
+    """``pretrained=True`` with no weight file in the cache raises and
+    downloads nothing (``tests/test_torch_pretrained.py`` loads files)."""
     with pytest.raises(ValueError, match="not supported"):
         Backbone("resnet0")
-    with pytest.raises(NotImplementedError, match="pretrained"):
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="pretrained weights for 'resnet18'"):
         Backbone("resnet18", pretrained=True)
     with pytest.raises(ValueError, match="top_level"):
         Backbone("resnet18", top_level=0)

@@ -1043,3 +1043,100 @@ def test_transformer_layers_hybrid_encoder_and_new_heads_on_card():
                     assert torch.equal(g.cpu(), w), type(module).__name__
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = matmul, cudnn
+
+
+@pytest.mark.cuda
+def test_pretrained_trunk_pan_and_resnetv2_on_card(tmp_path, monkeypatch):
+    """A torchvision-format resnet18 file (the port's export of a seeded
+    trunk) in a temporary ``TORCH_HOME``, loaded by ``Backbone(...,
+    pretrained=True, frozen_levels=1)`` on the card: the trunk holds the
+    file's tensors and normalises its input; in full f32 (TF32 off) the
+    pyramid, a PAN 64 wide over levels 3-5 on it, and a ``resnetv2_50``
+    pyramid with level 1 frozen each equal the CPU's within 1e-5 of their
+    largest magnitude; the frozen stems launch K4, the PAN's merges K3."""
+    _need_card()
+    from sihl_tpu_torch import Backbone, TimmBackbone
+    from sihl_tpu_torch.backbones.resnet import make_resnet_features
+    from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict
+    from sihl_tpu_torch.layers import PAN
+    from sihl_tpu_torch.ops.fusion import fused_upsample_add as k3
+
+    gen = torch.Generator().manual_seed(0)
+    features = make_resnet_features("resnet18", generator=gen, device="cpu")
+    with torch.no_grad():
+        for name, buf in features.named_buffers():
+            buf.copy_(torch.rand(buf.shape, generator=gen) * (0.4 if name.endswith("mean") else 1.0) + 0.5)
+    sd = dump_state_dict(features, "resnet18")
+    (tmp_path / "hub" / "checkpoints").mkdir(parents=True)
+    torch.save(sd, tmp_path / "hub" / "checkpoints" / "resnet18-0123abcd.pth")
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    bb = Backbone("resnet18", pretrained=True, frozen_levels=1, device="cuda").eval()
+    cpu_bb = Backbone("resnet18", pretrained=True, frozen_levels=1, device="cpu").eval()
+    assert bb.normalize is not None and bb.normalize.mean.is_cuda
+    assert all(torch.equal(v, sd[k]) for k, v in dump_state_dict(bb.features, "resnet18").items())
+    neck = PAN(bb.out_channels, 64, bottom_level=3, top_level=5, generator=gen, device="cpu").eval()
+    v2 = TimmBackbone("resnetv2_50", generator=gen, device="cpu")
+    v2.set_frozen_levels(1)
+    cases = [(cpu_bb, bb, None), (neck, copy.deepcopy(neck).cuda(), cpu_bb), (v2.eval(), copy.deepcopy(v2).cuda(), None)]
+    x = torch.rand(2, 3, 128, 128, generator=gen)
+    matmul = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad(), torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            for module, on_card, trunk in cases:
+                stem.stem_conv_stats.launches = k3.launches = 0
+                want = module(trunk(x)) if trunk is not None else module(x)
+                got = on_card(bb(x.cuda())) if trunk is not None else on_card(x.cuda())
+                assert (stem.stem_conv_stats.launches, k3.launches) == ((1, 2) if trunk is not None else (1, 0))
+                for g, w in zip(got, want):
+                    torch.testing.assert_close(g.cpu(), w, rtol=0, atol=1e-5 * float(w.abs().max()))
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = matmul
+
+
+@pytest.mark.cuda
+def test_m16_layers_ops_and_utils_on_card():
+    """CBAM, CrossCBAM, PadToMultipleOf, the adaptive pools, ``edges``,
+    ``gaussian_blur``, the four losses and ``polygon_iou`` on the card in
+    full f32 against the CPU: within 1e-5 of the CPU's largest magnitude
+    (PadToMultipleOf bitwise)."""
+    _need_card()
+    from sihl_tpu_torch.layers import CBAM, CrossCBAM, PadToMultipleOf
+    from sihl_tpu_torch.ops import (adaptive_avg_pool, adaptive_max_pool, binary_cross_entropy, edges, focal_loss,
+                                    gaussian_blur, ssim_loss, tversky_loss)
+    from sihl_tpu_torch.utils import polygon_iou
+
+    gen = torch.Generator().manual_seed(0)
+    maps = [torch.randn(2, 64, 40, 40, generator=gen) for _ in range(2)]
+    images = torch.rand(2, 3, 96, 96, generator=gen)
+    probs, labels = torch.rand(2, 5, 16, 16, generator=gen), (torch.rand(2, 5, 16, 16, generator=gen) > 0.8).float()
+    classes = torch.randint(0, 7, (2, 16, 16), generator=gen)
+    classes[:, :3] = 255
+    square = torch.tensor([[0.0, 0.0], [4.0, 0.0], [4.0, 4.0], [0.0, 4.0]])
+    quads = (torch.stack([square, square, square]), torch.stack([square + 1.5, square, square + 9.0]))
+    cases = [
+        (CBAM(64, generator=gen, device="cpu"), maps[:1]),
+        (CrossCBAM(64, generator=gen, device="cpu"), maps),
+        (PadToMultipleOf(16), [maps[0][:, :, :35, :30]]),
+        (lambda x: adaptive_avg_pool(x, 7), maps[:1]),
+        (lambda x: adaptive_max_pool(x, 8), maps[:1]),
+        (edges, [images]),
+        (gaussian_blur, [images]),
+        (binary_cross_entropy, [probs, labels]),
+        (focal_loss, [probs, labels]),
+        (lambda x, t: tversky_loss(x, t, ignore_index=255), [torch.randn(2, 7, 16, 16, generator=gen), classes]),
+        (ssim_loss, [images, images.flip(-1)]),
+        (polygon_iou, list(quads)),
+    ]
+    cudnn = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            for fn, inputs in cases:
+                want = fn(*inputs)
+                card_fn = copy.deepcopy(fn).cuda() if isinstance(fn, torch.nn.Module) else fn
+                got = card_fn(*[t.cuda() for t in inputs]).cpu()
+                tol = 0.0 if isinstance(fn, PadToMultipleOf) else 1e-5 * float(want.abs().max())
+                torch.testing.assert_close(got, want, rtol=0, atol=tol)
+    finally:
+        torch.backends.cudnn.allow_tf32 = cudnn
