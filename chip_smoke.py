@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Fourteen models run through the port's hand-written kernels, with weights
+Sixteen models run through the port's hand-written kernels, with weights
 from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -40,8 +40,12 @@ with its neck swapped for PAN 256 wide (levels 3-7, SiLU) and its ResNet-50
 pretrained, read from a torchvision-format file that the script writes from
 a seed into a temporary ``TORCH_HOME`` (ImageNet normalisation in front,
 level 1 frozen), and on timm's pre-activation ``resnetv2_50`` under the
-flagship's FPN and head.  Every training step freezes level 1 at least, so
-its stem runs K4.  Phases, each of which raises on failure:
+flagship's FPN and head, and two detectors on inverted-residual trunks:
+EfficientDet-D0's shape (a pretrained EfficientNet-B0, BiFPN 64 wide over
+levels 3-7 with 3 layers, ObjectDetection with 80 classes, at 512 px) and
+torchvision's MobileNetV3-large + FPN trunk under the flagship's FPN and
+head.  Every training step freezes level 1 at least, so a ResNet stem runs
+K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -131,7 +135,7 @@ its stem runs K4.  Phases, each of which raises on failure:
    against an f64 step on the CPU, as phase 25 (the depth head's ReLUs on
    the bins' mean and on the logits among the decisions taken from the
    card);
-31. dense training: ten bf16 steps of 16 images (semantic classes with
+31. dense training: five bf16 steps of 16 images (semantic classes with
    void pixels, depths with about 10% invalid) through
    ``Trainer.training_step``; K4 and K3 must launch;
 32. dense fit: as phases 20-22, validating with the mean IoU, pixel
@@ -140,7 +144,7 @@ its stem runs K4.  Phases, each of which raises on failure:
 33-37. the same five for the panoptic model: the f32 slice (class and
    instance-id maps equal but at explained ties), three bf16 requests
    (K1f, K5f, K3 and K4 must launch), the f32 train slice against f64 (the
-   step counter equal on both sides after it), ten bf16 steps on masks
+   step counter equal on both sides after it), five bf16 steps on masks
    (16, 100, 640, 640) (K1f, K1b, K2, K5f, K5b, K3 and K4 must launch), and
    the fit, validating with PQ on the host; its checkpoint carries the
    step counter;
@@ -194,7 +198,22 @@ its stem runs K4.  Phases, each of which raises on failure:
    branch's last conv damped in the train slice), with the same kernels;
 77. M16: CBAM, CrossCBAM, PadToMultipleOf, the adaptive pools, ``edges``,
    ``gaussian_blur``, the four losses and ``polygon_iou`` on CUDA tensors
-   against the CPU in f32 (``m16_phase``), no kernel involved.
+   against the CPU in f32 (``m16_phase``), no kernel involved;
+78-82. the same five for the EfficientDet-D0-shaped detector at 512 px,
+   after K1f and K1b at its dense calls (16 x 5,456 anchors), K2 at its
+   matching (1,600 x 5,456) and K6 at its fusions (64 channels on 64^2 to
+   4^2 maps; ``effdet_kernels``), its trunk held equal to the file's: the
+   f32 serving slice (scores within 1e-5 of the CPU's), three bf16 requests
+   (K1f and K6), the f32 train slice against f64 (level 1,
+   the stem and stage 0, frozen but differentiated: the net does not cut
+   the gradient there), ten bf16 steps (K1f, K1b, K2, K6) and the fit;
+83-86. the first four for the MobileNetV3-large detector (FPN 256 over
+   levels 3-7, the flagship's kernel shapes; the train slice takes the
+   card's decisions at the trunk's ReLU6, hardswish and hardsigmoid kinks
+   into the f64 step);
+87. M17: every MobileNet, EfficientNet and MNASNet name on the card at 64
+   px in eval mode, f32, each level within 1e-5 of the same net on the CPU
+   (``m17_phase``).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -220,7 +239,11 @@ import torch
 import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel, TimmBackbone
-from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck, PreactBottleneck, make_resnet_features
+from sihl_tpu_torch.backbones import _FEATURE_FACTORIES
+from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS
+from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS
+from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, hardsigmoid, hardswish, relu6
+from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck, PreactBottleneck, ResNetFeatures
 from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict
 from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
                                   KeypointDetection, MetricLearning, MulticlassClassification,
@@ -230,7 +253,7 @@ from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimatio
 from sihl_tpu_torch.heads.anomaly_detection import hard_mined
 from sihl_tpu_torch.heads.semantic_segmentation import channel_max
 from sihl_tpu_torch.layers import CBAM, FPN, PAN, BiFPN, CrossCBAM, HybridEncoder, PadToMultipleOf
-from sihl_tpu_torch.layers.convblocks import BatchNorm2d, ConvNormAct
+from sihl_tpu_torch.layers.convblocks import BatchNorm2d, Conv2d, ConvNormAct, StandardConvNormAct
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
 from sihl_tpu_torch.layers.transformer import _FeedForward
 from sihl_tpu_torch.ops.image import interpolate
@@ -301,6 +324,14 @@ ANOMALY_PATCH, PRETRAIN_BATCHES = (150, 300), 4
 KEYPOINTS, KP_TARGETS, KP_POSITIVES, KP_CHANNELS = 17, 10, 128, 32
 KP_ANCHORS = (SIZE // 32) ** 2
 KP_PARAMS = dynconv.param_count(KP_CHANNELS, KEYPOINTS)
+# EfficientDet-D0 (Tan, Pang, Le, CVPR 2020, Table 1): an EfficientNet-B0
+# trunk, BiFPN 64 wide with 3 layers over levels 3-7, 512 px input; anchors
+# of levels 3-7 at 512 px, 64^2 + 32^2 + 16^2 + 8^2 + 4^2; the BiFPN's fusions
+# per layer: (inputs, side of the map), each shape once a layer
+EFFDET_SIZE, EFFDET_WIDTH, EFFDET_LAYERS = 512, 64, 3
+EFFDET_ANCHORS = 5456
+EFFDET_FUSION_SHAPES = tuple((2, EFFDET_SIZE >> lvl) for lvl in (3, 4, 5, 6)) + tuple(
+    (3, EFFDET_SIZE >> lvl) for lvl in (4, 5, 6, 7))
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -505,6 +536,37 @@ def build_resnetv2(generator: torch.Generator, device=None) -> SihlModel:
     return SihlModel(backbone, neck, [head])
 
 
+def build_effdet(generator: torch.Generator, device=None) -> SihlModel:
+    """EfficientDet-D0's shape (Tan, Pang, Le, "EfficientDet", CVPR 2020,
+    Table 1): EfficientNet-B0 from torchvision's cached file
+    (``pretrained_home``), ImageNet normalisation in front and level 1
+    frozen → BiFPN 64 wide over levels 3-7 with 3 layers (levels 6 and 7 made
+    by its downscalers) → ObjectDetection (80 classes, levels 3-7, 100
+    targets), at 512 px.  The head keeps its defaults (256 channels, 4
+    layers), not D0's 64-wide box net: K1's hidden width is compiled at 256
+    (``ops/fused_mlp.py``, ``sihl_fused_mlp_width``), and the kernel refuses
+    another."""
+    backbone = Backbone("efficientnet_b0", pretrained=True, frozen_levels=1, generator=generator, device=device)
+    neck = BiFPN(backbone.out_channels, EFFDET_WIDTH, bottom_level=3, top_level=7, num_layers=EFFDET_LAYERS,
+                 generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
+def build_mnv3(generator: torch.Generator, device=None) -> SihlModel:
+    """torchvision's ``fasterrcnn_mobilenet_v3_large_fpn`` trunk choice under
+    the flagship's neck and head: MobileNetV3-large, random weights, level 1
+    frozen → FPN 256 wide over levels 3-7 → ObjectDetection (80 classes,
+    levels 3-7, 100 targets), at 640 px."""
+    backbone = Backbone("mobilenet_v3_large", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
 def freeze_trunk(model: SihlModel) -> None:
     """Freeze the trunk as every training path here does: level 1, or every
     level of a teacher whose BatchNorms are frozen (the anomaly model)."""
@@ -550,17 +612,17 @@ def damp_residual_branches(model: torch.nn.Module, generator: torch.Generator) -
                 w.mul_((torch.rand(w.shape[0], generator=generator) * 0.02 + 0.01).to(w.device)[:, None, None, None])
 
 
-def training_batch(batch: int, seed: int = 0, device="cuda"):
+def training_batch(batch: int, seed: int = 0, device="cuda", size: int = SIZE):
     """bench.py's images and targets (padded to 100 boxes), from a seeded
-    numpy generator; images as (B, 3, H, W)."""
+    numpy generator; images as (B, 3, size, size)."""
     rng = np.random.RandomState(seed)
-    x = rng.rand(batch, SIZE, SIZE, 3).astype(np.float32)
+    x = rng.rand(batch, size, size, 3).astype(np.float32)
     classes = np.full((batch, MAX_TARGETS), -1, np.int64)
     gt = np.zeros((batch, MAX_TARGETS, 4), np.float32)
     for b in range(batch):
         n = rng.randint(1, 20)
         classes[b, :n] = rng.randint(0, NUM_CLASSES, n)
-        xy = rng.rand(n, 2) * (SIZE - 64)
+        xy = rng.rand(n, 2) * (size - 64)
         wh = rng.rand(n, 2) * 128 + 8
         gt[b, :n] = np.concatenate([xy, xy + wh], axis=1)
     images = torch.from_numpy(x).permute(0, 3, 1, 2).contiguous().to(device)
@@ -938,11 +1000,11 @@ def k2_case(label, work) -> dict:
     return case
 
 
-def anchor_ious(levels, gt_boxes, classes) -> torch.Tensor:
+def anchor_ious(levels, gt_boxes, classes, size: int = SIZE) -> torch.Tensor:
     """The (B * G, A) matrix of clamped anchor-gt CIoUs that matching hands K2."""
-    head_levels = [torch.empty(1, 1, SIZE >> lvl, SIZE >> lvl, device="cuda") for lvl in range(max(levels) + 1)]
+    head_levels = [torch.empty(1, 1, size >> lvl, size >> lvl, device="cuda") for lvl in range(max(levels) + 1)]
     offsets, scales = anchors.cell_anchors(head_levels, levels)
-    full = torch.tensor([SIZE] * 4, dtype=torch.float32, device="cuda")
+    full = torch.tensor([size] * 4, dtype=torch.float32, device="cuda")
     ious = torch.clamp(boxes.complete_box_iou((offsets + scales) * full, gt_boxes), min=0)
     ious = torch.where((classes >= 0)[:, None, :], ious, 0.0)
     return ious.transpose(1, 2).reshape(-1, offsets.shape[0]).contiguous()
@@ -1225,17 +1287,18 @@ def check_instance_kernels(gen: torch.Generator, cuda_gen: torch.Generator, trai
 FUSION_SHAPES = ((2, SIZE // 16), (2, SIZE // 8), (3, SIZE // 16), (3, SIZE // 32))
 
 
-def k6_cases(cuda_gen) -> dict:
-    """K6 against its plain version at BiFPN's four fusion shapes (batch 16,
-    128 channels), bf16 and f32: the forward bitwise or within one bf16 step
-    (f32 within 1e-6 of the largest magnitude), the backward (plain PyTorch
-    on both sides: the Function's and autograd's of the plain version) within
-    1e-6 relative; each layer of the request runs each shape once."""
+def k6_cases(cuda_gen, width: int = BIFPN_WIDTH, shapes=FUSION_SHAPES) -> dict:
+    """K6 against its plain version at a BiFPN's fusion shapes (batch 16,
+    ``width`` channels; by default the quad detector's four at 128), bf16 and
+    f32: the forward bitwise or within one bf16 step (f32 within 1e-6 of the
+    largest magnitude), the backward (plain PyTorch on both sides: the
+    Function's and autograd's of the plain version) within 1e-6 relative;
+    each layer of the request runs each shape once."""
     results = {"weighted_sum@serve": [], "weighted_sum@train": []}
     cl = torch.channels_last
     for dtype in (torch.bfloat16, torch.float32):
-        for n, side in FUSION_SHAPES:
-            xs = [torch.randn(BATCH, BIFPN_WIDTH, side, side, device="cuda", generator=cuda_gen)
+        for n, side in shapes:
+            xs = [torch.randn(BATCH, width, side, side, device="cuda", generator=cuda_gen)
                   .to(dtype).contiguous(memory_format=cl) for _ in range(n)]
             w = torch.softmax(torch.randn(n, device="cuda", generator=cuda_gen), dim=0)
             with torch.no_grad():
@@ -1424,11 +1487,12 @@ def set_loc_bias(model: SihlModel, images: torch.Tensor, head=None, live: int = 
     return float(bias)
 
 
-def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", kernels=()) -> None:
-    """Phases 4 and 38: the f32 serving slice of a detector on the card
-    against the CPU (plain versions); every kernel in ``kernels`` must
-    launch on the card."""
-    images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
+def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", kernels=(), size: int = SIZE,
+                score_tol: float = 1e-3) -> None:
+    """Phases 4 and 38: the f32 serving slice of a detector on two images of
+    ``size`` px on the card against the CPU (plain versions), scores within
+    ``score_tol``; every kernel in ``kernels`` must launch on the card."""
+    images = torch.rand(2, 3, size, size, generator=gen)
     with torch.no_grad():
         loc_bias = set_loc_bias(model, images.cuda())
         cpu_model = copy.deepcopy(model).to("cpu")
@@ -1445,7 +1509,7 @@ def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", ke
     box_err = float((boxes_ - c_boxes).abs().amax(dim=2)[agree].max())
     score_err = float((scores - c_scores).abs().max())
     score_rel_err = float(((scores - c_scores).abs() / c_scores.abs()).max())
-    print(f"  {label} f32, 2 images at {SIZE} px, loc bias {loc_bias:.4f}: num_instances card "
+    print(f"  {label} f32, 2 images at {size} px, loc bias {loc_bias:.4f}: num_instances card "
           f"{num.tolist()} cpu {c_num.tolist()}; top-k indices agree in {share:.4f} of slots; "
           f"max box err {box_err:.3g} px; max score err {score_err:.3g} (relative "
           f"{score_rel_err:.3g}); CPU forward {t_cpu:.1f} s" + (f"; kernel launches {launches}" if launches else ""))
@@ -1457,7 +1521,7 @@ def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", ke
         raise AssertionError(f"top-k indices agree in only {share:.4f} of slots")
     if not torch.equal(classes[agree], c_classes[agree]):
         raise AssertionError("classes differ in slots whose indices agree")
-    if box_err > 0.5 or score_err > 1e-3 or score_rel_err > 1e-3:
+    if box_err > 0.5 or score_err > score_tol or score_rel_err > 1e-3:
         raise AssertionError(
             f"box err {box_err} px, score err {score_err} or relative score err "
             f"{score_rel_err} out of bounds"
@@ -1795,12 +1859,12 @@ def check_multitask_slice(model: SihlModel, gen: torch.Generator) -> None:
         raise AssertionError(f"errors {errors} out of bounds")
 
 
-def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3):
-    """Phases 5, 9, 13 and 24: answer ``requests`` batches of 16 images at 640
-    px; every head's outputs pass ``check_outputs``."""
+def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3, size: int = SIZE):
+    """Phases 5, 9, 13 and 24: answer ``requests`` batches of 16 images at
+    ``size`` px; every head's outputs pass ``check_outputs``."""
     latencies = []
     for _ in range(requests):
-        images = torch.rand(BATCH, 3, SIZE, SIZE, device="cuda", generator=cuda_gen)
+        images = torch.rand(BATCH, 3, size, size, device="cuda", generator=cuda_gen)
         t0 = time.perf_counter()
         with torch.no_grad():
             outputs = model(images)
@@ -1942,12 +2006,46 @@ def head_relu_sites(model: SihlModel) -> dict:
     return sites
 
 
+# The piecewise-linear activations that decide a gradient's path: each one's
+# kinks, and its linear pieces between them, in order (as the port writes
+# them, ``backbones/mobilenet.py``)
+PIECEWISE = {
+    relu: ((0.0,), (torch.zeros_like, lambda z: z)),
+    relu6: ((0.0, 6.0), (torch.zeros_like, lambda z: z, lambda z: torch.full_like(z, 6.0))),
+    hardswish: ((-3.0, 3.0), (torch.zeros_like, lambda z: z * (z + 3.0) / 6.0, lambda z: z)),
+    hardsigmoid: ((-3.0, 3.0), (torch.zeros_like, lambda z: (z + 3.0) / 6.0, torch.ones_like)),
+}
+
+
+def kink_sites(model: SihlModel) -> dict:
+    """``head_relu_sites``; the neck's ReLUs on raw conv or BatchNorm outputs
+    (an FPN's conv → norm → ReLU blocks, a BiFPN's conv → ReLU → norm blocks
+    and those of its downscalers); and the trunk's piecewise-linear
+    activations on raw BatchNorm outputs that a MobileNet, EfficientNet-lite
+    or MNASNet holds as module attributes (``act``, an SE block's ``gate``),
+    by name: (module, attribute)."""
+    sites = head_relu_sites(model)
+    for name, mod in model.named_modules():
+        if name.startswith("neck.") and isinstance(mod, (ConvNormAct, StandardConvNormAct)) and mod.act is relu:
+            sites[name] = (mod, "act")
+        if name.startswith("backbone."):
+            sites.update({f"{name}.{attr}": (mod, attr) for attr in ("act", "gate")
+                          if any(getattr(mod, attr, None) is fn for fn in PIECEWISE)})
+    return sites
+
+
+def piece(z: torch.Tensor, kinks) -> torch.Tensor:
+    """The index of the linear piece each element of ``z`` lies on."""
+    return sum((z > k).to(torch.int8) for k in kinks)
+
+
 @contextlib.contextmanager
 def recorded_preactivations(model: SihlModel):
     """Inside the block, every forward of ``model`` records the inputs of its
-    ``head_relu_sites``, call by call (on the CPU, in f64), into the dict of
+    ``kink_sites``, call by call (on the CPU, in f64), into the dict of
     lists it yields: the view-invariance head's projector runs on both views."""
-    out, sites = {}, head_relu_sites(model)
+    out, sites = {}, kink_sites(model)
+    originals = {name: getattr(mod, attr) for name, (mod, attr) in sites.items()}
 
     def recorder(name, act):
         def recording(z):
@@ -1956,12 +2054,12 @@ def recorded_preactivations(model: SihlModel):
         return recording
 
     for name, (mod, attr) in sites.items():
-        setattr(mod, attr, recorder(name, getattr(mod, attr)))
+        setattr(mod, attr, recorder(name, originals[name]))
     try:
         yield out
     finally:
-        for mod, attr in sites.values():
-            setattr(mod, attr, relu)
+        for name, (mod, attr) in sites.items():
+            setattr(mod, attr, originals[name])
 
 
 def head_max_sites(model: SihlModel) -> dict:
@@ -1992,24 +2090,41 @@ def recorded_channel_maxima(model: SihlModel):
             mod.channel_max = channel_max
 
 
-def with_max_decisions(model: SihlModel, inputs: dict) -> SihlModel:
+def with_max_decisions(model: SihlModel, inputs: dict, seen: dict) -> SihlModel:
     """``model`` with its ``head_max_sites`` taking, call by call, the channel
     that ``inputs`` (another forward's) maximise at each pixel: the same
-    branch of every maximum as that forward, for one forward."""
+    branch of every maximum as that forward, for one forward.  Each call's
+    own input goes into ``seen`` (on the CPU, in f64)."""
     for name, mod in head_max_sites(model).items():
         picks = iter([x.argmax(dim=1, keepdim=True) for x in inputs[name]])
-        mod.channel_max = lambda x, picks=picks: torch.gather(x, 1, next(picks).to(x.device))
+
+        def decided(x, picks=picks, name=name):
+            seen.setdefault(name, []).append(x.detach().cpu().double())
+            return torch.gather(x, 1, next(picks).to(x.device))
+
+        mod.channel_max = decided
     return model
 
 
-def with_relu_decisions(model: SihlModel, preactivations: dict) -> SihlModel:
-    """A copy of ``model`` whose ``head_relu_sites`` pass their input, call
-    by call, where ``preactivations`` (another forward's) are positive and
-    give 0 elsewhere: the same branch of every ReLU as that forward."""
+def with_relu_decisions(model: SihlModel, preactivations: dict, seen: dict) -> SihlModel:
+    """A copy of ``model`` whose ``kink_sites`` take, call by call, the
+    linear piece that ``preactivations`` (another forward's) lie on: the
+    same branch of every ReLU, ReLU6, hardswish and hardsigmoid as that
+    forward.  Each call's own input goes into ``seen`` (on the CPU, in f64)."""
     model = copy.deepcopy(model)
-    for name, (mod, attr) in head_relu_sites(model).items():
-        keeps = iter([z > 0 for z in preactivations[name]])
-        setattr(mod, attr, lambda z, keeps=keeps: torch.where(next(keeps).to(z.device), z, torch.zeros((), dtype=z.dtype)))
+    for name, (mod, attr) in kink_sites(model).items():
+        kinks, pieces = PIECEWISE[getattr(mod, attr)]
+        picks = iter([piece(z, kinks) for z in preactivations[name]])
+
+        def decided(z, picks=picks, pieces=pieces, name=name):
+            seen.setdefault(name, []).append(z.detach().cpu().double())
+            pick = next(picks).to(z.device)
+            out = pieces[0](z)
+            for i, fn in enumerate(pieces[1:], start=1):
+                out = torch.where(pick == i, fn(z), out)
+            return out
+
+        setattr(mod, attr, decided)
     return model
 
 
@@ -2043,12 +2158,19 @@ def recorded_topk(model: SihlModel):
             mod.hard_mined = hard_mined
 
 
-def with_topk_decisions(model: SihlModel, recorded: dict) -> SihlModel:
+def with_topk_decisions(model: SihlModel, recorded: dict, seen: dict) -> SihlModel:
     """``model`` with its ``head_topk_sites`` taking, call by call, the picks
-    that ``recorded`` (another step's) made."""
+    that ``recorded`` (another step's) made.  Each call's own input and own
+    top-k go into ``seen`` (on the CPU, the input in f64)."""
     for name, mod in head_topk_sites(model).items():
         picks = iter([idx for _, idx in recorded[name]])
-        mod.hard_mined = lambda flat, k, picks=picks: torch.gather(flat, 1, next(picks).to(flat.device))
+
+        def decided(flat, k, picks=picks, name=name):
+            own = torch.topk(flat, k, dim=1, sorted=False).indices
+            seen.setdefault(name, []).append((flat.detach().cpu().double(), own.cpu()))
+            return torch.gather(flat, 1, next(picks).to(flat.device))
+
+        mod.hard_mined = decided
     return model
 
 
@@ -2074,35 +2196,42 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     of 0, the conv's weight gradient loses that pixel's whole term, and a
     single flip can move it past the heads' limit.  So every flip must lie
     within 1e-4 of its block's largest pre-activation from 0 (the f32
-    rounding of a conv output, not an error in it); the f64 step is then
-    taken again with the card's ReLU decisions in those blocks, and the
-    gradients are held against that.  A UAFM's channel maximum
+    rounding of a conv output, not an error in it); the f64 step takes the
+    card's decisions in those blocks (its own pre-activations recorded to
+    measure each flip), and the gradients are held against that.  The neck's ReLUs on raw conv or norm
+    outputs, and the trunk's ReLU6, hardswish and hardsigmoid on raw
+    BatchNorm outputs (a MobileNet's; ``kink_sites``), switch their linear
+    piece the same way at their kinks (0 and 6, -3 and 3), and are held and
+    taken over alike.  A UAFM's channel maximum
     (``head_max_sites``) sends a pixel's gradient to one channel, and two
     channels within rounding of each other swap it (one swap among 64,000
     moved a depth decoder's lateral-conv gradient 1.1e-3 from f64): a channel the
     card picks must lie within 1e-4 of its map's largest magnitude below
     the f64 maximum, and the f64 step takes the card's picks too."""
     model, cpu_models = train_slice_models(model, gen, build)
+    kinks = {name: PIECEWISE[getattr(mod, attr)][0] for name, (mod, attr) in kink_sites(model).items()}
     images, targets = batch if batch is not None else training_batch(2, seed=1)
     cpu_images, cpu_targets = images.cpu(), to_cpu(targets)
-    ref64 = copy.deepcopy(cpu_models[torch.float64])
-    references = {}
-    for dtype, ref in cpu_models.items():
-        t0 = time.perf_counter()
-        with recorded_preactivations(ref) as z, recorded_channel_maxima(ref) as m, recorded_topk(ref) as k:
-            references[dtype] = step_gradients(ref, cpu_images, cpu_targets)
-        references[dtype] += (time.perf_counter() - t0,)
-        if dtype == torch.float64:
-            z_cpu, m_cpu, k_cpu = z, m, k
     with (full_f32(), recorded_preactivations(model) as z_card, recorded_channel_maxima(model) as m_card,
           recorded_topk(model) as k_card):
         loss, metrics, grads, bufs = step_gradients(model, images, targets)
+    # the f64 step takes the card's decisions, and records its own inputs at
+    # each site to show how far from its kink each flipped decision lay
+    z_cpu, m_cpu, k_cpu = {}, {}, {}
+    ref64 = with_topk_decisions(with_max_decisions(with_relu_decisions(
+        cpu_models[torch.float64], z_card, z_cpu), m_card, m_cpu), k_card, k_cpu)
+    references = {}
+    for dtype, ref in ((torch.float64, ref64), (torch.float32, cpu_models[torch.float32])):
+        t0 = time.perf_counter()
+        references[dtype] = step_gradients(ref, cpu_images, cpu_targets) + (time.perf_counter() - t0,)
     flips, kink = 0, 0.0
     for name, zs in z_cpu.items():
         for z, z_c in zip(zs, z_card[name]):
-            flipped = (z_c > 0) != (z > 0)
+            flipped = piece(z_c, kinks[name]) != piece(z, kinks[name])
             flips += int(flipped.sum())
-            kink = max(kink, float(z[flipped].abs().max() / z.abs().max()) if flipped.any() else 0.0)
+            if flipped.any():
+                gap = torch.stack([(z[flipped] - k).abs() for k in kinks[name]]).amin(dim=0)
+                kink = max(kink, float(gap.max() / z.abs().max()))
     topk_flips, topk_gap = 0, 0.0
     for name, calls in k_cpu.items():
         for (flat, idx), (_, idx_card) in zip(calls, k_card[name]):
@@ -2122,15 +2251,13 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
             if flipped.any():
                 gap = (x.amax(dim=1, keepdim=True) - x.gather(1, pick)) / x.abs().max()
                 max_gap = max(max_gap, float(gap[flipped].max()))
-    if flips or max_flips or topk_flips:
-        ref = with_topk_decisions(with_max_decisions(with_relu_decisions(ref64, z_card), m_card), k_card)
-        references[torch.float64] = step_gradients(ref, cpu_images, cpu_targets) + (references[torch.float64][4],)
     c_loss, c_metrics, c_grads, c_bufs, t_cpu = references[torch.float64]
     f32_grads = references[torch.float32][2]
     if z_cpu:
-        print(f"  {label}: {flips} of {sum(z.numel() for zs in z_cpu.values() for z in zs)} ReLU decisions on the heads' "
-              f"raw conv outputs differ between the card's f32 and the CPU's f64 forward, the farthest "
-              f"{kink:.3g} of its block's largest pre-activation from 0 (bound 1e-4)"
+        print(f"  {label}: {flips} of {sum(z.numel() for zs in z_cpu.values() for z in zs)} decisions of the "
+              f"heads' and the neck's ReLUs on raw conv or norm outputs and the trunk's piecewise activations "
+              f"differ between the card's f32 and the CPU's f64 forward, the farthest "
+              f"{kink:.3g} of its block's largest pre-activation from its kink (bound 1e-4)"
               + (f"; {max_flips} of {sum(x[:, :1].numel() for xs in m_cpu.values() for x in xs)} UAFM channel "
                  f"maxima pick another channel, the farthest {max_gap:.3g} of its map's largest magnitude below "
                  f"the maximum (bound 1e-4)" if m_cpu else "")
@@ -2138,8 +2265,7 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
                  f"{sum(i.numel() for calls in k_cpu.values() for _, i in calls)} distances outside the CPU's top-k, "
                  f"the farthest {topk_gap:.3g} of its image's largest below the CPU's k-th (bound 1e-4)"
                  if k_cpu else "")
-              + ("; the f64 step is taken again with the card's decisions" if flips or max_flips or topk_flips
-                 else ""))
+              + "; the f64 step takes the card's decisions")
     if kink > 1e-4 or max_gap > 1e-4 or topk_gap > 1e-4:
         raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0, a channel "
                              f"maximum picked a channel {max_gap} of its map's scale below the maximum, or a "
@@ -2152,9 +2278,16 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
             raise AssertionError(f"{k}: {v} on the card, {c_metrics[k]} on the CPU")
     frozen = [n for n in grads
               if n.startswith("backbone.features.") and model.backbone.is_frozen_param(n.split(".")[2:])]
-    if (not any(n.startswith("backbone.features.stem.") for n in frozen)
-            or any(grads[n] is not None or c_grads[n] is not None for n in frozen)):
-        raise AssertionError("a frozen parameter got a gradient")
+    # the ResNet family cuts the gradient after its frozen levels; MobileNet,
+    # EfficientNet and MNASNet run their frozen prefix's backward, as in the
+    # JAX package, and its gradients count in the clip's norm
+    cuts = isinstance(model.backbone.features, ResNetFeatures)
+    if not any(n.startswith("backbone.features.stem.") for n in frozen):
+        raise AssertionError("the stem is not frozen")
+    if any((grads[n] is not None or c_grads[n] is not None) if cuts else (grads[n] is None or c_grads[n] is None)
+           for n in frozen):
+        raise AssertionError("a frozen parameter got a gradient" if cuts else
+                             "a frozen parameter of a net that differentiates its frozen prefix got no gradient")
     # parameters that no head reaches get no gradient on either side (the
     # FPN's level-4 output conv under the keypoint head, which reads levels
     # 3 and 5 only)
@@ -2177,15 +2310,16 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
           f"{c_loss:.6f}; " + "; ".join(
               f"{k.replace('/train', '')} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
           + (f"; counters after the step {counters}" if counters else "")
-          + f"; running statistics' largest relative error {stats_err:.3g} (the stem's, through K4, "
-          f"{stem_stats_err:.3g}); the {len(frozen)} frozen parameters got no gradient"
+          + f"; running statistics' largest relative error {stats_err:.3g} (the stem's"
+          + (", through K4, " if cuts else " ") + f"{stem_stats_err:.3g}); the {len(frozen)} frozen parameters got "
+          + ("no gradient" if cuts else "their gradients, held below with their part's")
           + (f", nor the {len(unused)} that no head reaches ({unused})" if unused else "")
           + f"; CPU f64 step {t_cpu:.1f} s, "
           f"f32 step "
           f"{references[torch.float32][4]:.1f} s")
     parts = {part: limit for part, limit in GRADIENT_LIMITS.items()
              if any(n.split(".")[0] == part and n not in frozen for n in grads)}
-    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=frozen + unused,
+    failed = grade_gradients(grads, c_grads, f32_grads, parts, skip=(frozen if cuts else []) + unused,
                              held_f32=MASK_BRANCH + decoder_prefixes(model))
     if failed:
         raise AssertionError(f"{len(failed)} gradients out of bounds, the worst {failed[0]}")
@@ -2287,7 +2421,7 @@ def train(build=build_flagship, batch=None,
     losses = [float(m["trainer/loss"]) for m in metrics]
     steady = statistics.median(times[2:])
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    print(f"  {label} bf16, batch {BATCH} at {SIZE} px, {steps} steps: losses "
+    print(f"  {label} bf16, batch {BATCH} at {images.shape[-1]} px, {steps} steps: losses "
           f"{[round(v, 4) for v in losses]}; step times {[round(t * 1000, 3) for t in times]} ms; "
           f"median of steps 3-{steps} {steady * 1000:.3f} ms, {BATCH / steady:.2f} images/s; "
           f"peak memory {peak_gib:.2f} GiB [{card_name()}]; kernel launches {launches}")
@@ -2299,20 +2433,21 @@ def train(build=build_flagship, batch=None,
     return launches
 
 
-def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str) -> dict:
+def serve_phase(model: SihlModel, build, cuda_gen, kernels, label: str, size: int = SIZE) -> dict:
     """Phases 5, 9 and 13: the f32 slice's weights in a bf16 model, three
-    requests; every kernel in ``kernels`` must launch.  Returns the counts."""
+    requests of ``size`` px; every kernel in ``kernels`` must launch.
+    Returns the counts."""
     with compute_dtype_scope(torch.bfloat16):
         served = build(torch.Generator().manual_seed(1))
     served.load_state_dict(model.state_dict())
     served.eval()
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    latencies = serve(served, cuda_gen)
+    latencies = serve(served, cuda_gen, size=size)
     launches = read_counts(kernels)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     steady = statistics.median(latencies[1:])
-    print(f"  {label} bf16, batch {BATCH} at {SIZE} px: request latencies "
+    print(f"  {label} bf16, batch {BATCH} at {size} px: request latencies "
           f"{[round(t * 1000, 3) for t in latencies]} ms; {BATCH / steady:.2f} images/s from "
           f"the median of requests 2-{len(latencies)}; peak memory {peak_gib:.2f} GiB [{card_name()}]; "
           f"kernel launches {launches}")
@@ -2710,7 +2845,8 @@ def fit_phase(build, batches, kernels, label: str, metric: str = "head0/valid/ma
     torch.cuda.synchronize()
     steps_per_sec = 4 / (time.perf_counter() - t0)
     images = sum(b[0].shape[0] for b in batches)
-    print(f"  {label} bf16, batch {BATCH} at {SIZE} px: fit of 4 steps with 2 validations of {len(batches)} batches "
+    print(f"  {label} bf16, batch {BATCH} at {train_batch[0].shape[-1]} px: fit of 4 steps with 2 validations of "
+          f"{len(batches)} batches "
           f"and 3 saves {t_fit:.2f} s, loss {result['trainer/loss']:.4f}, {metric} {result[metric]:.4f}; "
           f"validate {images / t_val:.2f} images/s ({t_val:.3f} s for {images} images, of which the heads' "
           f"validation_end on the host {sum(host_s):.3f} s) [{card}]; fit {steps_per_sec:.3f} steps/s [{card}]; "
@@ -2755,13 +2891,16 @@ PANOPTIC_SERVE = ("fused_mlp", "upsample_add", "dynconv_decode", "stem_conv_stat
 PANOPTIC_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode",
                   "dynconv_decode_backward", "stem_conv_stats")
 PANOPTIC_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "dynconv_decode", "stem_conv_stats")
+# the dense and panoptic models' bf16 steps, five to keep the whole smoke
+# inside its time (the median of steps 3-5 is their step time)
+DENSE_STEPS = 5
 
 
 def dense_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     """Phases 28-32, the dense model (``build_dense``): the f32 serving slice
     against the CPU, three bf16 requests, the f32 training slice against f64
-    on the CPU, ten bf16 steps and the fit; K4 and K3 launch in each.
-    Returns the launch counts of serving, training and validation."""
+    on the CPU, ``DENSE_STEPS`` bf16 steps and the fit; K4 and K3 launch in
+    each.  Returns the launch counts of serving, training and validation."""
     model = build_dense(gen)
     randomize_norms_and_biases(model, gen)
     model.eval()
@@ -2769,7 +2908,8 @@ def dense_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     launches = {"dense_serve": serve_phase(model, build_dense, cuda_gen, DENSE_KERNELS, "dense serving")}
     check_train_slice(model, gen, build_dense, dense_batch(4, seed=1), "dense train slice")
     del model
-    launches["dense_train"] = train(build_dense, dense_batch(BATCH), DENSE_KERNELS, label="dense training")
+    launches["dense_train"] = train(build_dense, dense_batch(BATCH), DENSE_KERNELS, steps=DENSE_STEPS,
+                                    label="dense training")
     launches["dense_validate"] = fit_phase(
         build_dense, [dense_batch(BATCH), dense_batch(BATCH, seed=4)], DENSE_KERNELS, "dense fit",
         metric="head0/valid/mean_iou", param_tol=DENSE_PARAM_TOL)
@@ -2789,7 +2929,7 @@ def panoptic_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     check_train_slice(model, gen, build_panoptic, panoptic_batch(4, seed=1, mask_size=SIZE // 2),
                       "panoptic train slice")
     del model
-    launches["panoptic_train"] = train(build_panoptic, panoptic_batch(BATCH), PANOPTIC_TRAIN,
+    launches["panoptic_train"] = train(build_panoptic, panoptic_batch(BATCH), PANOPTIC_TRAIN, steps=DENSE_STEPS,
                                        label="panoptic training")
     launches["panoptic_validate"] = fit_phase(
         build_panoptic, [panoptic_batch(BATCH), panoptic_batch(BATCH, seed=4)], PANOPTIC_VALIDATE, "panoptic fit",
@@ -3170,41 +3310,49 @@ PAN_VALIDATE = ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats")
 PRETRAINED_SEED = 23
 
 
-def write_pretrained_weights(torch_home: str, seed: int = PRETRAINED_SEED) -> str:
-    """torchvision's cached ResNet-50 file, made from a seed, in
+def write_pretrained_weights(torch_home: str, seed: int = PRETRAINED_SEED, arch: str = "resnet50") -> str:
+    """torchvision's cached file of ``arch``, made from a seed, in
     ``torch_home/hub/checkpoints``: the port's torchvision-format export
-    (``dump_state_dict``) of a ResNet-50 drawn from ``seed`` with random
-    BatchNorm statistics and affine parameters, and a classifier and
-    BatchNorm counters beside it, as torchvision's files hold them; named
-    ``resnet50-<the first 8 hex digits of its SHA-256>.pth``, as torchvision
-    names its files.  Returns its path."""
+    (``dump_state_dict``) of the net drawn from ``seed`` with random
+    BatchNorm statistics and affine parameters and random conv biases (the
+    squeeze-excitation convs'), and a classifier (``fc.`` for a ResNet,
+    ``classifier.1.`` for the others) and BatchNorm counters beside it, as
+    torchvision's files hold them; named ``{arch}-<the first 8 hex digits
+    of its SHA-256>.pth``, as torchvision names its files.  Returns its
+    path."""
     generator = torch.Generator().manual_seed(seed)
-    features = make_resnet_features("resnet50", generator=generator, device="cpu")
+    features = _FEATURE_FACTORIES[arch](arch, generator=generator, device="cpu")
     randomize_norms_and_biases(features, generator)
-    sd = dump_state_dict(features, "resnet50")
+    with torch.no_grad():
+        for m in features.modules():
+            if isinstance(m, Conv2d) and m.bias is not None:
+                m.bias.copy_(torch.rand(m.bias.shape, generator=generator) * 0.2 - 0.1)
+    sd = dump_state_dict(features, arch)
     sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
                for k in list(sd) if k.endswith("running_mean")})
-    sd.update({"fc.weight": torch.randn(1000, 2048, generator=generator) * 0.01, "fc.bias": torch.zeros(1000)})
+    classifier = "fc" if arch.startswith("resnet") else "classifier.1"
+    sd.update({f"{classifier}.weight": torch.randn(1000, features.feature_channels[-1], generator=generator) * 0.01,
+               f"{classifier}.bias": torch.zeros(1000)})
     directory = os.path.join(torch_home, "hub", "checkpoints")
     os.makedirs(directory, exist_ok=True)
-    partial = os.path.join(directory, "resnet50.partial")
+    partial = os.path.join(directory, f"{arch}.partial")
     torch.save(sd, partial)
     with open(partial, "rb") as f:
         digest = hashlib.sha256(f.read()).hexdigest()[:8]
-    path = os.path.join(directory, f"resnet50-{digest}.pth")
+    path = os.path.join(directory, f"{arch}-{digest}.pth")
     os.replace(partial, path)
     return path
 
 
 @contextlib.contextmanager
-def pretrained_home():
-    """A temporary ``TORCH_HOME`` holding ``write_pretrained_weights``'s file,
-    set for the block; yields the file's path."""
+def pretrained_home(arch: str = "resnet50"):
+    """A temporary ``TORCH_HOME`` holding ``write_pretrained_weights``'s file
+    of ``arch``, set for the block; yields the file's path."""
     before = os.environ.get("TORCH_HOME")
     with tempfile.TemporaryDirectory(prefix="torch_home_") as home:
         os.environ["TORCH_HOME"] = home
         try:
-            yield write_pretrained_weights(home)
+            yield write_pretrained_weights(home, arch=arch)
         finally:
             if before is None:
                 del os.environ["TORCH_HOME"]
@@ -3212,18 +3360,18 @@ def pretrained_home():
                 os.environ["TORCH_HOME"] = before
 
 
-def check_pretrained(model: SihlModel, path: str, t_build: float) -> None:
+def check_pretrained(model: SihlModel, path: str, t_build: float, arch: str = "resnet50", label: str = "pan") -> None:
     """The trunk holds the file's tensors, runs ImageNet normalisation in
-    front and has level 1 frozen (stem parameters out of the optimizer, no
-    backward)."""
+    front and has level 1 frozen (its parameters out of the optimizer; a
+    ResNet's without a backward)."""
     want = torch.load(path, weights_only=True, map_location="cpu")
-    got = dump_state_dict(model.backbone.features, "resnet50")
+    got = dump_state_dict(model.backbone.features, arch)
     unequal = [k for k, v in got.items() if not torch.equal(v, want[k])]
     bb = model.backbone
-    print(f"  pan: {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f} MiB) read from "
+    print(f"  {label}: {os.path.basename(path)} ({os.path.getsize(path) / 2**20:.1f} MiB) read from "
           f"torch.hub.get_dir()/checkpoints; {len(got) - len(unequal)} of {len(got)} trunk tensors equal to the "
-          f"file's; Normalize in front: {bb.normalize is not None}; frozen levels {bb.frozen_levels}; model built in "
-          f"{t_build:.2f} s")
+          f"file's; Normalize in front: {bb.normalize is not None}; frozen levels {bb.frozen_levels} "
+          f"({bb.frozen_attr_names()}); model built in {t_build:.2f} s")
     if unequal or bb.normalize is None or bb.frozen_levels != 1 or bb.features._sg_levels != 1:
         raise AssertionError(f"the pretrained trunk: {len(unequal)} tensors differ from the file's (e.g. "
                              f"{unequal[:3]}), normalize {bb.normalize}, frozen levels {bb.frozen_levels}")
@@ -3336,12 +3484,124 @@ def m16_phase(gen: torch.Generator) -> None:
           f"(bound {M16_TOL:g}, PadToMultipleOf 0): " + "; ".join(rows) + f"; {time.perf_counter() - t0:.1f} s")
 
 
+EFFDET_SERVE = ("fused_mlp", "weighted_sum")
+EFFDET_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "weighted_sum")
+EFFDET_VALIDATE = ("fused_mlp", "row_kth", "weighted_sum")
+MNV3_SERVE = ("fused_mlp", "upsample_add")
+MNV3_TRAIN = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add")
+
+
+def effdet_kernels(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phase 78: K1f and K1b at the EfficientDet-D0-shaped detector's dense
+    calls (its loc MLP over 16 x 5,456 = 87,296 rows serving; loc and iou
+    training; bf16, as the path runs them: phase 3 holds the f32 bodies), K2 at its matching (a 512 px batch's 1,600 x
+    5,456 IoUs) and K6 at its BiFPN's fusions (64 channels: N = 2 on 64^2 to
+    8^2 maps, N = 3 on 32^2 to 4^2; three layers run each shape once).  Its
+    gathered calls (1,600 and 14,400 rows, 80 classes and 4 box outputs) are
+    the flagship's, held in phase 3."""
+    bf16, dense = torch.bfloat16, BATCH * EFFDET_ANCHORS
+    fwd, bwd = k1_train_case(gen, cuda_gen, "dense", dense, (1, 1), bf16, 1e-1, 5e-2, 5e-2)
+    results = {"fused_mlp@effdet_serve": [k1f_case(gen, cuda_gen, "dense", dense, (1,), bf16, 5e-2, 5e-2)],
+               "fused_mlp@effdet_train": [fwd], "fused_mlp_backward@effdet_train": [bwd]}
+    _, targets = training_batch(BATCH, size=EFFDET_SIZE)
+    work = anchor_ious(range(3, 8), targets["boxes"], targets["classes"], EFFDET_SIZE)
+    results["row_kth@effdet"] = [k2_case(f"levels 3-7 at {EFFDET_SIZE} px", work)]
+    results["weighted_sum@effdet"] = k6_cases(cuda_gen, EFFDET_WIDTH, EFFDET_FUSION_SHAPES)["weighted_sum@serve"]
+    return results
+
+
+def effdet_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 78-82, the EfficientDet-D0-shaped detector (``build_effdet``) at
+    512 px, its trunk read from ``write_pretrained_weights``'s
+    efficientnet_b0 file: the f32 serving slice against the CPU (scores
+    within 1e-5), three bf16 requests, the f32 training slice against f64
+    on the CPU, ten bf16 steps and the fit.  The neck's and head's
+    norms and biases are randomised, the trunk keeps the file's.  Returns
+    the launch counts of serving, training and validation."""
+    size = EFFDET_SIZE
+    with pretrained_home("efficientnet_b0") as path:
+        t0 = time.perf_counter()
+        model = build_effdet(gen)
+        check_pretrained(model, path, time.perf_counter() - t0, "efficientnet_b0", "effdet")
+        randomize_norms_and_biases(model.neck, gen)
+        randomize_norms_and_biases(model.heads, gen)
+        model.eval()
+        check_slice(model, gen, "effdet slice", kernels=EFFDET_SERVE, size=size, score_tol=1e-5)
+        launches = {"effdet_serve": serve_phase(model, build_effdet, cuda_gen, EFFDET_SERVE, "effdet serving",
+                                                size=size)}
+        check_train_slice(model, gen, build_effdet, training_batch(2, seed=1, size=size), "effdet train slice")
+        del model
+        launches["effdet_train"] = train(build_effdet, training_batch(BATCH, size=size), EFFDET_TRAIN,
+                                         label="effdet training")
+        launches["effdet_validate"] = fit_phase(
+            build_effdet, [training_batch(BATCH, size=size), training_batch(BATCH, seed=4, size=size)],
+            EFFDET_VALIDATE, "effdet fit")
+    if launches["effdet_serve"]["weighted_sum"] != 3 * 2 * EFFDET_LAYERS * 4:
+        raise AssertionError(f"three effdet requests launched K6 {launches['effdet_serve']['weighted_sum']} times")
+    return launches
+
+
+def mnv3_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 83-86, the MobileNetV3-large detector (``build_mnv3``): the f32
+    serving slice against the CPU (scores within 1e-5), three bf16 requests,
+    the f32 training slice against f64 on the CPU (the trunk's kink
+    decisions taken from the card) and ten bf16 steps, at the flagship's
+    kernel shapes.  Returns the launch counts of serving and training."""
+    model = build_mnv3(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_slice(model, gen, "mnv3 slice", kernels=MNV3_SERVE, score_tol=1e-5)
+    launches = {"mnv3_serve": serve_phase(model, build_mnv3, cuda_gen, MNV3_SERVE, "mnv3 serving")}
+    check_train_slice(model, gen, build_mnv3, training_batch(2, seed=1), "mnv3 train slice")
+    del model
+    launches["mnv3_train"] = train(build_mnv3, training_batch(BATCH), MNV3_TRAIN, label="mnv3 training")
+    return launches
+
+
+M17_TOL = 1e-5
+
+
+def m17_phase(gen: torch.Generator) -> None:
+    """Phase 87: every name of ``MOBILENET_CONFIGS``, ``EFFICIENTNET_CONFIGS``
+    and ``MNASNET_CONFIGS``, built on the CPU with f32 weights from ``gen``
+    (random BatchNorm statistics and affine parameters), copied to the card,
+    in eval mode (TF32 off) on two 64 px images: each of the five levels
+    within ``M17_TOL`` of its largest CPU magnitude.  Prints each name's
+    card forward time (CUDA-event median) and build seconds."""
+    t0 = time.perf_counter()
+    x = torch.rand(2, 3, 64, 64, generator=gen)
+    rows, worst = [], (0.0, None)
+    with full_f32(), torch.no_grad():
+        for name in (*MOBILENET_CONFIGS, *EFFICIENTNET_CONFIGS, *MNASNET_CONFIGS):
+            t_build = time.perf_counter()
+            net = Backbone(name, generator=torch.Generator().manual_seed(len(name)), device="cpu")
+            randomize_norms_and_biases(net, gen)
+            net.eval()
+            t_build = time.perf_counter() - t_build
+            want = net(x)[1:]
+            card, xc = copy.deepcopy(net).cuda(), x.cuda()
+            got = [g.cpu() for g in card(xc)[1:]]
+            ms = median_ms(lambda: card(xc), reps=5, warmup=1)
+            if len(got) != 5 or any(g.shape != w.shape or not torch.isfinite(g).all() for g, w in zip(got, want)):
+                raise AssertionError(f"{name}: levels {[tuple(g.shape) for g in got]} against the CPU's")
+            err = max(float((g.double() - w.double()).abs().max() / w.double().abs().max()) for g, w in zip(got, want))
+            worst = max(worst, (err, name), key=lambda e: e[0])
+            rows.append(f"{name} {err:.2g} {ms:.2f} ms ({t_build:.1f} s)")
+            del card
+    print(f"  M17 on the card against the CPU, f32 at 64 px, each name's largest level error relative to the CPU's "
+          f"largest magnitude (bound {M17_TOL:g}), its forward of 2 images on the card and its build: "
+          + "; ".join(rows) + f" [{card_name()}]; {time.perf_counter() - t0:.1f} s")
+    if worst[0] > M17_TOL:
+        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]}")
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; this script needs a CUDA card")
     print(f"card: {card_name()}")
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}; "
+          f"{torch.get_num_threads()} CPU threads, {len(os.sched_getaffinity(0))} cores available")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
@@ -3506,6 +3766,20 @@ def main() -> None:
     print(f"phases 73-76 in {time.perf_counter() - t0:.1f} s")
     m16_phase(gen)
 
+    # phases 78-87: the EfficientDet-D0-shaped detector (first K1, K2 and K6
+    # at the shapes it adds), the MobileNetV3-large detector (the flagship's
+    # kernel shapes) and every inverted-residual name
+    t0 = time.perf_counter()
+    kernels.update(effdet_kernels(gen, cuda_gen))
+    launches.update(effdet_phases(gen, cuda_gen))
+    print(f"phases 78-82 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    launches.update(mnv3_phases(gen, cuda_gen))
+    print(f"phases 83-86 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m17_phase(gen)
+    print(f"phase 87 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -3514,6 +3788,11 @@ def main() -> None:
     kernels["dynconv_decode@validate"] = kernels["dynconv_decode"] + kernels["dynconv_decode@train"]
     kernels["dynconv_decode@keypoint_validate"] = (kernels["dynconv_decode@keypoint_serve"]
                                                    + kernels["dynconv_decode@keypoint_train"])
+    # the EfficientDet-D0-shaped detector's gathered calls are the flagship's
+    for key, flagship in (("fused_mlp@effdet_serve", "fused_mlp"), ("fused_mlp@effdet_train", "fused_mlp@train"),
+                          ("fused_mlp_backward@effdet_train", "fused_mlp_backward")):
+        kernels[key] += [c for c in kernels[flagship] if c["label"] == "gathered"]
+    kernels["fused_mlp@effdet_validate"] = kernels["fused_mlp@effdet_serve"] + kernels["fused_mlp@effdet_train"]
 
     # one entry for each kernel on each path, with its launches there and one
     # call of each shape that path gives it (bf16)
@@ -3650,6 +3929,23 @@ def main() -> None:
           for path in ("pan_serve", "pan_train", "pan_validate", "v2_serve", "v2_train")),
         *((f"stem_conv_stats@{path}", path, "stem_conv_stats", "cuda", stem_cu, stem_py, "stem_conv_stats")
           for path in ("pan_serve", "pan_train", "pan_validate", "v2_serve", "v2_train")),
+        # the EfficientDet-D0-shaped detector: its dense K1 calls, K2 and K6 at its shapes
+        *((f"fused_mlp@effdet_{path}", f"effdet_{path}", f"fused_mlp@effdet_{path}", "cuda", mlp_cu, f"{mlp_py}:204",
+           "fused_mlp") for path in ("serve", "train", "validate")),
+        ("fused_mlp_backward@effdet_train", "effdet_train", "fused_mlp_backward@effdet_train", "cuda", mlp_cu,
+         f"{mlp_py}:365", "fused_mlp_backward"),
+        *((f"row_kth@effdet_{path}", f"effdet_{path}", "row_kth@effdet", "cuda", topk_cu, topk_py, "row_kth")
+          for path in ("train", "validate")),
+        *((f"weighted_sum@effdet_{path}", f"effdet_{path}", "weighted_sum@effdet", "triton", fusion_tr, fusion6_py,
+           "weighted_sum") for path in ("serve", "train", "validate")),
+        # the MobileNetV3-large detector runs the flagship's kernel shapes
+        *((f"fused_mlp@mnv3_{path}", f"mnv3_{path}", key, "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp")
+          for path, key in (("serve", "fused_mlp"), ("train", "fused_mlp@train"))),
+        ("fused_mlp_backward@mnv3_train", "mnv3_train", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365",
+         "fused_mlp_backward"),
+        ("row_kth@mnv3_train", "mnv3_train", "row_kth", "cuda", topk_cu, topk_py, "row_kth"),
+        *((f"upsample_add@mnv3_{path}", f"mnv3_{path}", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add")
+          for path in ("serve", "train")),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -17,6 +17,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --keypoint [--train]        # the keypoint (FCPose) model
     python3 profile_serving.py --pan [--train]             # the pretrained PAN detector
     python3 profile_serving.py --resnetv2 [--train]        # the ResNetV2 detector
+    python3 profile_serving.py --effdet [--train]          # the EfficientDet-D0-shaped detector, 512 px
+    python3 profile_serving.py --mnv3 [--train]            # the MobileNetV3-large detector
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -34,8 +36,10 @@ models, trained on ``chip_smoke.autoencoder_batch``, ``view_batch`` and
 model, trained on ``chip_smoke.keypoint_batch``; with ``--pan`` its
 pretrained PAN detector, its trunk read from the file that
 ``chip_smoke.pretrained_home`` writes from a seed, and with ``--resnetv2``
-its ResNetV2 detector, both trained on bench.py's targets;
-random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+its ResNetV2 detector, both trained on bench.py's targets, and with
+``--effdet`` its EfficientDet-D0-shaped detector (the trunk's file written
+from a seed, 512 px) and with ``--mnv3`` its MobileNetV3-large detector,
+both trained on bench.py's targets; random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
 
@@ -48,7 +52,11 @@ ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
   each counted by the device time of the kernels it launched itself (not
   those of ops it called), or one of the port's own kernels, matched by
   name; "other" is busy time outside every class;
-- the profiler's table of the top rows by device time.
+- the profiler's table of the top rows by device time;
+- for a trunk with depthwise convs (MobileNet, EfficientNet): their device
+  time per request or step, each depthwise conv of one forward timed alone
+  at its shape (CUDA-event medians; a step adds each one's backward, the
+  input's and the weight's gradients), and its share of the busy time.
 """
 
 import argparse
@@ -62,11 +70,14 @@ from torch.profiler import ProfilerActivity, profile
 from chip_smoke import (
     BATCH, HYBRID_SCHEDULE, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly,
     build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_keypoint, build_multitask,
-    build_pan, build_panoptic, build_quad, build_resnetv2, build_view_invariance, calibrate_anomaly, card_name,
+    EFFDET_SIZE, build_effdet, build_mnv3, build_pan, build_panoptic, build_quad, build_resnetv2,
+    build_view_invariance, calibrate_anomaly, card_name,
     dense_batch, freeze_trunk, instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_home,
     pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch, view_batch,
 )
+from sihl_tpu_torch.layers.convblocks import Conv2d
 from sihl_tpu_torch.policy import compute_dtype_scope
+from sihl_tpu_torch.tools.probe_timing import median_ms
 from sihl_tpu_torch.training import Trainer
 
 TIMED, PROFILED = 10, 3
@@ -128,6 +139,40 @@ def busy_us(events) -> float:
     return total + (cur_end - cur_start if cur_end is not None else 0.0)
 
 
+def depthwise_ms(model, images, train: bool) -> tuple:
+    """(ms, count): the device time of every depthwise conv (one filter a
+    channel) of one forward of ``images``, each timed alone at its input's
+    shape and dtype (CUDA-event medians), with its backward (the input's and
+    the weight's gradients) where ``train``; and how many there are."""
+    calls = []
+
+    def record(module, inputs, output):
+        calls.append((module, inputs[0].detach()))
+
+    depthwise = [m for m in model.modules()
+                 if isinstance(m, Conv2d) and m.groups > 1 and m.groups == m.weight.shape[0]]
+    handles = [m.register_forward_hook(record) for m in depthwise]
+    with torch.no_grad():
+        model(images)
+    for h in handles:
+        h.remove()
+    total = 0.0
+    for m, x in calls:
+        w = m.weight.detach().to(m.dtype)
+
+        def forward(x=x, w=w, m=m):
+            return torch.nn.functional.conv2d(x, w, None, m.stride, m.padding, m.dilation, m.groups)
+
+        with torch.no_grad():
+            total += median_ms(forward)
+        if train:
+            xg, wg = x.clone().requires_grad_(True), w.clone().requires_grad_(True)
+            y = forward(xg, wg)
+            g = torch.randn_like(y)
+            total += median_ms(lambda: torch.autograd.grad(y, (xg, wg), g, retain_graph=True))
+    return total, len(calls)
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--train", action="store_true", help="profile a training step")
@@ -144,6 +189,8 @@ def main() -> None:
     models.add_argument("--keypoint", action="store_true", help="the keypoint (FCPose) model")
     models.add_argument("--pan", action="store_true", help="the pretrained PAN detector")
     models.add_argument("--resnetv2", action="store_true", help="the ResNetV2 detector")
+    models.add_argument("--effdet", action="store_true", help="the EfficientDet-D0-shaped detector (512 px)")
+    models.add_argument("--mnv3", action="store_true", help="the MobileNetV3-large detector")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -158,13 +205,18 @@ def main() -> None:
         else ("keypoint", build_keypoint, keypoint_batch) if args.keypoint
         else ("pretrained PAN detector", build_pan, training_batch) if args.pan
         else ("ResNetV2 detector", build_resnetv2, training_batch) if args.resnetv2
+        else ("EfficientDet-D0-shaped detector", build_effdet, lambda b: training_batch(b, size=EFFDET_SIZE))
+        if args.effdet
+        else ("MobileNetV3-large detector", build_mnv3, training_batch) if args.mnv3
         else ("flagship", build_flagship, training_batch)
     )
+    size = EFFDET_SIZE if args.effdet else SIZE
     train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
-    with pretrained_home() if args.pan else contextlib.nullcontext(), compute_dtype_scope(torch.bfloat16):
+    home = pretrained_home() if args.pan else pretrained_home("efficientnet_b0") if args.effdet else None
+    with home or contextlib.nullcontext(), compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(0))
     pretraining = [anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)] if args.anomaly else None
     if train:
@@ -182,7 +234,7 @@ def main() -> None:
             calibrate_anomaly(model, pretraining)
         model.eval()
         images = torch.rand(
-            BATCH, 3, SIZE, SIZE, device="cuda", generator=torch.Generator("cuda").manual_seed(0)
+            BATCH, 3, size, size, device="cuda", generator=torch.Generator("cuda").manual_seed(0)
         )
 
         def work():
@@ -208,7 +260,7 @@ def main() -> None:
     if not device_events:
         raise SystemExit("profile_serving: the profiler recorded no device time")
     busy = busy_us(device_events) / PROFILED / 1000
-    print(f"{name}, batch {BATCH} at {SIZE} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
+    print(f"{name}, batch {BATCH} at {size} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
           f"{TIMED}); device busy {busy:.3f} ms per {what} over {PROFILED} profiled; busy "
           f"share {busy / latency:.4f}; peak memory {peak_gib:.2f} GiB")
 
@@ -227,6 +279,10 @@ def main() -> None:
         ms = us / PROFILED / 1000
         print(f"{label:24s} {ms:10.3f} {ms / busy:7.3f} {count / PROFILED:13.1f}")
     print(averages.table(sort_by="device_time_total", row_limit=25, max_name_column_width=60))
+    ms, count = depthwise_ms(model, images, train)
+    if count:
+        print(f"depthwise convs: {count} a forward, {ms:.3f} ms per {what} timed alone at their shapes "
+              f"({'forward and backward' if train else 'forward'}), {ms / busy:.4f} of the busy time [{card_name()}]")
 
 
 if __name__ == "__main__":

@@ -1,6 +1,7 @@
 """Backbone factories (counterpart of ``sihl_tpu/backbones/__init__.py``)
-over the ResNet family, ResNetV2 included.  The other families follow in
-ROADMAP.md, M17.
+over the ResNet family (ResNetV2 included), MobileNet v2 / v3, EfficientNet
+(B0-B7, V2 S/M/L, lite0) and MNASNet.  ConvNeXt, MobileNetV4, DenseNet,
+ShuffleNetV2, DLA and HRNet follow in ROADMAP.md, M17.
 
 ``pretrained=True`` loads torchvision's weights from its cache directory
 (:func:`~sihl_tpu_torch.backbones.torchvision_import.weights_file`), puts
@@ -13,12 +14,26 @@ from typing import Optional
 import torch
 
 from sihl_tpu_torch.backbones.base import PyramidBackbone
+from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS, make_efficientnet_features
+from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS, make_mnasnet_features
+from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, make_mobilenet_features
 from sihl_tpu_torch.backbones.resnet import RESNET_CONFIGS, make_resnet_features
 from sihl_tpu_torch.layers.convblocks import default_generator
 
+_FEATURE_FACTORIES = {
+    name: factory
+    for configs, factory in (
+        (RESNET_CONFIGS, make_resnet_features),
+        (EFFICIENTNET_CONFIGS, make_efficientnet_features),
+        (MOBILENET_CONFIGS, make_mobilenet_features),
+        (MNASNET_CONFIGS, make_mnasnet_features),
+    )
+    for name in configs
+}
+
 
 def backbone_names():
-    return tuple(sorted(RESNET_CONFIGS))
+    return tuple(sorted(_FEATURE_FACTORIES))
 
 
 def Backbone(
@@ -38,10 +53,10 @@ def Backbone(
     ``pretrained``; freeze a random-weight trunk with ``set_frozen_levels``.
     ``freeze_batchnorms`` makes the frozen levels' BatchNorms use their
     running statistics in training."""
-    if name not in RESNET_CONFIGS:
+    if name not in _FEATURE_FACTORIES:
         raise ValueError(f"Architecture {name} is not supported. Select from {backbone_names()}")
     generator = default_generator(generator)
-    features = make_resnet_features(name, input_channels=input_channels, generator=generator, device=device)
+    features = _FEATURE_FACTORIES[name](name, input_channels=input_channels, generator=generator, device=device)
     if pretrained:
         from sihl_tpu_torch.backbones.torchvision_import import load_torchvision_weights
 
@@ -143,7 +158,7 @@ def TimmBackbone(
     if name not in _TIMM_ALIASES:
         raise ValueError(f"Architecture {name} is not supported. Select from {tuple(sorted(_TIMM_ALIASES))}")
     native = _TIMM_ALIASES[name]
-    if native not in RESNET_CONFIGS:
+    if native not in _FEATURE_FACTORIES:
         raise NotImplementedError(
             f"{name} maps onto {native}, whose feature net the port does not build yet (ROADMAP.md, M17)"
         )

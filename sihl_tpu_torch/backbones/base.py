@@ -11,12 +11,18 @@ front of the feature net only when ``pretrained and input_channels == 3``;
 ``outputs[0]`` is the raw input all the same.
 
 A feature net plugged into this wrapper exposes ``feature_channels`` (the
-channels of levels 1..n), ``level_modules`` (attribute names per level, for
-freezing) and honours ``_sg_levels``: the levels up to it run without a
-gradient, so a frozen prefix has no backward pass.
+channels of levels 1..n), ``level_modules`` (per level, for freezing: the
+attribute names of its modules, ``"stem"``, or ``(attr, index)`` pairs
+that address one element of a module list, ``("stages", 2)``) and
+``_sg_levels``, which the wrapper sets to the number of frozen levels.
+The ResNet family honours it: the levels up to it run without a gradient,
+so a frozen prefix has no backward pass.  MobileNet, EfficientNet and
+MNASNet do not, as in the JAX package: their frozen prefix runs its
+backward, its parameters get gradients (which count in the clip's global
+norm) and only leave the optimizer.
 """
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -75,28 +81,43 @@ class PyramidBackbone(nn.Module):
 
     def set_frozen_levels(self, frozen_levels: int) -> None:
         """Freeze the first ``frozen_levels`` levels (all of them if < 0):
-        their parameters leave the optimizer and, since the feature net cuts
+        their parameters leave the optimizer and, where the feature net cuts
         the gradient after the deepest frozen level, they have no backward."""
         self.frozen_levels = frozen_levels
         n = len(self.features.feature_channels)
         self.features._sg_levels = n if frozen_levels < 0 else min(max(frozen_levels, 0), n)
 
     # -- freezing ---------------------------------------------------------
-    def frozen_attr_names(self) -> List[str]:
-        """Feature-net attribute names whose parameters must not be updated."""
+    def frozen_attr_names(self) -> List[Union[str, Tuple[str, int]]]:
+        """The feature net's frozen modules: attribute names, and ``(attr,
+        index)`` pairs as ``level_modules`` gives them."""
         mods = self.features.level_modules
         k = len(mods) if self.frozen_levels < 0 else min(self.frozen_levels, len(mods))
-        return [name for level in mods[:k] for name in level]
+        return [entry for level in mods[:k] for entry in level]
 
     def is_frozen_param(self, feature_path: Sequence[str]) -> bool:
         """Whether a parameter path relative to ``features`` (its dotted name
-        split, ``("stem", "conv", "weight")``) is frozen."""
-        return len(feature_path) > 0 and str(feature_path[0]) in self.frozen_attr_names()
+        split, ``("stem", "conv", "weight")``, ``("stages", "0", ...)``) is
+        frozen: its head names a frozen attribute, or its head and index a
+        frozen pair."""
+        if len(feature_path) == 0:
+            return False
+        head = str(feature_path[0])
+        pair = (head, int(feature_path[1])) if len(feature_path) > 1 and str(feature_path[1]).isdigit() else None
+        for entry in self.frozen_attr_names():
+            if isinstance(entry, tuple):
+                if (str(entry[0]), int(entry[1])) == pair:
+                    return True
+            elif head == str(entry):
+                return True
+        return False
 
     def _set_frozen_bn_eval(self) -> None:
         """Frozen levels' BatchNorms normalise with their running statistics."""
-        for name in self.frozen_attr_names():
-            for sub in getattr(self.features, name).modules():
+        for entry in self.frozen_attr_names():
+            module = getattr(self.features, entry[0])[entry[1]] if isinstance(entry, tuple) else getattr(
+                self.features, entry)
+            for sub in module.modules():
                 if isinstance(sub, BatchNorm2d):
                     sub.eval()
 

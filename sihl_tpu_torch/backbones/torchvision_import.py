@@ -10,8 +10,11 @@ A family's layout is written once as a *walker* that yields
 applies them, checking every shape, raising on a missing tensor and on
 tensors left unconsumed outside the classifier, and :func:`dump_state_dict`
 is its exact inverse (a torchvision-format export).  The port walks the
-ResNet family (resnet, resnext, wide_resnet); the other torchvision
-families come with their feature nets (ROADMAP.md, M17).
+ResNet family (resnet, resnext, wide_resnet), EfficientNet B0-B7 and V2,
+MobileNet v2 and v3 and MNASNet; ConvNeXt, DenseNet and ShuffleNetV2 come
+with their feature nets (ROADMAP.md, M17).  A width variant without a
+torchvision file (``mobilenet_v2_050``) walks like its family and finds no
+file to load.
 
 :func:`load_torchvision_weights` reads the file that torchvision keeps in
 its cache, ``torch.hub.get_dir()/checkpoints/{arch}-{hash}.pth`` (under
@@ -25,12 +28,20 @@ from typing import Dict, Iterator, Tuple
 import torch
 from torch import nn
 
+from sihl_tpu_torch.backbones.efficientnet import MBConv
+
 Spec = Tuple[str, nn.Module, str]
 
 # -- walkers ------------------------------------------------------------------
-# Spec kinds: "conv" (a conv without bias), "conv_first" (the input conv,
-# skipped when input_channels != 3) and "bn" (a BatchNorm: weight, bias and
-# running statistics).
+# Spec kinds: "conv" (a conv without bias), "convb" (a conv with a bias),
+# "conv_first" (the input conv, skipped when input_channels != 3) and "bn"
+# (a BatchNorm: weight, bias and running statistics).
+
+
+def _cna(dst, prefix: str) -> Iterator[Spec]:
+    """torchvision's ``Conv2dNormActivation``: ``{prefix}.0`` conv, ``.1`` bn."""
+    yield ("conv", dst.conv, f"{prefix}.0")
+    yield ("bn", dst.bn, f"{prefix}.1")
 
 
 def _walk_resnet(features) -> Iterator[Spec]:
@@ -50,9 +61,100 @@ def _walk_resnet(features) -> Iterator[Spec]:
                 yield ("bn", block.downsample.bn, f"{p}.downsample.1")
 
 
-_FAMILIES = ((("resnet", "resnext", "wide_resnet"), _walk_resnet, ("fc.",)),)
+def _walk_efficientnet(features) -> Iterator[Spec]:
+    """``features.0`` the stem; ``features.{1..N}`` the stages, each block's
+    layers under ``.block``; ``features.{N+1}`` the 1x1 head."""
+    yield ("conv_first", features.stem.conv, "features.0.0")
+    yield ("bn", features.stem.bn, "features.0.1")
+    for si, stage in enumerate(features.stages, start=1):
+        for bi, block in enumerate(stage.blocks):
+            p = f"features.{si}.{bi}.block"
+            if isinstance(block, MBConv):
+                idx = 0
+                if block.expand is not None:
+                    yield from _cna(block.expand, f"{p}.{idx}")
+                    idx += 1
+                yield from _cna(block.depthwise, f"{p}.{idx}")
+                idx += 1
+                if block.se is not None:
+                    yield ("convb", block.se.fc1, f"{p}.{idx}.fc1")
+                    yield ("convb", block.se.fc2, f"{p}.{idx}.fc2")
+                    idx += 1
+                yield from _cna(block.project, f"{p}.{idx}")
+            else:  # FusedMBConv
+                yield from _cna(block.fused, f"{p}.0")
+                if block.project is not None:
+                    yield from _cna(block.project, f"{p}.1")
+    yield from _cna(features.head, f"features.{len(features.stages) + 1}")
+
+
+def _walk_mobilenet_v2(features) -> Iterator[Spec]:
+    """Blocks at ``features.{1..17}.conv``: [expand,] depthwise, then the
+    projection's bare conv and bn as the last two entries."""
+    yield ("conv_first", features.stem.conv, "features.0.0")
+    yield ("bn", features.stem.bn, "features.0.1")
+    for i, block in enumerate(features.blocks, start=1):
+        p = f"features.{i}.conv"
+        idx = 0
+        if block.expand is not None:
+            yield from _cna(block.expand, f"{p}.{idx}")
+            idx += 1
+        yield from _cna(block.depthwise, f"{p}.{idx}")
+        idx += 1
+        yield ("conv", block.project.conv, f"{p}.{idx}")
+        yield ("bn", block.project.bn, f"{p}.{idx + 1}")
+    yield from _cna(features.head, f"features.{len(features.blocks) + 1}")
+
+
+def _walk_mobilenet_v3(features) -> Iterator[Spec]:
+    yield ("conv_first", features.stem.conv, "features.0.0")
+    yield ("bn", features.stem.bn, "features.0.1")
+    for i, block in enumerate(features.blocks, start=1):
+        p = f"features.{i}.block"
+        idx = 0
+        if block.expand is not None:
+            yield from _cna(block.expand, f"{p}.{idx}")
+            idx += 1
+        yield from _cna(block.depthwise, f"{p}.{idx}")
+        idx += 1
+        if block.se is not None:
+            yield ("convb", block.se.fc1, f"{p}.{idx}.fc1")
+            yield ("convb", block.se.fc2, f"{p}.{idx}.fc2")
+            idx += 1
+        yield from _cna(block.project, f"{p}.{idx}")
+    yield from _cna(features.head, f"features.{len(features.blocks) + 1}")
+
+
+def _walk_mnasnet(features) -> Iterator[Spec]:
+    """torchvision's flat ``layers.{0..16}``: the stem's conv and bn at 0 and
+    1, the separable depthwise at 3 and 4, the projection at 6 and 7, the
+    stacks at 8-13 (each unit's ``layers.{0,1,3,4,6,7}``), the head at 14
+    and 15."""
+    yield ("conv_first", features.stem.conv, "layers.0")
+    yield ("bn", features.stem.bn, "layers.1")
+    yield ("conv", features.sep_dw.conv, "layers.3")
+    yield ("bn", features.sep_dw.bn, "layers.4")
+    yield ("conv", features.sep_pw.conv, "layers.6")
+    yield ("bn", features.sep_pw.bn, "layers.7")
+    for si, stack in enumerate(features.stacks, start=8):
+        for ui, unit in enumerate(stack):
+            p = f"layers.{si}.{ui}.layers"
+            for dst, base in ((unit.expand, 0), (unit.depthwise, 3), (unit.project, 6)):
+                yield ("conv", dst.conv, f"{p}.{base}")
+                yield ("bn", dst.bn, f"{p}.{base + 1}")
+    yield ("conv", features.head.conv, "layers.14")
+    yield ("bn", features.head.bn, "layers.15")
+
+
+_FAMILIES = (
+    (("resnet", "resnext", "wide_resnet"), _walk_resnet, ("fc.",)),
+    (("efficientnet_b", "efficientnet_v2"), _walk_efficientnet, ("classifier.",)),
+    (("mobilenet_v2",), _walk_mobilenet_v2, ("classifier.",)),
+    (("mobilenet_v3",), _walk_mobilenet_v3, ("classifier.",)),
+    (("mnasnet",), _walk_mnasnet, ("classifier.",)),
+)
 # torchvision families whose feature nets the port does not build yet
-_LATER_FAMILIES = ("efficientnet_", "mobilenet_", "convnext_", "densenet", "shufflenet_v2", "mnasnet")
+_LATER_FAMILIES = ("convnext_", "densenet", "shufflenet_v2")
 # timm's pre-activation ResNets share the "resnet" prefix but are no torchvision arch
 _NOT_TORCHVISION = ("resnetv2_",)
 
@@ -123,8 +225,10 @@ def load_state_dict(features: nn.Module, name: str, sd, input_channels: int = 3)
         if kind == "conv_first" and input_channels != 3:
             used.add(f"{key}.weight")
             continue
-        if kind in ("conv", "conv_first"):
+        if kind in ("conv", "convb", "conv_first"):
             put(dst.weight, f"{key}.weight")
+            if kind == "convb":
+                put(dst.bias, f"{key}.bias")
         elif kind == "bn":
             put(dst.weight, f"{key}.weight")
             put(dst.bias, f"{key}.bias")
@@ -158,8 +262,10 @@ def dump_state_dict(features: nn.Module, name: str) -> Dict[str, torch.Tensor]:
         return t.detach().to("cpu", copy=True).contiguous()
 
     for kind, dst, key in walker(features):
-        if kind in ("conv", "conv_first"):
+        if kind in ("conv", "convb", "conv_first"):
             sd[f"{key}.weight"] = take(dst.weight)
+            if kind == "convb":
+                sd[f"{key}.bias"] = take(dst.bias)
         elif kind == "bn":
             sd[f"{key}.weight"] = take(dst.weight)
             sd[f"{key}.bias"] = take(dst.bias)

@@ -311,17 +311,10 @@ def test_upsample_add_kernel_matches_plain_version_on_card():
             assert torch.equal(got, fused_upsample_add_reference(top, lat))
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("n", [2, 3])
-def test_weighted_sum_kernel_matches_plain_version_on_card(n):
-    """K6 against its plain version (the same f32 order, no fused
-    multiply-add): bf16 within one bf16 step, f32 within 1e-6 of the largest
-    magnitude; its backward (plain PyTorch) against autograd of the plain
-    version within 1e-6 relative."""
-    _need_card()
-    gen = torch.Generator().manual_seed(7)
+def _check_weighted_sum(n, shapes, seed):
+    gen = torch.Generator().manual_seed(seed)
     for dt in (torch.bfloat16, torch.float32):
-        for shape in ((2, 128, 20, 20), (3, 16, 7, 9)):
+        for shape in shapes:
             xs = [torch.randn(shape, generator=gen).to("cuda", dt).contiguous(memory_format=torch.channels_last)
                   for _ in range(n)]
             w = torch.softmax(torch.randn(n, generator=gen), dim=0).cuda()
@@ -344,6 +337,26 @@ def test_weighted_sum_kernel_matches_plain_version_on_card(n):
                 assert a.dtype == b.dtype
                 err = float(torch.linalg.vector_norm(a.double() - b.double()) / torch.linalg.vector_norm(b.double()))
                 assert err <= 1e-6, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_weighted_sum_kernel_matches_plain_version_on_card(n):
+    """K6 against its plain version (the same f32 order, no fused
+    multiply-add): bf16 within one bf16 step, f32 within 1e-6 of the largest
+    magnitude; its backward (plain PyTorch) against autograd of the plain
+    version within 1e-6 relative."""
+    _need_card()
+    _check_weighted_sum(n, ((2, 128, 20, 20), (3, 16, 7, 9)), 7)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [2, 3])
+def test_weighted_sum_kernel_at_64_channels_on_card(n):
+    """K6 as the EfficientDet-D0 BiFPN runs it: 64 channels at batch 16 on
+    4 x 4, 8 x 8 and 64 x 64 maps, held as above."""
+    _need_card()
+    _check_weighted_sum(n, ((16, 64, 4, 4), (16, 64, 8, 8), (16, 64, 64, 64)), 11)
 
 
 @pytest.mark.cuda

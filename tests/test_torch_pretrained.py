@@ -27,7 +27,7 @@ from sihl_tpu.backbones.resnet import make_resnet_features as jax_make_resnet_fe
 from sihl_tpu.backbones.torchvision_import import dump_state_dict as jax_dump_state_dict
 from sihl_tpu.backbones.torchvision_import import load_state_dict as jax_load_state_dict
 from sihl_tpu_torch import TIMM_BACKBONE_NAMES, TORCHVISION_BACKBONE_NAMES, Backbone, TimmBackbone, TorchvisionBackbone
-from sihl_tpu_torch.backbones import _TIMM_ALIASES
+from sihl_tpu_torch.backbones import _FEATURE_FACTORIES, _TIMM_ALIASES
 from sihl_tpu_torch.backbones.resnet import ResNetV2Features, make_resnet_features
 from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict, load_state_dict, weights_file
 from sihl_tpu_torch.convert import state_dict_from_flat
@@ -35,13 +35,14 @@ from sihl_tpu_torch.convert import state_dict_from_flat
 from torch_parity import flat_state, randomize_norms, to_numpy, to_torch
 
 
-def write_weights(torch_home, name: str, sd, tag: str = "0123abcd") -> None:
+def write_weights(torch_home, name: str, sd, tag: str = "0123abcd", classifier: str = "fc") -> None:
     """``sd`` (numpy arrays or tensors) as torchvision's cached file of
-    ``name``, with a classifier and BatchNorm counters beside it."""
+    ``name``, with a classifier (``fc.`` of a ResNet, ``classifier.1.`` of
+    the other families) and BatchNorm counters beside it."""
     directory = torch_home / "hub" / "checkpoints"
     directory.mkdir(parents=True, exist_ok=True)
     tensors = {k: torch.as_tensor(np.array(v)) for k, v in sd.items()}
-    tensors.update({"fc.weight": torch.zeros(10, 4), "fc.bias": torch.zeros(10)})
+    tensors.update({f"{classifier}.weight": torch.zeros(10, 4), f"{classifier}.bias": torch.zeros(10)})
     tensors.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(7)
                     for k in sd if k.endswith("running_mean")})
     torch.save(tensors, directory / f"{name}-{tag}.pth")
@@ -178,10 +179,11 @@ def test_grayscale_trunk_keeps_its_input_conv(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name, match", [
-    ("efficientnet_b0", "M17"),
-    ("mobilenet_v3_large", "M17"),
+    ("densenet121", "M17"),
+    ("shufflenet_v2_x1_0", "M17"),
     ("convnext_tiny", "M17"),
     ("resnetv2_50", "not a torchvision arch"),
+    ("efficientnet_lite0", "not a torchvision arch"),
     ("vgg16", "not a torchvision arch"),
 ])
 def test_importer_family_refusals(name, match):
@@ -191,15 +193,20 @@ def test_importer_family_refusals(name, match):
 
 def test_backbone_name_tables():
     """The timm table is the JAX package's whole; the public name tuples
-    list what the port builds, a subset of the JAX package's; a timm name
-    whose family the port lacks raises naming M17."""
+    list what the port builds, a subset of the JAX package's, the three
+    inverted-residual families among them; a timm name whose family the
+    port lacks raises naming M17."""
     assert _TIMM_ALIASES == JAX_TIMM_ALIASES
     assert set(TIMM_BACKBONE_NAMES) <= set(JAX_TIMM_NAMES)
     assert set(TORCHVISION_BACKBONE_NAMES) <= set(JAX_TORCHVISION_NAMES)
-    assert {"resnetv2_50", "resnetv2_101", "resnet50"} <= set(TIMM_BACKBONE_NAMES)
+    assert {"resnetv2_50", "resnetv2_101", "resnet50", "mobilenetv2_100", "efficientnet_lite0",
+            "mnasnet_050"} <= set(TIMM_BACKBONE_NAMES)
+    assert {"efficientnet_b7", "efficientnet_v2_l", "mobilenet_v3_small_075", "mnasnet1_3"} <= set(
+        TORCHVISION_BACKBONE_NAMES)
     assert TorchvisionBackbone is Backbone
-    with pytest.raises(NotImplementedError, match="M17"):
-        TimmBackbone("mobilenetv2_100", device="cpu")
+    for name in ("convnext_tiny", "densenet121", "dla34", "hrnet_w18", "mobilenetv4_conv_small"):
+        with pytest.raises(NotImplementedError, match="M17"):
+            TimmBackbone(name, device="cpu")
     with pytest.raises(ValueError, match="not supported"):
         TimmBackbone("vit_base_patch16_224", device="cpu")
     with pytest.raises(NotImplementedError, match="not a torchvision arch"):
@@ -211,3 +218,32 @@ def test_weights_file_honours_torch_home(tmp_path, monkeypatch):
     monkeypatch.setenv("TORCH_HOME", str(tmp_path))
     write_weights(tmp_path, "resnet50", {}, "11ad3fa6")
     assert weights_file("resnet50") == str(tmp_path / "hub" / "checkpoints" / "resnet50-11ad3fa6.pth")
+
+
+@pytest.mark.parametrize("name", ["efficientnet_b0", "mobilenet_v3_large", "mnasnet1_0"])
+def test_inverted_residual_pretrained_round_trip(name, tmp_path, monkeypatch):
+    """A seeded file (random weights, biases and BatchNorm statistics, the
+    squeeze-excitation convs' biases among them) → ``Backbone(name,
+    pretrained=True, frozen_levels=1)`` → ``dump_state_dict``: every tensor
+    equal to the file's; ``Normalize`` in front; level 1 frozen by its
+    ``level_modules`` entries, pairs included."""
+    gen = torch.Generator().manual_seed(5)
+    source = _FEATURE_FACTORIES[name](name, generator=gen, device="cpu")
+    with torch.no_grad():
+        for key, t in source.state_dict().items():
+            if t.dim() == 1:
+                t.copy_(torch.rand(t.shape, generator=gen) + (0.5 if key.endswith(("running_var", "bn.weight")) else -0.5))
+    sd = dump_state_dict(source, name)
+    assert any(k.endswith("fc1.bias") for k in sd) == (name != "mnasnet1_0")
+    write_weights(tmp_path, name, sd, classifier="classifier.1")
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    bb = Backbone(name, pretrained=True, frozen_levels=1, generator=torch.Generator().manual_seed(9), device="cpu")
+    back = dump_state_dict(bb.features, name)
+    assert sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+    assert bb.normalize is not None and bb.frozen_levels == 1
+    frozen = {n.split(".")[0] if not n.split(".")[1].isdigit() else tuple(n.split(".")[:2])
+              for n, _ in bb.features.named_parameters() if bb.is_frozen_param(n.split("."))}
+    want = {e if isinstance(e, str) else (e[0], str(e[1])) for e in bb.features.level_modules[0]}
+    assert frozen == want
+    with torch.no_grad():
+        assert all(torch.isfinite(o).all() for o in bb.eval()(torch.rand(1, 3, 64, 64)))

@@ -129,3 +129,58 @@ def assert_within_one_bf16_step(got, want) -> None:
     step = np.exp2(np.floor(np.log2(np.where(mag > 0, mag, 1.0))) - 7)
     bad = np.abs(got - want) > step
     assert not bad.any(), f"{int(bad.sum())} of {bad.size} elements beyond one bf16 step, e.g. {got[bad][:4]} vs {want[bad][:4]}"
+
+
+def numpy_filled(abstract, seed: int):
+    """A JAX module from ``nnx.eval_shape``'s abstract one, every leaf drawn
+    from a seeded numpy generator: conv and linear kernels N(0, 1/fan_in),
+    biases U(-0.1, 0.1), norm scales U(0.8, 1.2), running means U(-0.2, 0.2)
+    and variances U(0.5, 1.5).  Building a deep JAX net this way takes a
+    trace and no compile."""
+    graphdef, state = nnx.split(abstract)
+    rng = np.random.RandomState(seed)
+    draws = {
+        "kernel": lambda s: rng.randn(*s) / np.sqrt(np.prod(s[:-1])),
+        "bias": lambda s: rng.uniform(-0.1, 0.1, s),
+        "scale": lambda s: rng.uniform(0.8, 1.2, s),
+        "mean": lambda s: rng.uniform(-0.2, 0.2, s),
+        "var": lambda s: rng.uniform(0.5, 1.5, s),
+    }
+    flat = [(path, var.replace(jnp.asarray(draws[str(path[-1])](var.shape), var.dtype)))
+            for path, var in nnx.to_flat_state(state)]
+    return nnx.merge(graphdef, nnx.from_flat_state(flat))
+
+
+class _StubConv(nnx.Module):
+    """``make_conv``'s leaves (kernel (k, k, in / groups, out), bias) as
+    numpy zeros: the layout of a JAX net without initialising it."""
+
+    def __init__(self, cin, cout, kernel_size=3, stride=1, dilation=1, groups=1, padding=None, bias=True, *,
+                 rngs=None):
+        self.kernel = nnx.Param(np.zeros((kernel_size, kernel_size, cin // groups, cout), np.float32))
+        self.bias = nnx.Param(np.zeros((cout,), np.float32)) if bias else None
+
+
+class _StubBatchNorm(nnx.Module):
+    def __init__(self, kind, num_features, groupnorm_groups=1, rngs=None):
+        assert kind == "batch", kind
+        self.scale = nnx.Param(np.ones((num_features,), np.float32))
+        self.bias = nnx.Param(np.zeros((num_features,), np.float32))
+        self.mean = nnx.BatchStat(np.zeros((num_features,), np.float32))
+        self.var = nnx.BatchStat(np.ones((num_features,), np.float32))
+
+
+def stub_layout(monkeypatch, *jax_modules) -> None:
+    """Make the JAX modules' ``make_conv`` and ``make_norm`` build
+    :class:`_StubConv` and :class:`_StubBatchNorm`: a net then builds in
+    milliseconds with the real one's module paths and leaf shapes, where
+    ``nnx.eval_shape`` takes up to 23 s (EfficientNet V2-L)."""
+    for module in jax_modules:
+        monkeypatch.setattr(module, "make_conv", _StubConv)
+        monkeypatch.setattr(module, "make_norm", _StubBatchNorm)
+
+
+def relative_max_error(got, want) -> float:
+    """The largest absolute difference over the largest magnitude of ``want``."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.abs(got - want).max() / np.abs(want).max())
