@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Sixteen models run through the port's hand-written kernels, with weights
+Eighteen models run through the port's hand-written kernels, with weights
 from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -44,7 +44,10 @@ flagship's FPN and head, and two detectors on inverted-residual trunks:
 EfficientDet-D0's shape (a pretrained EfficientNet-B0, BiFPN 64 wide over
 levels 3-7 with 3 layers, ObjectDetection with 80 classes, at 512 px) and
 torchvision's MobileNetV3-large + FPN trunk under the flagship's FPN and
-head.  Every training step freezes level 1 at least, so a ResNet stem runs
+head, and ConvNeXt-T pretrained (read from a seeded torchvision-format file
+as the PAN detector's trunk is) under the flagship's FPN and head, and a
+pretrained DenseNet-121 under a 1,000-class MulticlassClassification at 224
+px.  Every training step freezes level 1 at least, so a ResNet stem runs
 K4.  Phases, each of which raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
@@ -213,7 +216,23 @@ K4.  Phases, each of which raises on failure:
    into the f64 step);
 87. M17: every MobileNet, EfficientNet and MNASNet name on the card at 64
    px in eval mode, f32, each level within 1e-5 of the same net on the CPU
-   (``m17_phase``).
+   (``m17_phase``);
+88-92. the same five for the ConvNeXt-T + FPN detector, its trunk held
+   equal to the file's (the layer scales U(0.1, 0.5)): the f32 serving
+   slice (scores within 1e-5 of the CPU's), three bf16 requests (K1f and
+   K3), the f32 train slice against f64 (the frozen patchify stem
+   differentiated), ten bf16 steps (K1f, K1b, K2, K3) and the fit, at the
+   flagship's kernel shapes;
+93-96. the first four for the DenseNet-121 classifier at 224 px, its trunk
+   held equal to the file's (whose ``norm5`` and classifier are skipped):
+   the f32 serving slice against the CPU, three bf16 requests, the f32 train
+   slice against f64 (the trunk's ReLU decisions taken from the card) and
+   ten bf16 steps; no TPU kernel runs there;
+97. M17, second part: every ConvNeXt v1 / v2, MobileNetV4, DenseNet and
+   ShuffleNetV2 name as phase 87, and convnext_atto, convnextv2_atto,
+   mobilenetv4_hybrid_medium, densenet121 and shufflenet_v2_x1_0 in train
+   mode too (batch statistics; the card's f32 levels within 3e-4 of an f64
+   copy's on the CPU).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -240,9 +259,13 @@ import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel, TimmBackbone
 from sihl_tpu_torch.backbones import _FEATURE_FACTORIES
+from sihl_tpu_torch.backbones.convnext import CONVNEXT_CONFIGS, GRN, ConvNeXtBlock
+from sihl_tpu_torch.backbones.densenet import DENSENET_CONFIGS
 from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS
 from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS
 from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, hardsigmoid, hardswish, relu6
+from sihl_tpu_torch.backbones.mobilenetv4 import MOBILENETV4_CONFIGS
+from sihl_tpu_torch.backbones.shufflenet import SHUFFLENET_CONFIGS
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck, PreactBottleneck, ResNetFeatures
 from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict
 from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
@@ -332,6 +355,9 @@ EFFDET_SIZE, EFFDET_WIDTH, EFFDET_LAYERS = 512, 64, 3
 EFFDET_ANCHORS = 5456
 EFFDET_FUSION_SHAPES = tuple((2, EFFDET_SIZE >> lvl) for lvl in (3, 4, 5, 6)) + tuple(
     (3, EFFDET_SIZE >> lvl) for lvl in (4, 5, 6, 7))
+# the DenseNet-121 classifier (Huang et al., CVPR 2017, Table 1; torchvision's
+# densenet121 recipe): ImageNet's 1,000 classes at 224 px
+IMAGENET_CLASSES, DENSENET_SIZE = 1000, 224
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -567,6 +593,33 @@ def build_mnv3(generator: torch.Generator, device=None) -> SihlModel:
     return SihlModel(backbone, neck, [head])
 
 
+def build_convnext(generator: torch.Generator, device=None) -> SihlModel:
+    """Liu et al., "A ConvNet for the 2020s", CVPR 2022, section 4 (COCO
+    detection on an ImageNet-pretrained ConvNeXt-T with FPN), under the
+    port's flagship neck and head: ConvNeXt-T from torchvision's cached file
+    (``pretrained_home("convnext_tiny")``), ImageNet normalisation in front
+    and level 1 frozen (the 4x4 patchify stem and its LayerNorm: no K4) →
+    FPN 256 wide over levels 3-7 → ObjectDetection (80 classes, levels 3-7,
+    100 targets), at 640 px."""
+    backbone = Backbone("convnext_tiny", pretrained=True, frozen_levels=1, generator=generator, device=device)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
+def build_densenet(generator: torch.Generator, device=None) -> SihlModel:
+    """Huang et al., "Densely Connected Convolutional Networks", CVPR 2017,
+    Table 1 (DenseNet-121 on ImageNet at 224 px), torchvision's
+    ``densenet121`` recipe: DenseNet-121 from torchvision's cached file
+    (``pretrained_home("densenet121")``), ImageNet normalisation in front
+    and level 1 frozen → MulticlassClassification over its 1,000 classes at
+    its defaults (level 5, 1,024 channels there), no neck."""
+    backbone = Backbone("densenet121", pretrained=True, frozen_levels=1, generator=generator, device=device)
+    head = MulticlassClassification(backbone.out_channels, IMAGENET_CLASSES, generator=generator, device=device)
+    return SihlModel(backbone, None, [head])
+
+
 def freeze_trunk(model: SihlModel) -> None:
     """Freeze the trunk as every training path here does: level 1, or every
     level of a teacher whose BatchNorms are frozen (the anomaly model)."""
@@ -577,7 +630,10 @@ def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generato
     """Random BatchNorm running statistics, random affine parameters of every
     BatchNorm and LayerNorm, and random biases of every MLP Linear, so that
     no norm is the identity and every array the fused-MLP kernels read
-    (hidden biases, LayerNorm scale and shift per layer) is non-trivial."""
+    (hidden biases, LayerNorm scale and shift per layer) is non-trivial;
+    ConvNeXt's layer scales U(0.1, 0.5) and GRN's scale and shift U(-0.5,
+    0.5), where the package starts them at 1e-6 and 0 and every block would
+    be the identity to six digits."""
 
     def fill(t, lo, hi):
         t.copy_(torch.rand(t.shape, generator=generator) * (hi - lo) + lo)
@@ -590,8 +646,13 @@ def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generato
             if isinstance(m, BatchNorm2d):
                 fill(m.running_mean, -0.2, 0.2)
                 fill(m.running_var, 0.5, 1.5)
-            if isinstance(m, Linear):
+            if isinstance(m, Linear) and m.bias is not None:
                 fill(m.bias, -0.1, 0.1)
+            if isinstance(m, ConvNeXtBlock):
+                fill(m.gamma, 0.1, 0.5)
+            if isinstance(m, GRN):
+                fill(m.gamma, -0.5, 0.5)
+                fill(m.beta, -0.5, 0.5)
 
 
 def damp_residual_branches(model: torch.nn.Module, generator: torch.Generator) -> None:
@@ -677,13 +738,14 @@ def quad_batch(batch: int, seed: int = 0, device="cuda"):
     }
 
 
-def classifier_batch(batch: int, seed: int = 0, device="cuda"):
-    """Images and the classifier's three targets from a seeded numpy
-    generator: class indices (B,) in [0, 196), multi-hot labels (B, 80) f32
-    (each label on with probability 0.1) and values (B,) f32 in [0, 100]."""
+def classifier_batch(batch: int, seed: int = 0, device="cuda", size: int = SIZE, num_classes: int = CARS_CLASSES):
+    """Images of ``size`` px and the classifier's three targets from a seeded
+    numpy generator: class indices (B,) in [0, ``num_classes``), multi-hot
+    labels (B, 80) f32 (each label on with probability 0.1) and values (B,)
+    f32 in [0, 100]; a model with fewer heads reads the first targets."""
     rng = np.random.RandomState(seed)
-    images = torch.from_numpy(rng.rand(batch, SIZE, SIZE, 3).astype(np.float32)).permute(0, 3, 1, 2)
-    classes = torch.from_numpy(rng.randint(0, CARS_CLASSES, batch))
+    images = torch.from_numpy(rng.rand(batch, size, size, 3).astype(np.float32)).permute(0, 3, 1, 2)
+    classes = torch.from_numpy(rng.randint(0, num_classes, batch))
     labels = torch.from_numpy((rng.rand(batch, COCO_LABELS) < 0.1).astype(np.float32))
     values = torch.from_numpy((rng.rand(batch) * VALUE_RANGE[1]).astype(np.float32))
     return images.contiguous().to(device), [t.to(device) for t in (classes, labels, values)]
@@ -1635,41 +1697,52 @@ def check_outputs(head, outputs) -> None:
             raise AssertionError(f"{name} out of the head's bounds")
 
 
-def check_classifier_slice(model: SihlModel, gen: torch.Generator) -> None:
-    """Phase 23: the f32 classifier on two 640 px images, on the card (its
-    frozen stem through K4's f32 body) and on the CPU (the plain versions)
-    with the same weights: the multiclass classes equal and scores within
-    1e-4 relative; the multilabel scores, sorted, within 1e-4 relative and
-    their label orders agreeing in at least 98% of slots (two labels whose
-    scores lie within rounding of each other may swap); the regression
-    values within 1e-4 relative."""
-    images = torch.rand(2, 3, SIZE, SIZE, generator=gen)
+def check_classifier_slice(model: SihlModel, gen: torch.Generator, size: int = SIZE, label: str = "classifier slice",
+                           stem_launches: int = 1) -> None:
+    """Phases 23 and 93: the f32 classifier on two ``size`` px images, on the
+    card (a frozen ResNet stem through K4's f32 body, ``stem_launches`` times)
+    and on the CPU (the plain versions) with the same weights, head by head:
+    the multiclass classes equal and scores within 1e-4 relative; the
+    multilabel scores, sorted, within 1e-4 relative and their label orders
+    agreeing in at least 98% of slots (two labels whose scores lie within
+    rounding of each other may swap); the regression values within 1e-4
+    relative."""
+    images = torch.rand(2, 3, size, size, generator=gen)
     with torch.no_grad():
         cpu_model = copy.deepcopy(model).to("cpu")
         t0 = time.perf_counter()
-        (c_scores, c_classes), (c_ml_scores, c_labels), c_values = cpu_model(images)
+        want = cpu_model(images)
         t_cpu = time.perf_counter() - t0
         reset_counts()
-        (scores, classes), (ml_scores, labels), values = (
-            [t.cpu() for t in out] if isinstance(out, tuple) else out.cpu() for out in model(images.cuda()))
+        got = [[t.cpu() for t in out] if isinstance(out, tuple) else out.cpu() for out in model(images.cuda())]
         k4 = read_counts(("stem_conv_stats",))["stem_conv_stats"]
 
     def rel(got, want):
         return float(((got - want).abs() / want.abs()).max())
 
-    share = float((labels == c_labels).float().mean())
-    errors = {"scores": rel(scores, c_scores), "multilabel scores": rel(ml_scores, c_ml_scores),
-              "values": rel(values, c_values)}
-    print(f"  classifier slice f32, 2 images at {SIZE} px: classes card {classes.tolist()} cpu "
-          f"{c_classes.tolist()}; largest relative errors {({k: f'{v:.3g}' for k, v in errors.items()})}; "
-          f"multilabel orders agree in {share:.4f} of slots; values card {values.tolist()} cpu "
-          f"{c_values.tolist()}; K4 launches {k4}; CPU forward {t_cpu:.1f} s")
-    for name, out in (("scores", scores), ("multilabel scores", ml_scores), ("values", values)):
+    errors, outputs, rows, share, same_classes = {}, {}, [], 1.0, True
+    for head, g, w in zip(model.heads, got, want):
+        if isinstance(head, MulticlassClassification):
+            (scores, classes), (c_scores, c_classes) = g, w
+            errors["scores"], outputs["scores"] = rel(scores, c_scores), scores
+            same_classes = torch.equal(classes, c_classes)
+            rows.append(f"classes card {classes.tolist()} cpu {c_classes.tolist()}")
+        elif isinstance(head, MultilabelClassification):
+            (ml_scores, labels), (c_ml_scores, c_labels) = g, w
+            errors["multilabel scores"], outputs["multilabel scores"] = rel(ml_scores, c_ml_scores), ml_scores
+            share = float((labels == c_labels).float().mean())
+            rows.append(f"multilabel orders agree in {share:.4f} of slots")
+        else:
+            errors["values"], outputs["values"] = rel(g, w), g
+            rows.append(f"values card {g.tolist()} cpu {w.tolist()}")
+    print(f"  {label} f32, 2 images at {size} px: " + "; ".join(rows) + f"; largest relative errors "
+          f"{({k: f'{v:.3g}' for k, v in errors.items()})}; K4 launches {k4}; CPU forward {t_cpu:.1f} s")
+    for name, out in outputs.items():
         if not torch.isfinite(out).all():
             raise AssertionError(f"non-finite {name}")
-    if k4 != 1:
-        raise AssertionError(f"the frozen stem launched K4 {k4} times")
-    if not torch.equal(classes, c_classes) or share < 0.98:
+    if k4 != stem_launches:
+        raise AssertionError(f"the frozen stem launched K4 {k4} times, expected {stem_launches}")
+    if not same_classes or share < 0.98:
         raise AssertionError(f"classes differ, or multilabel orders agree in only {share:.4f} of slots")
     if max(errors.values()) > 1e-4:
         raise AssertionError(f"relative errors {errors} out of bounds")
@@ -2282,7 +2355,10 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     # EfficientNet and MNASNet run their frozen prefix's backward, as in the
     # JAX package, and its gradients count in the clip's norm
     cuts = isinstance(model.backbone.features, ResNetFeatures)
-    if not any(n.startswith("backbone.features.stem.") for n in frozen):
+    # the stem: level 1's modules by name ("stem"; ConvNeXt's stem_conv and
+    # stem_norm; DenseNet's conv0 and norm0)
+    stem = tuple(f"backbone.features.{e}." for e in model.backbone.features.level_modules[0] if isinstance(e, str))
+    if not any(n.startswith(stem) for n in frozen):
         raise AssertionError("the stem is not frozen")
     if any((grads[n] is not None or c_grads[n] is not None) if cuts else (grads[n] is None or c_grads[n] is None)
            for n in frozen):
@@ -2302,10 +2378,10 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
         float((bufs[n].cpu().double() - b).abs().max() / b.abs().max().clamp_min(1e-12))
         for n, b in c_bufs.items() if b.is_floating_point()
     )
-    stem_stats_err = max(
+    stem_stats_err = max((
         float((bufs[n].cpu().double() - c_bufs[n]).abs().max() / c_bufs[n].abs().max().clamp_min(1e-12))
-        for n in ("backbone.features.stem.bn.running_mean", "backbone.features.stem.bn.running_var")
-    )
+        for n in c_bufs if n.startswith(stem) and n.endswith(("running_mean", "running_var"))
+    ), default=0.0)  # ConvNeXt's stem has a LayerNorm, no statistics
     print(f"  {label}, {images.shape[0]} images at {images.shape[-1]} px, card f32 against CPU f64: loss {loss:.6f} / "
           f"{c_loss:.6f}; " + "; ".join(
               f"{k.replace('/train', '')} {v:.6f}/{c_metrics[k]:.6f}" for k, v in metrics.items())
@@ -3315,11 +3391,14 @@ def write_pretrained_weights(torch_home: str, seed: int = PRETRAINED_SEED, arch:
     ``torch_home/hub/checkpoints``: the port's torchvision-format export
     (``dump_state_dict``) of the net drawn from ``seed`` with random
     BatchNorm statistics and affine parameters and random conv biases (the
-    squeeze-excitation convs'), and a classifier (``fc.`` for a ResNet,
-    ``classifier.1.`` for the others) and BatchNorm counters beside it, as
-    torchvision's files hold them; named ``{arch}-<the first 8 hex digits
-    of its SHA-256>.pth``, as torchvision names its files.  Returns its
-    path."""
+    squeeze-excitation convs', ConvNeXt's), ConvNeXt's layer scales U(0.1,
+    0.5) (``randomize_norms_and_biases``), and a classifier under the
+    family's key (``fc.`` for a ResNet or a ShuffleNetV2, ``classifier.0.``
+    (a LayerNorm) and ``classifier.2.`` for a ConvNeXt, ``classifier.`` for
+    a DenseNet, with its ``features.norm5.`` beside it, ``classifier.1.``
+    for the others) and BatchNorm counters beside it, as torchvision's files
+    hold them; named ``{arch}-<the first 8 hex digits of its SHA-256>.pth``,
+    as torchvision names its files.  Returns its path."""
     generator = torch.Generator().manual_seed(seed)
     features = _FEATURE_FACTORIES[arch](arch, generator=generator, device="cpu")
     randomize_norms_and_biases(features, generator)
@@ -3330,9 +3409,17 @@ def write_pretrained_weights(torch_home: str, seed: int = PRETRAINED_SEED, arch:
     sd = dump_state_dict(features, arch)
     sd.update({k.replace("running_mean", "num_batches_tracked"): torch.tensor(0)
                for k in list(sd) if k.endswith("running_mean")})
-    classifier = "fc" if arch.startswith("resnet") else "classifier.1"
-    sd.update({f"{classifier}.weight": torch.randn(1000, features.feature_channels[-1], generator=generator) * 0.01,
+    width = features.feature_channels[-1]
+    classifier = ("fc" if arch.startswith(("resnet", "shufflenet")) else "classifier.2" if arch.startswith("convnext")
+                  else "classifier" if arch.startswith("densenet") else "classifier.1")
+    sd.update({f"{classifier}.weight": torch.randn(1000, width, generator=generator) * 0.01,
                f"{classifier}.bias": torch.zeros(1000)})
+    if arch.startswith("convnext"):
+        sd.update({"classifier.0.weight": torch.ones(width), "classifier.0.bias": torch.zeros(width)})
+    if arch.startswith("densenet"):
+        sd.update({"features.norm5.weight": torch.ones(width), "features.norm5.bias": torch.zeros(width),
+                   "features.norm5.running_mean": torch.zeros(width), "features.norm5.running_var": torch.ones(width),
+                   "features.norm5.num_batches_tracked": torch.tensor(0)})
     directory = os.path.join(torch_home, "hub", "checkpoints")
     os.makedirs(directory, exist_ok=True)
     partial = os.path.join(directory, f"{arch}.partial")
@@ -3559,20 +3646,38 @@ def mnv3_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
 
 
 M17_TOL = 1e-5
+# a train-mode forward through a trunk's BatchNorms on two 64 px images, card
+# f32 against CPU f64: an f32 forward through 16-60 train-mode BatchNorms
+# drifts from f64 by up to 1.3e-4 of a level's largest on the CPU itself
+# (tests/test_torch_mobilenet.py, F32_TRAIN_LIMIT)
+M17_TRAIN_TOL = 3e-4
+M17_FIRST = (MOBILENET_CONFIGS, EFFICIENTNET_CONFIGS, MNASNET_CONFIGS)
+M17_SECOND = (CONVNEXT_CONFIGS, MOBILENETV4_CONFIGS, DENSENET_CONFIGS, SHUFFLENET_CONFIGS)
+M17_SECOND_TRAIN = ("convnext_atto", "convnextv2_atto", "mobilenetv4_hybrid_medium", "densenet121",
+                    "shufflenet_v2_x1_0")
 
 
-def m17_phase(gen: torch.Generator) -> None:
-    """Phase 87: every name of ``MOBILENET_CONFIGS``, ``EFFICIENTNET_CONFIGS``
-    and ``MNASNET_CONFIGS``, built on the CPU with f32 weights from ``gen``
-    (random BatchNorm statistics and affine parameters), copied to the card,
-    in eval mode (TF32 off) on two 64 px images: each of the five levels
-    within ``M17_TOL`` of its largest CPU magnitude.  Prints each name's
-    card forward time (CUDA-event median) and build seconds."""
+def level_error(got, want) -> float:
+    """The largest error of any level, relative to that level's largest magnitude."""
+    return max(float((g.double() - w.double()).abs().max() / w.double().abs().max()) for g, w in zip(got, want))
+
+
+def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: str = "M17") -> None:
+    """Phases 87 and 97: every name of ``configs`` (by default
+    ``MOBILENET_CONFIGS``, ``EFFICIENTNET_CONFIGS`` and ``MNASNET_CONFIGS``),
+    built on the CPU with f32 weights from ``gen`` (random BatchNorm
+    statistics and affine parameters; ConvNeXt's layer scales and GRN's
+    scale and shift), copied to the card, in eval mode (TF32 off) on two 64
+    px images: each of the five levels within ``M17_TOL`` of its largest CPU
+    magnitude.  Each of ``train_names`` also runs a train-mode forward (the
+    batch's statistics) on both: the card's f32 levels within
+    ``M17_TRAIN_TOL`` of an f64 copy's on the CPU.  Prints each name's card
+    forward time (CUDA-event median) and build seconds."""
     t0 = time.perf_counter()
     x = torch.rand(2, 3, 64, 64, generator=gen)
-    rows, worst = [], (0.0, None)
+    rows, worst, train_rows, train_worst = [], (0.0, None), [], (0.0, None)
     with full_f32(), torch.no_grad():
-        for name in (*MOBILENET_CONFIGS, *EFFICIENTNET_CONFIGS, *MNASNET_CONFIGS):
+        for name in (n for table in configs for n in table):
             t_build = time.perf_counter()
             net = Backbone(name, generator=torch.Generator().manual_seed(len(name)), device="cpu")
             randomize_norms_and_biases(net, gen)
@@ -3584,15 +3689,85 @@ def m17_phase(gen: torch.Generator) -> None:
             ms = median_ms(lambda: card(xc), reps=5, warmup=1)
             if len(got) != 5 or any(g.shape != w.shape or not torch.isfinite(g).all() for g, w in zip(got, want)):
                 raise AssertionError(f"{name}: levels {[tuple(g.shape) for g in got]} against the CPU's")
-            err = max(float((g.double() - w.double()).abs().max() / w.double().abs().max()) for g, w in zip(got, want))
+            err = level_error(got, want)
             worst = max(worst, (err, name), key=lambda e: e[0])
             rows.append(f"{name} {err:.2g} {ms:.2f} ms ({t_build:.1f} s)")
+            if name in train_names:
+                with compute_dtype_scope(torch.float64):
+                    ref = Backbone(name, generator=torch.Generator().manual_seed(0), device="cpu")
+                ref.load_state_dict(net.state_dict())
+                want64 = ref.train()(x.double())[1:]
+                cpu32 = net.train()(x)[1:]
+                got = [g.cpu() for g in card.train()(xc)[1:]]
+                err, cpu_err = level_error(got, want64), level_error(cpu32, want64)
+                train_worst = max(train_worst, (err, name), key=lambda e: e[0])
+                train_rows.append(f"{name} {err:.2g} (the CPU's f32 {cpu_err:.2g})")
+                del ref
             del card
-    print(f"  M17 on the card against the CPU, f32 at 64 px, each name's largest level error relative to the CPU's "
-          f"largest magnitude (bound {M17_TOL:g}), its forward of 2 images on the card and its build: "
-          + "; ".join(rows) + f" [{card_name()}]; {time.perf_counter() - t0:.1f} s")
-    if worst[0] > M17_TOL:
-        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]}")
+    print(f"  {label} on the card against the CPU, f32 at 64 px, each name's largest level error relative to the "
+          f"CPU's largest magnitude (bound {M17_TOL:g}), its forward of 2 images on the card and its build: "
+          + "; ".join(rows) + (f"; train mode (batch statistics), card f32 against CPU f64 (bound "
+                               f"{M17_TRAIN_TOL:g}): " + "; ".join(train_rows) if train_rows else "")
+          + f" [{card_name()}]; {time.perf_counter() - t0:.1f} s")
+    if worst[0] > M17_TOL or train_worst[0] > M17_TRAIN_TOL:
+        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]}; train mode {train_worst[1]}: {train_worst[0]}")
+
+
+# the ConvNeXt detector launches the MobileNetV3 detector's kernels (the
+# flagship's without K4) in serving and training
+CONVNEXT_VALIDATE = ("fused_mlp", "row_kth", "upsample_add")
+
+
+def convnext_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 88-92, the ConvNeXt-T + FPN detector (``build_convnext``), its
+    trunk read from ``write_pretrained_weights``'s convnext_tiny file: the
+    f32 serving slice against the CPU (scores within 1e-5), three bf16
+    requests, the f32 training slice against f64 on the CPU (the frozen
+    stem differentiated: the net does not cut the gradient there), ten bf16
+    steps and the fit, at the flagship's kernel shapes (phase 3).  The
+    neck's and head's norms and biases are randomised, the trunk keeps the
+    file's.  Returns the launch counts of serving, training and
+    validation."""
+    with pretrained_home("convnext_tiny") as path:
+        t0 = time.perf_counter()
+        model = build_convnext(gen)
+        check_pretrained(model, path, time.perf_counter() - t0, "convnext_tiny", "convnext")
+        randomize_norms_and_biases(model.neck, gen)
+        randomize_norms_and_biases(model.heads, gen)
+        model.eval()
+        check_slice(model, gen, "convnext slice", kernels=MNV3_SERVE, score_tol=1e-5)
+        launches = {"convnext_serve": serve_phase(model, build_convnext, cuda_gen, MNV3_SERVE, "convnext serving")}
+        check_train_slice(model, gen, build_convnext, training_batch(2, seed=1), "convnext train slice")
+        del model
+        launches["convnext_train"] = train(build_convnext, training_batch(BATCH), MNV3_TRAIN,
+                                           label="convnext training")
+        launches["convnext_validate"] = fit_phase(
+            build_convnext, [training_batch(BATCH), training_batch(BATCH, seed=4)], CONVNEXT_VALIDATE, "convnext fit")
+    return launches
+
+
+def densenet_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> None:
+    """Phases 93-96, the DenseNet-121 classifier (``build_densenet``) at 224
+    px, its trunk read from ``write_pretrained_weights``'s densenet121 file
+    (``features.norm5`` and the classifier beside it, skipped): the f32
+    serving slice against the CPU (``check_classifier_slice``, no K4),
+    three bf16 requests, the f32 training slice against f64 on the CPU (the
+    trunk's ReLU decisions taken from the card) and ten bf16 steps.  No TPU
+    kernel runs on this path."""
+    size = DENSENET_SIZE
+    with pretrained_home("densenet121") as path:
+        t0 = time.perf_counter()
+        model = build_densenet(gen)
+        check_pretrained(model, path, time.perf_counter() - t0, "densenet121", "densenet")
+        randomize_norms_and_biases(model.heads, gen)
+        model.eval()
+        check_classifier_slice(model, gen, size=size, label="densenet slice", stem_launches=0)
+        serve_phase(model, build_densenet, cuda_gen, (), "densenet serving", size=size)
+        check_train_slice(model, gen, build_densenet,
+                          classifier_batch(2, seed=1, size=size, num_classes=IMAGENET_CLASSES), "densenet train slice")
+        del model
+        train(build_densenet, classifier_batch(BATCH, size=size, num_classes=IMAGENET_CLASSES), (),
+              label="densenet training")
 
 
 def main() -> None:
@@ -3780,6 +3955,19 @@ def main() -> None:
     m17_phase(gen)
     print(f"phase 87 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 88-97: the pretrained ConvNeXt-T + FPN detector (the flagship's
+    # kernel shapes), the pretrained DenseNet-121 classifier (no TPU kernel)
+    # and every ConvNeXt, MobileNetV4, DenseNet and ShuffleNetV2 name
+    t0 = time.perf_counter()
+    launches.update(convnext_phases(gen, cuda_gen))
+    print(f"phases 88-92 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    densenet_phases(gen, cuda_gen)
+    print(f"phases 93-96 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m17_phase(gen, M17_SECOND, M17_SECOND_TRAIN, "M17 (second part)")
+    print(f"phase 97 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -3946,6 +4134,15 @@ def main() -> None:
         ("row_kth@mnv3_train", "mnv3_train", "row_kth", "cuda", topk_cu, topk_py, "row_kth"),
         *((f"upsample_add@mnv3_{path}", f"mnv3_{path}", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add")
           for path in ("serve", "train")),
+        # the ConvNeXt-T detector runs the flagship's kernel shapes
+        *((f"fused_mlp@convnext_{path}", f"convnext_{path}", key, "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp")
+          for path, key in (("serve", "fused_mlp"), ("train", "fused_mlp@train"), ("validate", "fused_mlp@validate"))),
+        ("fused_mlp_backward@convnext_train", "convnext_train", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365",
+         "fused_mlp_backward"),
+        *((f"row_kth@convnext_{path}", f"convnext_{path}", "row_kth", "cuda", topk_cu, topk_py, "row_kth")
+          for path in ("train", "validate")),
+        *((f"upsample_add@convnext_{path}", f"convnext_{path}", "upsample_add", "triton", fusion_tr, fusion_py,
+           "upsample_add") for path in ("serve", "train", "validate")),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -19,6 +19,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --resnetv2 [--train]        # the ResNetV2 detector
     python3 profile_serving.py --effdet [--train]          # the EfficientDet-D0-shaped detector, 512 px
     python3 profile_serving.py --mnv3 [--train]            # the MobileNetV3-large detector
+    python3 profile_serving.py --convnext [--train]        # the pretrained ConvNeXt-T + FPN detector
+    python3 profile_serving.py --densenet [--train]        # the pretrained DenseNet-121 classifier, 224 px
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -39,7 +41,11 @@ pretrained PAN detector, its trunk read from the file that
 its ResNetV2 detector, both trained on bench.py's targets, and with
 ``--effdet`` its EfficientDet-D0-shaped detector (the trunk's file written
 from a seed, 512 px) and with ``--mnv3`` its MobileNetV3-large detector,
-both trained on bench.py's targets; random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+both trained on bench.py's targets, and with ``--convnext`` its pretrained
+ConvNeXt-T + FPN detector (the trunk's file written from a seed), trained
+on bench.py's targets, and with ``--densenet`` its pretrained DenseNet-121
+classifier (224 px), trained on ``chip_smoke.classifier_batch``'s class
+indices; random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
 
@@ -53,7 +59,7 @@ ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
   those of ops it called), or one of the port's own kernels, matched by
   name; "other" is busy time outside every class;
 - the profiler's table of the top rows by device time;
-- for a trunk with depthwise convs (MobileNet, EfficientNet): their device
+- for a trunk with depthwise convs (MobileNet, EfficientNet, ConvNeXt): their device
   time per request or step, each depthwise conv of one forward timed alone
   at its shape (CUDA-event medians; a step adds each one's backward, the
   input's and the weight's gradients), and its share of the busy time.
@@ -68,10 +74,11 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, HYBRID_SCHEDULE, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly,
-    build_autoencoder, build_dense, build_flagship, build_hybrid, build_instance, build_keypoint, build_multitask,
+    BATCH, DENSENET_SIZE, HYBRID_SCHEDULE, IMAGENET_CLASSES, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch,
+    autoencoder_batch, build_anomaly, build_autoencoder, build_convnext, build_dense, build_densenet, build_flagship,
+    build_hybrid, build_instance, build_keypoint, build_multitask,
     EFFDET_SIZE, build_effdet, build_mnv3, build_pan, build_panoptic, build_quad, build_resnetv2,
-    build_view_invariance, calibrate_anomaly, card_name,
+    build_view_invariance, calibrate_anomaly, card_name, classifier_batch,
     dense_batch, freeze_trunk, instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_home,
     pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch, view_batch,
 )
@@ -87,6 +94,7 @@ OP_CLASSES = (
     ("cuDNN convolutions", ("aten::cudnn_convolution",)),
     ("convolution backward", ("aten::convolution_backward",)),
     ("BatchNorm transform", ("aten::native_batch_norm",)),
+    ("LayerNorm", ("aten::native_layer_norm", "aten::native_layer_norm_backward")),
     ("ReLU", ("aten::clamp_min", "aten::threshold_backward")),
     ("adds and subtractions", ("aten::add", "aten::add_", "aten::sub")),
     ("multiplications", ("aten::mul", "aten::mul_")),
@@ -191,6 +199,8 @@ def main() -> None:
     models.add_argument("--resnetv2", action="store_true", help="the ResNetV2 detector")
     models.add_argument("--effdet", action="store_true", help="the EfficientDet-D0-shaped detector (512 px)")
     models.add_argument("--mnv3", action="store_true", help="the MobileNetV3-large detector")
+    models.add_argument("--convnext", action="store_true", help="the pretrained ConvNeXt-T + FPN detector")
+    models.add_argument("--densenet", action="store_true", help="the pretrained DenseNet-121 classifier (224 px)")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -208,14 +218,19 @@ def main() -> None:
         else ("EfficientDet-D0-shaped detector", build_effdet, lambda b: training_batch(b, size=EFFDET_SIZE))
         if args.effdet
         else ("MobileNetV3-large detector", build_mnv3, training_batch) if args.mnv3
+        else ("ConvNeXt-T detector", build_convnext, training_batch) if args.convnext
+        else ("DenseNet-121 classifier", build_densenet,
+              lambda b: classifier_batch(b, size=DENSENET_SIZE, num_classes=IMAGENET_CLASSES)) if args.densenet
         else ("flagship", build_flagship, training_batch)
     )
-    size = EFFDET_SIZE if args.effdet else SIZE
+    size = EFFDET_SIZE if args.effdet else DENSENET_SIZE if args.densenet else SIZE
     train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")
     print(f"card: {card_name()}")
-    home = pretrained_home() if args.pan else pretrained_home("efficientnet_b0") if args.effdet else None
+    home = (pretrained_home() if args.pan else pretrained_home("efficientnet_b0") if args.effdet
+            else pretrained_home("convnext_tiny") if args.convnext else pretrained_home("densenet121") if args.densenet
+            else None)
     with home or contextlib.nullcontext(), compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(0))
     pretraining = [anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)] if args.anomaly else None

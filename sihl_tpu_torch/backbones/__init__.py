@@ -1,7 +1,7 @@
 """Backbone factories (counterpart of ``sihl_tpu/backbones/__init__.py``)
 over the ResNet family (ResNetV2 included), MobileNet v2 / v3, EfficientNet
-(B0-B7, V2 S/M/L, lite0) and MNASNet.  ConvNeXt, MobileNetV4, DenseNet,
-ShuffleNetV2, DLA and HRNet follow in ROADMAP.md, M17.
+(B0-B7, V2 S/M/L, lite0), MNASNet, ConvNeXt v1 / v2, MobileNetV4, DenseNet
+and ShuffleNetV2.  DLA and HRNet follow in ROADMAP.md, M17.
 
 ``pretrained=True`` loads torchvision's weights from its cache directory
 (:func:`~sihl_tpu_torch.backbones.torchvision_import.weights_file`), puts
@@ -14,10 +14,14 @@ from typing import Optional
 import torch
 
 from sihl_tpu_torch.backbones.base import PyramidBackbone
+from sihl_tpu_torch.backbones.convnext import CONVNEXT_CONFIGS, make_convnext_features
+from sihl_tpu_torch.backbones.densenet import DENSENET_CONFIGS, make_densenet_features
 from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS, make_efficientnet_features
 from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS, make_mnasnet_features
 from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, make_mobilenet_features
+from sihl_tpu_torch.backbones.mobilenetv4 import MOBILENETV4_CONFIGS, make_mobilenetv4_features
 from sihl_tpu_torch.backbones.resnet import RESNET_CONFIGS, make_resnet_features
+from sihl_tpu_torch.backbones.shufflenet import SHUFFLENET_CONFIGS, make_shufflenet_features
 from sihl_tpu_torch.layers.convblocks import default_generator
 
 _FEATURE_FACTORIES = {
@@ -27,6 +31,10 @@ _FEATURE_FACTORIES = {
         (EFFICIENTNET_CONFIGS, make_efficientnet_features),
         (MOBILENET_CONFIGS, make_mobilenet_features),
         (MNASNET_CONFIGS, make_mnasnet_features),
+        (CONVNEXT_CONFIGS, make_convnext_features),
+        (MOBILENETV4_CONFIGS, make_mobilenetv4_features),
+        (DENSENET_CONFIGS, make_densenet_features),
+        (SHUFFLENET_CONFIGS, make_shufflenet_features),
     )
     for name in configs
 }
@@ -70,7 +78,8 @@ def Backbone(
 TorchvisionBackbone = Backbone
 
 # timm architecture names and the native feature nets they map onto (the
-# JAX package's whole table); a name whose family the port lacks raises
+# JAX package's whole table); a name whose family the port lacks (DLA,
+# HRNet) raises
 _TIMM_ALIASES = {
     "resnet18": "resnet18",
     "resnet34": "resnet34",

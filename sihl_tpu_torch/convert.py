@@ -57,6 +57,8 @@ def state_dict_from_flat(
     * BatchNorm ``scale/bias/mean/var`` → ``weight/bias/running_mean/running_var``;
     * GroupNorm and LayerNorm ``scale/bias`` → ``weight/bias``;
     * BiFPN ``FastNormalizedFusion`` ``weights`` (1-D) → ``weights``, as is;
+    * bare 1-D ``gamma`` and ``beta`` leaves (ConvNeXt's layer scale, GRN's
+      scale and shift) → parameters of the same name, as they are;
     * the ``nnx.Variable`` leaves of :data:`VARIABLE_LEAVES` (the panoptic
       head's ``step_counter``, the anomaly head's calibration, reservoirs
       and their int32 position and fill) → buffers of the same name, their
@@ -109,6 +111,8 @@ def state_dict_from_flat(
             name = _LEAF_NAMES[leaf]
         elif leaf == "weights" and value.ndim == 1:
             name = "weights"
+        elif leaf in ("gamma", "beta") and value.ndim == 1:
+            name = leaf
         else:
             raise KeyError(f"{path}: no counterpart for leaf {leaf!r}")
         key = f"{prefix}.{name}" if prefix else name

@@ -14,19 +14,23 @@ from sihl_tpu_torch.policy import compute_dtype, resolve_device, upcast
 
 class Linear(nn.Module):
     """``x @ W.T + b`` with input, weight and bias cast to the compute dtype
-    (as flax's ``nnx.Linear(dtype=...)`` does)."""
+    (as flax's ``nnx.Linear(dtype=...)`` does); ``bias=False`` leaves ``b``
+    out (``use_bias=False``)."""
 
-    def __init__(self, in_features: int, out_features: int, *, generator, device=None):
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, *, generator, device=None):
         super().__init__()
         self.dtype = compute_dtype()
         device = resolve_device(device)
         weight = lecun_normal((out_features, in_features), in_features, generator)
         self.weight = nn.Parameter(weight.to(device))
-        self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        if bias:
+            self.bias = nn.Parameter(torch.zeros(out_features, device=device))
+        else:
+            self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt), None if self.bias is None else self.bias.to(dt))
 
 
 class LayerNorm(nn.Module):

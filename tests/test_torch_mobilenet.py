@@ -73,10 +73,12 @@ def _forward(module, x):
     return nnx.jit(lambda m, xx: m(xx))(module, x)
 
 
-def assert_level_maps_match(name: str, seed: int = 0) -> None:
+def assert_level_maps_match(name: str, seed: int = 0, train_modes=(False, True), level1_stride: int = 2) -> None:
     """The JAX net in f64 (``jax_f64``) in eval mode, then in train mode
     (one step of its running statistics), against the port's in f64 and f32,
-    as the module docstring sets out."""
+    as the module docstring sets out; ``train_modes`` (False) leaves out
+    the train mode of a net without BatchNorm, and ``level1_stride`` is 4
+    for a net whose level 1 the pyramid wrapper resizes (ConvNeXt)."""
     x = np.random.RandomState(seed + 1).randn(2, 64, 64, 3).astype(np.float32)
     with jax_f64():
         jax64 = jax_net(name, seed)
@@ -84,17 +86,20 @@ def assert_level_maps_match(name: str, seed: int = 0) -> None:
         jax64.eval()
         want_eval = _forward(jax64, jnp.asarray(x, jnp.float64))
         jax64.train()
-        want_train = _forward(jax64, jnp.asarray(x, jnp.float64))
+        want_train = _forward(jax64, jnp.asarray(x, jnp.float64)) if True in train_modes else None
         jax_state = flat_state(jax64)
     models = {dtype: port_net(name, initial, dtype) for dtype in (torch.float64, torch.float32)}
     for train, want in ((False, want_eval), (True, want_train)):
+        if train not in train_modes:
+            continue
         for model in models.values():
             model.train(train)
         with torch.no_grad():
             got = {dtype: model(to_torch(x).to(dtype)) for dtype, model in models.items()}
         assert len(want) == 5
         for level, (g64, g32, w) in enumerate(zip(got[torch.float64], got[torch.float32], want), start=1):
-            assert tuple(g32.shape) == (2, models[torch.float32].feature_channels[level - 1], 64 >> level, 64 >> level)
+            side = 64 // level1_stride if level == 1 else 64 >> level
+            assert tuple(g32.shape) == (2, models[torch.float32].feature_channels[level - 1], side, side)
             assert g64.dtype == torch.float64 and g32.dtype == torch.float32
             assert relative_max_error(g64.permute(0, 2, 3, 1).numpy(), w) <= 1e-9, (name, train, level)
             limit = F32_TRAIN_LIMIT if train else 1e-5
@@ -110,14 +115,14 @@ def test_level_maps_match_jax(name):
     assert_level_maps_match(name)
 
 
-def assert_layout_matches(name: str, monkeypatch) -> None:
+def assert_layout_matches(name: str, monkeypatch, families=JAX_FAMILIES) -> None:
     """``Backbone(name)`` in the port (zero draws) against the JAX net built
     with stub layers: feature channels, level modules, and the JAX state
     loading strictly through ``state_dict_from_flat``; the pyramid's shapes
     at 64 px."""
     monkeypatch.setattr(convblocks, "lecun_normal", lambda shape, fan_in, generator: torch.zeros(shape))
     with monkeypatch.context() as mp:
-        stub_layout(mp, *JAX_FAMILIES)
+        stub_layout(mp, *families)
         jax_features = JAX_FACTORIES[name](name, rngs=nnx.Rngs(0))
     bb = Backbone(name, device="cpu").eval()
     assert bb.features.feature_channels == jax_features.feature_channels
@@ -145,7 +150,7 @@ def test_stub_layout_is_eval_shape_layout(name, monkeypatch):
     assert layout(JAX_FACTORIES[name](name, rngs=nnx.Rngs(0))) == real
 
 
-def assert_freezing_matches(name: str, monkeypatch) -> None:
+def assert_freezing_matches(name: str, monkeypatch, families=JAX_FAMILIES) -> None:
     """For every frozen prefix (0-5 levels, and all): the frozen entries, the
     parameter test on every parameter path and the BatchNorms that
     ``_set_frozen_bn_eval`` puts in eval mode agree with the JAX package's
@@ -153,7 +158,7 @@ def assert_freezing_matches(name: str, monkeypatch) -> None:
     level."""
     monkeypatch.setattr(convblocks, "lecun_normal", lambda shape, fan_in, generator: torch.zeros(shape))
     with monkeypatch.context() as mp:
-        stub_layout(mp, *JAX_FAMILIES)
+        stub_layout(mp, *families)
         jax_bb = JaxPyramidBackbone(name, JAX_FACTORIES[name](name, rngs=nnx.Rngs(0)), rngs=nnx.Rngs(0))
     bb = Backbone(name, device="cpu")
     entries = [e for level in bb.features.level_modules for e in level]

@@ -179,9 +179,9 @@ def test_grayscale_trunk_keeps_its_input_conv(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("name, match", [
-    ("densenet121", "M17"),
-    ("shufflenet_v2_x1_0", "M17"),
-    ("convnext_tiny", "M17"),
+    ("convnextv2_atto", "not a torchvision arch"),
+    ("mobilenetv4_conv_small", "not a torchvision arch"),
+    ("dla34", "not a torchvision arch"),
     ("resnetv2_50", "not a torchvision arch"),
     ("efficientnet_lite0", "not a torchvision arch"),
     ("vgg16", "not a torchvision arch"),
@@ -193,9 +193,10 @@ def test_importer_family_refusals(name, match):
 
 def test_backbone_name_tables():
     """The timm table is the JAX package's whole; the public name tuples
-    list what the port builds, a subset of the JAX package's, the three
-    inverted-residual families among them; a timm name whose family the
-    port lacks raises naming M17."""
+    list what the port builds, a subset of the JAX package's, the
+    inverted-residual families and ConvNeXt, MobileNetV4, DenseNet and
+    ShuffleNetV2 among them; a timm name whose family the port lacks (DLA,
+    HRNet) raises naming M17."""
     assert _TIMM_ALIASES == JAX_TIMM_ALIASES
     assert set(TIMM_BACKBONE_NAMES) <= set(JAX_TIMM_NAMES)
     assert set(TORCHVISION_BACKBONE_NAMES) <= set(JAX_TORCHVISION_NAMES)
@@ -204,7 +205,10 @@ def test_backbone_name_tables():
     assert {"efficientnet_b7", "efficientnet_v2_l", "mobilenet_v3_small_075", "mnasnet1_3"} <= set(
         TORCHVISION_BACKBONE_NAMES)
     assert TorchvisionBackbone is Backbone
-    for name in ("convnext_tiny", "densenet121", "dla34", "hrnet_w18", "mobilenetv4_conv_small"):
+    assert {"convnext_tiny", "convnextv2_atto", "densenet121", "mobilenetv4_conv_small"} <= set(TIMM_BACKBONE_NAMES)
+    assert {"convnext_xxlarge", "densenet201", "shufflenet_v2_x2_0", "mobilenetv4_hybrid_large"} <= set(
+        TORCHVISION_BACKBONE_NAMES)
+    for name in ("dla34", "hrnet_w18"):
         with pytest.raises(NotImplementedError, match="M17"):
             TimmBackbone(name, device="cpu")
     with pytest.raises(ValueError, match="not supported"):
@@ -247,3 +251,80 @@ def test_inverted_residual_pretrained_round_trip(name, tmp_path, monkeypatch):
     assert frozen == want
     with torch.no_grad():
         assert all(torch.isfinite(o).all() for o in bb.eval()(torch.rand(1, 3, 64, 64)))
+
+
+LAST_CLASSIFIERS = {"convnext_tiny": "classifier.2", "densenet121": "classifier", "shufflenet_v2_x1_0": "fc"}
+
+
+def _seeded_file_tensors(name: str) -> dict:
+    """A seeded trunk's torchvision-format export, every 1-D tensor random
+    (the BatchNorms' statistics and affine parameters, the LayerNorms', the
+    conv and Linear biases, ConvNeXt's layer scale)."""
+    gen = torch.Generator().manual_seed(5)
+    source = _FEATURE_FACTORIES[name](name, generator=gen, device="cpu")
+    with torch.no_grad():
+        for key, t in source.state_dict().items():
+            if t.dim() == 1:
+                t.copy_(torch.rand(t.shape, generator=gen) + (0.5 if key.endswith(("running_var", "weight")) else -0.5))
+    return dump_state_dict(source, name)
+
+
+@pytest.mark.parametrize("name", sorted(LAST_CLASSIFIERS))
+def test_last_families_pretrained_round_trip(name, tmp_path, monkeypatch):
+    """A seeded file in torchvision's layout (its classifier under the
+    family's key; a DenseNet's ``features.norm5`` beside it, which no level
+    reads) → ``Backbone(name, pretrained=True, frozen_levels=1)`` →
+    ``dump_state_dict``: every tensor equal to the file's (ConvNeXt's layer
+    scale (C, 1, 1) both ways); ``Normalize`` in front; level 1 frozen by its
+    ``level_modules`` entries."""
+    sd = _seeded_file_tensors(name)
+    if name == "convnext_tiny":
+        assert sd["features.1.0.layer_scale"].shape == (96, 1, 1)
+    file_sd = dict(sd)
+    if name.startswith("densenet"):
+        file_sd.update({f"features.norm5.{k}": torch.rand(1024) + 0.5
+                        for k in ("weight", "bias", "running_mean", "running_var")})
+    write_weights(tmp_path, name, file_sd, classifier=LAST_CLASSIFIERS[name])
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    bb = Backbone(name, pretrained=True, frozen_levels=1, generator=torch.Generator().manual_seed(9), device="cpu")
+    back = dump_state_dict(bb.features, name)
+    assert sorted(back) == sorted(sd) and all(torch.equal(back[k], sd[k]) for k in sd)
+    assert bb.normalize is not None and bb.frozen_levels == 1
+    frozen = {n.split(".")[0] for n, _ in bb.features.named_parameters() if bb.is_frozen_param(n.split("."))}
+    assert frozen == set(bb.features.level_modules[0])
+    with torch.no_grad():
+        out = bb.eval()(torch.rand(1, 3, 64, 64))
+    assert all(torch.isfinite(o).all() for o in out) and len(out) == 6
+
+
+def test_densenet_file_with_an_unknown_tensor_is_refused(tmp_path, monkeypatch):
+    """``norm5`` and the classifier are skipped by name; any other tensor the
+    walker does not take still raises."""
+    sd = _seeded_file_tensors("densenet121")
+    sd["features.norm6.weight"] = torch.ones(1024)
+    write_weights(tmp_path, "densenet121", sd, classifier="classifier")
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="unconsumed"):
+        Backbone("densenet121", pretrained=True, device="cpu")
+
+
+def test_grayscale_convnext_keeps_its_stem_weight_and_bias(tmp_path, monkeypatch):
+    """``input_channels=1`` on convnext_tiny: the file's 3-channel stem conv,
+    weight and bias, counts as consumed and is not loaded (the port's own
+    initialisation stays); every other tensor is loaded; no ``Normalize``."""
+    sd = _seeded_file_tensors("convnext_tiny")
+    write_weights(tmp_path, "convnext_tiny", sd, classifier="classifier.2")
+    monkeypatch.setenv("TORCH_HOME", str(tmp_path))
+    bb = Backbone("convnext_tiny", pretrained=True, input_channels=1, frozen_levels=1,
+                  generator=torch.Generator().manual_seed(3), device="cpu")
+    fresh = Backbone("convnext_tiny", input_channels=1, generator=torch.Generator().manual_seed(3), device="cpu")
+    assert bb.normalize is None and bb.frozen_levels == 1
+    assert torch.equal(bb.features.stem_conv.weight, fresh.features.stem_conv.weight)
+    assert torch.equal(bb.features.stem_conv.bias, fresh.features.stem_conv.bias)
+    assert not torch.equal(bb.features.stem_conv.bias, sd["features.0.0.bias"])
+    loaded = dump_state_dict(bb.features, "convnext_tiny")
+    for k, v in loaded.items():
+        if not k.startswith("features.0.0."):
+            assert torch.equal(v, sd[k]), k
+    with torch.no_grad():
+        assert tuple(bb.eval()(torch.rand(2, 1, 64, 64))[5].shape) == (2, 768, 2, 2)

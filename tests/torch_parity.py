@@ -135,8 +135,11 @@ def numpy_filled(abstract, seed: int):
     """A JAX module from ``nnx.eval_shape``'s abstract one, every leaf drawn
     from a seeded numpy generator: conv and linear kernels N(0, 1/fan_in),
     biases U(-0.1, 0.1), norm scales U(0.8, 1.2), running means U(-0.2, 0.2)
-    and variances U(0.5, 1.5).  Building a deep JAX net this way takes a
-    trace and no compile."""
+    and variances U(0.5, 1.5); ConvNeXt's layer scales (``gamma``) U(0.1,
+    0.5) and a GRN's ``gamma`` and ``beta`` U(-0.5, 0.5), where the JAX
+    package starts them at 1e-6 and 0, which would make every block the
+    identity to six digits.  Building a deep JAX net this way takes a trace
+    and no compile."""
     graphdef, state = nnx.split(abstract)
     rng = np.random.RandomState(seed)
     draws = {
@@ -145,10 +148,24 @@ def numpy_filled(abstract, seed: int):
         "scale": lambda s: rng.uniform(0.8, 1.2, s),
         "mean": lambda s: rng.uniform(-0.2, 0.2, s),
         "var": lambda s: rng.uniform(0.5, 1.5, s),
+        "gamma": lambda s: rng.uniform(0.1, 0.5, s),
+        "beta": lambda s: rng.uniform(-0.5, 0.5, s),
+        "grn.gamma": lambda s: rng.uniform(-0.5, 0.5, s),
     }
-    flat = [(path, var.replace(jnp.asarray(draws[str(path[-1])](var.shape), var.dtype)))
+
+    def draw(path, shape):
+        key = "grn.gamma" if tuple(map(str, path[-2:])) == ("grn", "gamma") else str(path[-1])
+        return draws[key](shape)
+
+    flat = [(path, var.replace(jnp.asarray(draw(path, var.shape), var.dtype)))
             for path, var in nnx.to_flat_state(state)]
     return nnx.merge(graphdef, nnx.from_flat_state(flat))
+
+
+def _zeros(shape) -> np.ndarray:
+    """Read-only f32 zeros of ``shape`` that take no memory (a broadcast
+    view): convnext_xxlarge's layout holds 846 million parameters."""
+    return np.broadcast_to(np.zeros((), np.float32), shape)
 
 
 class _StubConv(nnx.Module):
@@ -157,27 +174,74 @@ class _StubConv(nnx.Module):
 
     def __init__(self, cin, cout, kernel_size=3, stride=1, dilation=1, groups=1, padding=None, bias=True, *,
                  rngs=None):
-        self.kernel = nnx.Param(np.zeros((kernel_size, kernel_size, cin // groups, cout), np.float32))
-        self.bias = nnx.Param(np.zeros((cout,), np.float32)) if bias else None
+        self.kernel = nnx.Param(_zeros((kernel_size, kernel_size, cin // groups, cout)))
+        self.bias = nnx.Param(_zeros((cout,))) if bias else None
 
 
 class _StubBatchNorm(nnx.Module):
     def __init__(self, kind, num_features, groupnorm_groups=1, rngs=None):
         assert kind == "batch", kind
         self.scale = nnx.Param(np.ones((num_features,), np.float32))
-        self.bias = nnx.Param(np.zeros((num_features,), np.float32))
-        self.mean = nnx.BatchStat(np.zeros((num_features,), np.float32))
+        self.bias = nnx.Param(_zeros((num_features,)))
+        self.mean = nnx.BatchStat(_zeros((num_features,)))
         self.var = nnx.BatchStat(np.ones((num_features,), np.float32))
 
 
+class _StubLayerNorm(nnx.Module):
+    """``nnx.LayerNorm``'s leaves (scale, bias)."""
+
+    def __init__(self, num_features, *args, rngs=None, **kwargs):
+        self.scale = nnx.Param(np.ones((num_features,), np.float32))
+        self.bias = nnx.Param(_zeros((num_features,)))
+
+
+class _StubLinear(nnx.Module):
+    """``nnx.Linear``'s leaves (kernel (in, out), bias where ``use_bias``)."""
+
+    def __init__(self, in_features, out_features, *args, use_bias=True, rngs=None, **kwargs):
+        self.kernel = nnx.Param(_zeros((in_features, out_features)))
+        self.bias = nnx.Param(_zeros((out_features,))) if use_bias else None
+
+
+class _StubNnx:
+    """``flax.nnx`` with ``LayerNorm`` and ``Linear`` stubbed."""
+
+    LayerNorm = _StubLayerNorm
+    Linear = _StubLinear
+
+    def __getattr__(self, name):
+        return getattr(nnx, name)
+
+
+class _StubJnp:
+    """``jax.numpy`` whose ``full`` and ``zeros`` (a bare ``nnx.Param``'s
+    initial value: ConvNeXt's layer scale, GRN's scale and shift) give
+    numpy zeros."""
+
+    @staticmethod
+    def full(shape, fill_value, dtype=None):
+        return _zeros(shape)
+
+    @staticmethod
+    def zeros(shape, dtype=None):
+        return _zeros(shape)
+
+    def __getattr__(self, name):
+        return getattr(jnp, name)
+
+
 def stub_layout(monkeypatch, *jax_modules) -> None:
-    """Make the JAX modules' ``make_conv`` and ``make_norm`` build
-    :class:`_StubConv` and :class:`_StubBatchNorm`: a net then builds in
+    """Make the JAX modules' ``make_conv``, ``make_norm``, ``nnx.LayerNorm``,
+    ``nnx.Linear`` and bare ``nnx.Param`` values build stubs
+    (:class:`_StubConv`, :class:`_StubBatchNorm`, :class:`_StubLayerNorm`,
+    :class:`_StubLinear`, zeros that take no memory): a net then builds in
     milliseconds with the real one's module paths and leaf shapes, where
     ``nnx.eval_shape`` takes up to 23 s (EfficientNet V2-L)."""
     for module in jax_modules:
-        monkeypatch.setattr(module, "make_conv", _StubConv)
-        monkeypatch.setattr(module, "make_norm", _StubBatchNorm)
+        for name, stub in (("make_conv", _StubConv), ("make_norm", _StubBatchNorm), ("nnx", _StubNnx()),
+                           ("jnp", _StubJnp())):
+            if hasattr(module, name):
+                monkeypatch.setattr(module, name, stub)
 
 
 def relative_max_error(got, want) -> float:
