@@ -4,7 +4,7 @@ Run from the repository root on a machine with an NVIDIA H100:
 
     python3 chip_smoke.py
 
-Eighteen models run through the port's hand-written kernels, with weights
+Twenty models run through the port's hand-written kernels, with weights
 from a seed: the flagship (ResNet-50, FPN 256 channels over levels
 3-7, ObjectDetection with 80 classes), the instance-segmentation model of
 ``examples/instance_segmentation.py`` at the flagship's width (ResNet-50,
@@ -47,8 +47,11 @@ torchvision's MobileNetV3-large + FPN trunk under the flagship's FPN and
 head, and ConvNeXt-T pretrained (read from a seeded torchvision-format file
 as the PAN detector's trunk is) under the flagship's FPN and head, and a
 pretrained DenseNet-121 under a 1,000-class MulticlassClassification at 224
-px.  Every training step freezes level 1 at least, so a ResNet stem runs
-K4.  Phases, each of which raises on failure:
+px, and DLA-34 under the flagship's FPN and head at 512 px (CenterNet's
+trunk and size) and HRNetV2-W48 under a 150-class SemanticSegmentation at
+512 px (ADE20K's classes), both with random weights.  Every training step
+freezes level 1 at least, so a ResNet stem runs K4.  Phases, each of which
+raises on failure:
 
 1. device: require CUDA; print the card's name and power limit;
 2. build: compile every kernel from the checkout's sources, all at once;
@@ -232,7 +235,24 @@ K4.  Phases, each of which raises on failure:
    ShuffleNetV2 name as phase 87, and convnext_atto, convnextv2_atto,
    mobilenetv4_hybrid_medium, densenet121 and shufflenet_v2_x1_0 in train
    mode too (batch statistics; the card's f32 levels within 3e-4 of an f64
-   copy's on the CPU).
+   copy's on the CPU);
+98. DLA kernels: K3 at the DLA-34 detector's FPN merges at 512 px (256
+   channels, 16 -> 32 and 32 -> 64) against its plain version (its K1f,
+   K1b and K2 calls are EfficientDet's and the flagship's, phases 78 and 3);
+99-103. the same five as phases 88-92 for the DLA-34 + FPN detector at 512
+   px, random weights (the train slice takes the trunk's ReLU decisions
+   from the card; K1f and K3 in serving, K1f, K1b, K2 and K3 in training);
+104-107. the first four for the HRNetV2-W48 segmenter, its trunk's
+   BatchNorm statistics from a batch: the f32 serving slice on two 256 px
+   images (class maps equal but at ties, scores within twice the CPU's own
+   f32 error against an f64 copy), three bf16 requests at 512 px, the f32
+   train slice on two 256 px images against f64 (the trunk's ReLU and the
+   decoder's channel-maximum decisions taken from the card, a ReLU flip as
+   far from 0 as twice the CPU's own f32 step's farthest) and ten bf16
+   steps at 512 px on 150-class maps; no TPU kernel runs there;
+108. M17, the rest: every DLA and HRNet name as phase 87, and dla34,
+   dla102 and hrnet_w18 in train mode too (dla102 within twice the CPU's
+   own f32 drift where that passes 3e-4).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -258,10 +278,12 @@ import torch
 import torch.nn.functional as F
 
 from sihl_tpu_torch import Backbone, SihlModel, TimmBackbone
-from sihl_tpu_torch.backbones import _FEATURE_FACTORIES
+from sihl_tpu_torch.backbones import _FEATURE_FACTORIES, hrnet
 from sihl_tpu_torch.backbones.convnext import CONVNEXT_CONFIGS, GRN, ConvNeXtBlock
 from sihl_tpu_torch.backbones.densenet import DENSENET_CONFIGS
+from sihl_tpu_torch.backbones.dla import DLA_CONFIGS, DlaBasic, DlaBottleneck
 from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS
+from sihl_tpu_torch.backbones.hrnet import HRNET_CONFIGS
 from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS
 from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, hardsigmoid, hardswish, relu6
 from sihl_tpu_torch.backbones.mobilenetv4 import MOBILENETV4_CONFIGS
@@ -358,6 +380,14 @@ EFFDET_FUSION_SHAPES = tuple((2, EFFDET_SIZE >> lvl) for lvl in (3, 4, 5, 6)) + 
 # the DenseNet-121 classifier (Huang et al., CVPR 2017, Table 1; torchvision's
 # densenet121 recipe): ImageNet's 1,000 classes at 224 px
 IMAGENET_CLASSES, DENSENET_SIZE = 1000, 224
+# the DLA-34 detector (Zhou, Wang, Krahenbuhl, "Objects as Points", §5: DLA-34
+# on COCO at 512 x 512) under the flagship's FPN and head: anchors and K1's and
+# K2's shapes as EfficientDet's, K3's merges at 16^2 -> 32^2 and 32^2 -> 64^2
+DLA_SIZE = EFFDET_SIZE
+# the HRNetV2-W48 segmenter (Wang et al., TPAMI 2020, §5: ADE20K's 150 classes
+# at 520 x 520 crops, cut to 512 px, a multiple of 32); its f32 slices run on
+# two 256 px images, which the CPU's f64 step takes minutes over at 512 px
+ADE_CLASSES, HRNET_SIZE, HRNET_SLICE_SIZE = 150, 512, 256
 OPTIMIZER = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -620,6 +650,35 @@ def build_densenet(generator: torch.Generator, device=None) -> SihlModel:
     return SihlModel(backbone, None, [head])
 
 
+def build_dla(generator: torch.Generator, device=None) -> SihlModel:
+    """Zhou, Wang, Krahenbuhl, "Objects as Points", arXiv:1904.07850, §5
+    (DLA-34 on COCO at 512 x 512, 16 images a GPU), under the port's
+    flagship neck and head: DLA-34, random weights (no pretrained file
+    exists for the family), level 1 frozen (``base``, ``level0``,
+    ``level1``) → FPN 256 wide over levels 3-7 → ObjectDetection (80
+    classes, levels 3-7, 100 targets), at 512 px."""
+    backbone = Backbone("dla34", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, WIDTH, bottom_level=3, top_level=7, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, NUM_CLASSES, bottom_level=3, top_level=7, max_targets=MAX_TARGETS,
+                           generator=generator, device=device)
+    return SihlModel(backbone, neck, [head])
+
+
+def build_hrnet(generator: torch.Generator, device=None) -> SihlModel:
+    """Wang et al., "Deep High-Resolution Representation Learning for Visual
+    Recognition", TPAMI 2020, §5 (HRNetV2-W48 on ADE20K: 150 classes, 520 x
+    520 crops, 16 images a batch), at 512 px: HRNetV2-W48, random weights,
+    level 1 frozen (``conv1``) → no neck → SemanticSegmentation over its 150
+    classes (void 255) at its defaults (256 channels, 3 layers), reading
+    levels 2-5 from the stride-4 branch up, as HRNetV2 does."""
+    backbone = Backbone("hrnet_w48", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    head = SemanticSegmentation(backbone.out_channels, ADE_CLASSES, bottom_level=2, top_level=5, ignore_index=VOID,
+                                generator=generator, device=device)
+    return SihlModel(backbone, None, [head])
+
+
 def freeze_trunk(model: SihlModel) -> None:
     """Freeze the trunk as every training path here does: level 1, or every
     level of a teacher whose BatchNorms are frozen (the anomaly model)."""
@@ -657,14 +716,16 @@ def randomize_norms_and_biases(model: torch.nn.Module, generator: torch.Generato
 
 def damp_residual_branches(model: torch.nn.Module, generator: torch.Generator) -> None:
     """Scale the last BatchNorm of every residual branch (``conv3.bn`` of a
-    bottleneck, ``conv2.bn`` of a basic block) to U(0.01, 0.03), and the
+    bottleneck, ``conv2.bn`` of a basic block: ResNet's, DLA's and HRNet's)
+    to U(0.01, 0.03), and the
     last conv of a pre-activation branch (``conv3``) by U(0.01, 0.03), so
     that each residual block starts near the identity, as zero-init-residual
     ResNets (timm's ``zero_init_last``) do; at full scales the f32 gradients
     of these random-weight models lose most of their digits."""
     with torch.no_grad():
         for m in model.modules():
-            last = {Bottleneck: "conv3", BasicBlock: "conv2"}.get(type(m))
+            last = {Bottleneck: "conv3", BasicBlock: "conv2", DlaBottleneck: "conv3", DlaBasic: "conv2",
+                    hrnet._Bottleneck: "conv3", hrnet._BasicBlock: "conv2"}.get(type(m))
             if last is not None:
                 bn = getattr(m, last).bn
                 bn.weight.copy_(torch.rand(bn.weight.shape, generator=generator) * 0.02 + 0.01)
@@ -762,21 +823,24 @@ def varied_images(rng, batch: int, size: int = SIZE) -> torch.Tensor:
     return torch.from_numpy(x).permute(0, 3, 1, 2).contiguous()
 
 
-def dense_batch(batch: int, seed: int = 0, device="cuda"):
+def dense_batch(batch: int, seed: int = 0, device="cuda", size: int = SIZE,
+                num_classes: int = STUFF_CLASSES + THING_CLASSES):
     """Images (``varied_images``) and the dense model's two targets from a
-    seeded numpy generator: semantic classes (B, 640, 640) in [0, 133) in
-    blocks of 32 x 32 px, about 5% of the blocks void (255); and, as
-    ``examples/depth_estimation.py:115-121`` draws them, depths (B, 640, 640)
-    f32 of 0.1 + 9.9 x the image's mean over its channels (over 1.75, the
-    largest value of ``varied_images``), with validity masks, about 10% of
-    the pixels invalid (their depth 0)."""
+    seeded numpy generator: semantic classes (B, size, size) in [0,
+    ``num_classes``) (COCO panoptic's 133 by default) in blocks of 32 x 32
+    px, about 5% of the blocks void (255); and, as
+    ``examples/depth_estimation.py:115-121`` draws them, depths (B, size,
+    size) f32 of 0.1 + 9.9 x the image's mean over its channels (over 1.75,
+    the largest value of ``varied_images``), with validity masks, about 10%
+    of the pixels invalid (their depth 0).  A model with one head (the HRNet
+    segmenter) reads the semantic classes."""
     rng = np.random.RandomState(seed)
-    images = varied_images(rng, batch)
-    blocks = rng.randint(0, STUFF_CLASSES + THING_CLASSES, (batch, SIZE // 32, SIZE // 32))
+    images = varied_images(rng, batch, size)
+    blocks = rng.randint(0, num_classes, (batch, size // 32, size // 32))
     blocks[rng.rand(*blocks.shape) < 0.05] = VOID
     semantic = torch.from_numpy(blocks.repeat(32, axis=1).repeat(32, axis=2))
     depth = images.mean(dim=1) / 1.75 * 9.9 + DEPTH_RANGE[0]
-    masks = torch.from_numpy(rng.rand(batch, SIZE, SIZE) > 0.1)
+    masks = torch.from_numpy(rng.rand(batch, size, size) > 0.1)
     depth = torch.where(masks, depth, 0.0)
     return images.to(device), [semantic.to(device), {"targets": depth.to(device), "masks": masks.to(device)}]
 
@@ -1102,12 +1166,12 @@ def check_kernels(gen: torch.Generator, cuda_gen: torch.Generator, train_targets
     return results
 
 
-def k3_cases(cuda_gen, width: int) -> list:
-    """K3 at the two top-down merges of an FPN ``width`` channels wide at 640
-    px (level 5 into 4, level 4 into 3), bf16, bitwise against its plain
-    version; device times from CUDA graphs."""
+def k3_cases(cuda_gen, width: int, size: int = SIZE) -> list:
+    """K3 at the two top-down merges of an FPN ``width`` channels wide at
+    ``size`` px (level 5 into 4, level 4 into 3), bf16, bitwise against its
+    plain version; device times from CUDA graphs."""
     cases = []
-    for h in (SIZE // 32, SIZE // 16):
+    for h in (size // 32, size // 16):
         cl = torch.channels_last
         top = torch.randn(BATCH, width, h, h, device="cuda", generator=cuda_gen)
         lateral = torch.randn(BATCH, width, 2 * h, 2 * h, device="cuda", generator=cuda_gen)
@@ -1590,9 +1654,9 @@ def check_slice(model: SihlModel, gen: torch.Generator, label: str = "slice", ke
         )
 
 
-def expected_shape(shape) -> tuple:
-    """A head's ``output_shapes`` entry at batch 16 and 640 px."""
-    sizes = {"batch_size": BATCH, "height": SIZE, "width": SIZE}
+def expected_shape(shape, size: int = SIZE) -> tuple:
+    """A head's ``output_shapes`` entry at batch 16 and ``size`` px."""
+    sizes = {"batch_size": BATCH, "height": size, "width": size}
     return tuple(sizes[d.split("/")[0]] // int(d.split("/")[1]) if isinstance(d, str) and "/" in d
                  else sizes.get(d, d) for d in shape)
 
@@ -1656,8 +1720,8 @@ def check_quad_slice(model: SihlModel, gen: torch.Generator) -> None:
         raise AssertionError(f"score err {score_err} or quad err {quad_err} px out of bounds")
 
 
-def check_outputs(head, outputs) -> None:
-    """One head's outputs at batch 16 and 640 px: the shapes ``output_shapes``
+def check_outputs(head, outputs, size: int = SIZE) -> None:
+    """One head's outputs at batch 16 and ``size`` px: the shapes ``output_shapes``
     gives, finite, class, label, instance and token ids in range,
     probabilities in [0, 1] (a text head's scores are logits), keypoints
     inside the image, multilabel
@@ -1665,8 +1729,8 @@ def check_outputs(head, outputs) -> None:
     embeddings of unit length."""
     named = dict(zip(head.output_shapes, outputs if isinstance(outputs, (tuple, list)) else (outputs,)))
     for name, shape in head.output_shapes.items():
-        if tuple(named[name].shape) != expected_shape(shape):
-            raise AssertionError(f"{name}: shape {tuple(named[name].shape)}, expected {expected_shape(shape)}")
+        if tuple(named[name].shape) != expected_shape(shape, size):
+            raise AssertionError(f"{name}: shape {tuple(named[name].shape)}, expected {expected_shape(shape, size)}")
         if named[name].is_floating_point() and not torch.isfinite(named[name]).all():
             raise AssertionError(f"non-finite {name}")
     panoptic = isinstance(head, PanopticSegmentation)
@@ -1685,8 +1749,8 @@ def check_outputs(head, outputs) -> None:
     for name in ("masks", "scores", "score_maps", "reconstructions", "anomaly_maps", "presence"):
         if name in named and not ((0 <= named[name]).all() and (named[name] <= 1).all()):
             raise AssertionError(f"{name} out of [0, 1]")
-    if "keypoints" in named and not ((0 <= named["keypoints"]).all() and (named["keypoints"] <= SIZE).all()):
-        raise AssertionError(f"keypoints out of [0, {SIZE}]")
+    if "keypoints" in named and not ((0 <= named["keypoints"]).all() and (named["keypoints"] <= size).all()):
+        raise AssertionError(f"keypoints out of [0, {size}]")
     if "embeddings" in named and ((named["embeddings"].norm(dim=1) - 1).abs() > 1e-5).any():
         raise AssertionError("embeddings not of unit length")
     if "labels" in named and (named["scores"][:, 1:] > named["scores"][:, :-1]).any():
@@ -1755,44 +1819,68 @@ def top_two_gap(logits: torch.Tensor) -> torch.Tensor:
     return (top[:, 0] - top[:, 1]) / top[:, 0]
 
 
-def check_dense_slice(model: SihlModel, gen: torch.Generator) -> None:
-    """Phase 28: the f32 dense model on two 640 px images, on the card (its
-    frozen stem through K4, the FPN's merges through K3) and on the CPU (the
-    plain versions) with the same weights: the semantic class maps equal,
-    but where the CPU's two largest probabilities of a pixel lie within 1e-5
-    of each other (relative; a tie in f32), which must be under 1e-3 of the
-    pixels; the score maps (where the classes agree) and the depth maps
-    within 1e-5 relative."""
-    images = varied_images(np.random.RandomState(int(torch.randint(2**31, (1,), generator=gen))), 2)
+DENSE_SLICE_LAUNCHES = {"stem_conv_stats": 1, "upsample_add": 2}
+
+
+def check_dense_slice(model: SihlModel, gen: torch.Generator, size: int = SIZE, label: str = "dense slice",
+                      launches_expected=DENSE_SLICE_LAUNCHES, build=None) -> None:
+    """Phases 28 and 104: the f32 dense model (or the HRNet segmenter, its
+    one head semantic) on two ``size`` px images, on the card (the dense
+    model's frozen stem through K4, the FPN's merges through K3: the
+    launches ``launches_expected``) and on the CPU (the plain versions) with
+    the same weights: the semantic class maps equal, but where the CPU's two
+    largest probabilities of a pixel lie within 1e-5 of each other
+    (relative; a tie in f32), which must be under 1e-3 of the pixels; the
+    score maps (where the classes agree) and any depth maps within 1e-5
+    relative.  With ``build``, an f64 copy on the CPU (``build``'s model in
+    f64) measures the CPU's own f32 error on the score maps, and where
+    twice that passes 1e-5 it takes 1e-5's place, as the bound of the score
+    maps and of a tie: HRNetV2-W48's 300 f32 convs keep fewer digits than
+    the dense model's trunk."""
+    images = varied_images(np.random.RandomState(int(torch.randint(2**31, (1,), generator=gen))), 2, size)
     with torch.no_grad():
         cpu_model = copy.deepcopy(model).to("cpu")
         t0 = time.perf_counter()
         c_feats = cpu_model.extract_features(images)
-        (c_scores, c_classes), c_depth = (head(c_feats) for head in cpu_model.heads)
+        (c_scores, c_classes), *c_depth = (head(c_feats) for head in cpu_model.heads)
         gap = top_two_gap(cpu_model.heads[0].get_logits(c_feats))
         t_cpu = time.perf_counter() - t0
+        score_tol, drift = 1e-5, None
+        if build is not None:
+            with compute_dtype_scope(torch.float64):
+                ref = build(torch.Generator().manual_seed(0), device="cpu")
+            ref.load_state_dict(cpu_model.state_dict())
+            r_scores, r_classes = ref.eval()(images.double())[0]
+            same = r_classes == c_classes
+            drift = float(((c_scores.double() - r_scores).abs() / r_scores)[same].max())
+            score_tol = max(score_tol, 2 * drift)
+            del ref
         reset_counts()
-        (scores, classes), depth = model(images.cuda())
-        launches = read_counts(("stem_conv_stats", "upsample_add"))
-    scores, classes, depth = scores.cpu(), classes.cpu(), depth.cpu()
-    tie = F.interpolate(gap[:, None], size=(SIZE, SIZE), mode="nearest")[:, 0] <= 1e-5
+        (scores, classes), *depth = model(images.cuda())
+        launches = read_counts(DENSE_SLICE_LAUNCHES)
+    scores, classes, depth = scores.cpu(), classes.cpu(), [d.cpu() for d in depth]
+    tie = F.interpolate(gap[:, None], size=(size, size), mode="nearest")[:, 0] <= score_tol
     differ = classes != c_classes
     agree = ~differ
     score_err = float(((scores - c_scores).abs() / c_scores)[agree].max())
-    depth_err = float(((depth - c_depth).abs() / c_depth).max())
-    print(f"  dense slice f32, 2 images at {SIZE} px: semantic classes differ at {int(differ.sum())} of "
+    depth_err = max((float(((d - c).abs() / c).max()) for d, c in zip(depth, c_depth)), default=0.0)
+    print(f"  {label} f32, 2 images at {size} px: semantic classes differ at {int(differ.sum())} of "
           f"{differ.numel()} pixels, {int((differ & ~tie).sum())} of them outside a tie of the top two "
-          f"probabilities (relative 1e-5; ties at {int(tie.sum())} pixels); score maps' largest relative error "
-          f"{score_err:.3g}; depth maps' {depth_err:.3g} (depths {float(c_depth.min()):.3f}-"
-          f"{float(c_depth.max()):.3f} m); kernel launches {launches}; CPU forward {t_cpu:.1f} s")
-    if not (torch.isfinite(scores).all() and torch.isfinite(depth).all()):
+          f"probabilities (relative {score_tol:.3g}; ties at {int(tie.sum())} pixels); score maps' largest "
+          f"relative error "
+          f"{score_err:.3g}" + (f" (the CPU's own f32 against f64 {drift:.3g}; bound {score_tol:.3g})"
+                                if drift is not None else "")
+          + "".join(f"; depth maps' {depth_err:.3g} (depths {float(c.min()):.3f}-{float(c.max()):.3f} m)"
+                    for c in c_depth)
+          + f"; kernel launches {launches}; CPU forward {t_cpu:.1f} s")
+    if not (torch.isfinite(scores).all() and all(torch.isfinite(d).all() for d in depth)):
         raise AssertionError("non-finite score or depth maps")
-    if launches != {"stem_conv_stats": 1, "upsample_add": 2}:
-        raise AssertionError(f"the dense forward launched {launches}")
+    if launches != {name: launches_expected.get(name, 0) for name in DENSE_SLICE_LAUNCHES}:
+        raise AssertionError(f"the {label} forward launched {launches}")
     if (differ & ~tie).any() or int(differ.sum()) > 1e-3 * differ.numel():
         raise AssertionError(f"semantic classes differ at {int(differ.sum())} pixels, "
                              f"{int((differ & ~tie).sum())} of them outside a tie")
-    if score_err > 1e-5 or depth_err > 1e-5:
+    if score_err > score_tol or depth_err > 1e-5:
         raise AssertionError(f"score maps' relative error {score_err}, depth maps' {depth_err}")
 
 
@@ -1944,7 +2032,7 @@ def serve(model: SihlModel, cuda_gen: torch.Generator, requests: int = 3, size: 
         torch.cuda.synchronize()
         latencies.append(time.perf_counter() - t0)
         for head, out in zip(model.heads, outputs):
-            check_outputs(head, out)
+            check_outputs(head, out, size)
     return latencies
 
 
@@ -2248,7 +2336,7 @@ def with_topk_decisions(model: SihlModel, recorded: dict, seen: dict) -> SihlMod
 
 
 def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagship, batch=None,
-                      label: str = "train slice") -> None:
+                      label: str = "train slice", kink_drift: bool = False) -> None:
     """Phases 6, 10, 14 and 25: one f32 training step's loss, metrics, gradients and
     BatchNorm statistics on the card against an f64 step on the CPU (plain
     versions), on the same weights and batch, each gradient to relative L2
@@ -2280,7 +2368,11 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     channels within rounding of each other swap it (one swap among 64,000
     moved a depth decoder's lateral-conv gradient 1.1e-3 from f64): a channel the
     card picks must lie within 1e-4 of its map's largest magnitude below
-    the f64 maximum, and the f64 step takes the card's picks too."""
+    the f64 maximum, and the f64 step takes the card's picks too.  With
+    ``kink_drift``, a flipped ReLU or kink decision may lie as far from its
+    kink as twice the farthest that the CPU's own f32 step flips, where
+    that passes 1e-4: HRNetV2-W48's 300 f32 convs round its pre-activations
+    by more than a ResNet's."""
     model, cpu_models = train_slice_models(model, gen, build)
     kinks = {name: PIECEWISE[getattr(mod, attr)][0] for name, (mod, attr) in kink_sites(model).items()}
     images, targets = batch if batch is not None else training_batch(2, seed=1)
@@ -2293,10 +2385,12 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
     z_cpu, m_cpu, k_cpu = {}, {}, {}
     ref64 = with_topk_decisions(with_max_decisions(with_relu_decisions(
         cpu_models[torch.float64], z_card, z_cpu), m_card, m_cpu), k_card, k_cpu)
-    references = {}
+    references, z_f32 = {}, {}
     for dtype, ref in ((torch.float64, ref64), (torch.float32, cpu_models[torch.float32])):
         t0 = time.perf_counter()
-        references[dtype] = step_gradients(ref, cpu_images, cpu_targets) + (time.perf_counter() - t0,)
+        recording = kink_drift and dtype == torch.float32
+        with recorded_preactivations(ref) if recording else contextlib.nullcontext(z_f32) as z_f32:
+            references[dtype] = step_gradients(ref, cpu_images, cpu_targets) + (time.perf_counter() - t0,)
     flips, kink = 0, 0.0
     for name, zs in z_cpu.items():
         for z, z_c in zip(zs, z_card[name]):
@@ -2305,6 +2399,14 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
             if flipped.any():
                 gap = torch.stack([(z[flipped] - k).abs() for k in kinks[name]]).amin(dim=0)
                 kink = max(kink, float(gap.max() / z.abs().max()))
+    cpu_kink = 0.0  # the CPU's own f32 flips, against the same f64 pre-activations
+    for name, zs in z_f32.items():
+        for z32, z in zip(zs, z_cpu.get(name, [])):
+            flipped = piece(z32, kinks[name]) != piece(z, kinks[name])
+            if flipped.any():
+                gap = torch.stack([(z[flipped] - k).abs() for k in kinks[name]]).amin(dim=0)
+                cpu_kink = max(cpu_kink, float(gap.max() / z.abs().max()))
+    kink_tol = max(1e-4, 2 * cpu_kink)
     topk_flips, topk_gap = 0, 0.0
     for name, calls in k_cpu.items():
         for (flat, idx), (_, idx_card) in zip(calls, k_card[name]):
@@ -2330,7 +2432,8 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
         print(f"  {label}: {flips} of {sum(z.numel() for zs in z_cpu.values() for z in zs)} decisions of the "
               f"heads' and the neck's ReLUs on raw conv or norm outputs and the trunk's piecewise activations "
               f"differ between the card's f32 and the CPU's f64 forward, the farthest "
-              f"{kink:.3g} of its block's largest pre-activation from its kink (bound 1e-4)"
+              f"{kink:.3g} of its block's largest pre-activation from its kink (bound {kink_tol:.3g}"
+              + (f": twice the CPU's own f32 step's farthest, {cpu_kink:.3g}" if kink_tol > 1e-4 else "") + ")"
               + (f"; {max_flips} of {sum(x[:, :1].numel() for xs in m_cpu.values() for x in xs)} UAFM channel "
                  f"maxima pick another channel, the farthest {max_gap:.3g} of its map's largest magnitude below "
                  f"the maximum (bound 1e-4)" if m_cpu else "")
@@ -2339,7 +2442,7 @@ def check_train_slice(model: SihlModel, gen: torch.Generator, build=build_flagsh
                  f"the farthest {topk_gap:.3g} of its image's largest below the CPU's k-th (bound 1e-4)"
                  if k_cpu else "")
               + "; the f64 step takes the card's decisions")
-    if kink > 1e-4 or max_gap > 1e-4 or topk_gap > 1e-4:
+    if kink > kink_tol or max_gap > 1e-4 or topk_gap > 1e-4:
         raise AssertionError(f"a ReLU decision flipped {kink} of its block's scale away from 0, a channel "
                              f"maximum picked a channel {max_gap} of its map's scale below the maximum, or a "
                              f"top-k pick lay {topk_gap} of its image's scale below the k-th")
@@ -3117,7 +3220,7 @@ K4_ONLY = ("stem_conv_stats",)
 def teacher_statistics(model: SihlModel, images: torch.Tensor) -> None:
     """The trunk's BatchNorms take the statistics of one training-mode
     forward of ``images`` as their running statistics: a random frozen
-    teacher's stand-in for pretrained ones.  With random running statistics
+    teacher's (or a random HRNet's) stand-in for pretrained ones.  With random running statistics
     a stem filter that is negative on every pixel of images in [0, 1] can
     leave a channel 0 everywhere, down to the anomaly head's level, whose
     standard deviation is then 0 and its distances infinite."""
@@ -3655,6 +3758,13 @@ M17_FIRST = (MOBILENET_CONFIGS, EFFICIENTNET_CONFIGS, MNASNET_CONFIGS)
 M17_SECOND = (CONVNEXT_CONFIGS, MOBILENETV4_CONFIGS, DENSENET_CONFIGS, SHUFFLENET_CONFIGS)
 M17_SECOND_TRAIN = ("convnext_atto", "convnextv2_atto", "mobilenetv4_hybrid_medium", "densenet121",
                     "shufflenet_v2_x1_0")
+M17_LAST = (DLA_CONFIGS, HRNET_CONFIGS)
+M17_LAST_TRAIN = ("dla34", "dla102", "hrnet_w18")
+# dla102's deepest trees normalise 8 values a channel at level 5 (two images
+# at 2 x 2): the CPU's own f32 forward reads 7e-4 to 1.1e-3 from f64 there
+# (tests/test_torch_dla_hrnet.py), past M17_TRAIN_TOL, so the card is held
+# within twice that drift, measured in the same phase
+M17_LAST_DRIFT = ("dla102",)
 
 
 def level_error(got, want) -> float:
@@ -3662,7 +3772,7 @@ def level_error(got, want) -> float:
     return max(float((g.double() - w.double()).abs().max() / w.double().abs().max()) for g, w in zip(got, want))
 
 
-def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: str = "M17") -> None:
+def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: str = "M17", drift_names=()) -> None:
     """Phases 87 and 97: every name of ``configs`` (by default
     ``MOBILENET_CONFIGS``, ``EFFICIENTNET_CONFIGS`` and ``MNASNET_CONFIGS``),
     built on the CPU with f32 weights from ``gen`` (random BatchNorm
@@ -3671,8 +3781,10 @@ def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: st
     px images: each of the five levels within ``M17_TOL`` of its largest CPU
     magnitude.  Each of ``train_names`` also runs a train-mode forward (the
     batch's statistics) on both: the card's f32 levels within
-    ``M17_TRAIN_TOL`` of an f64 copy's on the CPU.  Prints each name's card
-    forward time (CUDA-event median) and build seconds."""
+    ``M17_TRAIN_TOL`` of an f64 copy's on the CPU, or, for each of
+    ``drift_names``, within twice the CPU's own f32 forward's error from
+    that copy where that is larger.  Prints each name's card forward time
+    (CUDA-event median) and build seconds."""
     t0 = time.perf_counter()
     x = torch.rand(2, 3, 64, 64, generator=gen)
     rows, worst, train_rows, train_worst = [], (0.0, None), [], (0.0, None)
@@ -3700,8 +3812,9 @@ def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: st
                 cpu32 = net.train()(x)[1:]
                 got = [g.cpu() for g in card.train()(xc)[1:]]
                 err, cpu_err = level_error(got, want64), level_error(cpu32, want64)
-                train_worst = max(train_worst, (err, name), key=lambda e: e[0])
-                train_rows.append(f"{name} {err:.2g} (the CPU's f32 {cpu_err:.2g})")
+                tol = max(M17_TRAIN_TOL, 2 * cpu_err) if name in drift_names else M17_TRAIN_TOL
+                train_worst = max(train_worst, (err / tol * M17_TRAIN_TOL, name), key=lambda e: e[0])
+                train_rows.append(f"{name} {err:.2g} (the CPU's f32 {cpu_err:.2g}; bound {tol:.2g})")
                 del ref
             del card
     print(f"  {label} on the card against the CPU, f32 at 64 px, each name's largest level error relative to the "
@@ -3710,7 +3823,8 @@ def m17_phase(gen: torch.Generator, configs=M17_FIRST, train_names=(), label: st
                                f"{M17_TRAIN_TOL:g}): " + "; ".join(train_rows) if train_rows else "")
           + f" [{card_name()}]; {time.perf_counter() - t0:.1f} s")
     if worst[0] > M17_TOL or train_worst[0] > M17_TRAIN_TOL:
-        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]}; train mode {train_worst[1]}: {train_worst[0]}")
+        raise AssertionError(f"{worst[1]}: card against CPU {worst[0]}; train mode {train_worst[1]}: "
+                             f"{train_worst[0] / M17_TRAIN_TOL:.3g} of its bound")
 
 
 # the ConvNeXt detector launches the MobileNetV3 detector's kernels (the
@@ -3768,6 +3882,63 @@ def densenet_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> None:
         del model
         train(build_densenet, classifier_batch(BATCH, size=size, num_classes=IMAGENET_CLASSES), (),
               label="densenet training")
+
+
+def dla_kernels(cuda_gen: torch.Generator) -> dict:
+    """Phase 98: K3 at the DLA-34 detector's two FPN merges at 512 px (16 x
+    256 channels, 16^2 -> 32^2 and 32^2 -> 64^2, bf16), bitwise against its
+    plain version, timed.  Its K1f, K1b and K2 calls are EfficientDet's
+    (phase 78) and the flagship's (phase 3)."""
+    return {"upsample_add@dla": k3_cases(cuda_gen, WIDTH, DLA_SIZE)}
+
+
+def dla_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 99-103, the DLA-34 + FPN detector (``build_dla``) at 512 px,
+    random weights: the f32 serving slice against the CPU (scores within
+    1e-5), three bf16 requests (K1f and K3), the f32 training slice against
+    f64 on the CPU (the frozen level 1 differentiated: the net does not cut
+    the gradient there; the trunk's ReLU decisions taken from the card), ten
+    bf16 steps (K1f, K1b, K2, K3) and the fit.  Returns the launch counts of
+    serving, training and validation."""
+    size = DLA_SIZE
+    model = build_dla(gen)
+    randomize_norms_and_biases(model, gen)
+    model.eval()
+    check_slice(model, gen, "dla slice", kernels=MNV3_SERVE, size=size, score_tol=1e-5)
+    launches = {"dla_serve": serve_phase(model, build_dla, cuda_gen, MNV3_SERVE, "dla serving", size=size)}
+    check_train_slice(model, gen, build_dla, training_batch(2, seed=1, size=size), "dla train slice")
+    del model
+    launches["dla_train"] = train(build_dla, training_batch(BATCH, size=size), MNV3_TRAIN, label="dla training")
+    launches["dla_validate"] = fit_phase(
+        build_dla, [training_batch(BATCH, size=size), training_batch(BATCH, seed=4, size=size)], CONVNEXT_VALIDATE,
+        "dla fit")
+    return launches
+
+
+def hrnet_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> None:
+    """Phases 104-107, the HRNetV2-W48 segmenter (``build_hrnet``), random
+    weights, the trunk's BatchNorm statistics from a batch
+    (``teacher_statistics``: with random ones its levels reach 2e4 and the
+    logits 2e3): the f32 serving slice on two ``HRNET_SLICE_SIZE`` images
+    against the CPU (class maps equal but at ties, scores within twice the
+    CPU's own f32 error against f64; ``check_dense_slice``), three bf16
+    requests at 512 px, the f32 training
+    slice on two ``HRNET_SLICE_SIZE`` images against f64 on the CPU (the
+    trunk's ReLU and the decoder's channel-maximum decisions taken from the
+    card, a flip as far from 0 as twice the CPU's own f32 step's farthest;
+    ``kink_drift``) and ten bf16 steps at 512 px on ADE20K-shaped targets (150
+    classes, void 255).  No TPU kernel runs on this path."""
+    model = build_hrnet(gen)
+    randomize_norms_and_biases(model, gen)
+    teacher_statistics(model, varied_images(np.random.RandomState(5), 2, HRNET_SLICE_SIZE).cuda())
+    model.eval()
+    check_dense_slice(model, gen, HRNET_SLICE_SIZE, "hrnet slice", launches_expected={}, build=build_hrnet)
+    serve_phase(model, build_hrnet, cuda_gen, (), "hrnet serving", size=HRNET_SIZE)
+    check_train_slice(model, gen, build_hrnet,
+                      dense_batch(2, seed=1, size=HRNET_SLICE_SIZE, num_classes=ADE_CLASSES), "hrnet train slice",
+                      kink_drift=True)
+    del model
+    train(build_hrnet, dense_batch(BATCH, size=HRNET_SIZE, num_classes=ADE_CLASSES), (), label="hrnet training")
 
 
 def main() -> None:
@@ -3968,6 +4139,20 @@ def main() -> None:
     m17_phase(gen, M17_SECOND, M17_SECOND_TRAIN, "M17 (second part)")
     print(f"phase 97 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 98-108: the DLA-34 + FPN detector (first K3 at its 512 px
+    # merges; K1 and K2 at EfficientDet's shapes), the HRNetV2-W48 segmenter
+    # (no TPU kernel) and every DLA and HRNet name
+    t0 = time.perf_counter()
+    kernels.update(dla_kernels(cuda_gen))
+    launches.update(dla_phases(gen, cuda_gen))
+    print(f"phases 98-103 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    hrnet_phases(gen, cuda_gen)
+    print(f"phases 104-107 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    m17_phase(gen, M17_LAST, M17_LAST_TRAIN, "M17 (DLA and HRNet)", drift_names=M17_LAST_DRIFT)
+    print(f"phase 108 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -4142,6 +4327,15 @@ def main() -> None:
         *((f"row_kth@convnext_{path}", f"convnext_{path}", "row_kth", "cuda", topk_cu, topk_py, "row_kth")
           for path in ("train", "validate")),
         *((f"upsample_add@convnext_{path}", f"convnext_{path}", "upsample_add", "triton", fusion_tr, fusion_py,
+           "upsample_add") for path in ("serve", "train", "validate")),
+        # the DLA-34 detector: K1 and K2 at EfficientDet's shapes, K3 at its 512 px merges
+        *((f"fused_mlp@dla_{path}", f"dla_{path}", f"fused_mlp@effdet_{path}", "cuda", mlp_cu, f"{mlp_py}:204",
+           "fused_mlp") for path in ("serve", "train", "validate")),
+        ("fused_mlp_backward@dla_train", "dla_train", "fused_mlp_backward@effdet_train", "cuda", mlp_cu,
+         f"{mlp_py}:365", "fused_mlp_backward"),
+        *((f"row_kth@dla_{path}", f"dla_{path}", "row_kth@effdet", "cuda", topk_cu, topk_py, "row_kth")
+          for path in ("train", "validate")),
+        *((f"upsample_add@dla_{path}", f"dla_{path}", "upsample_add@dla", "triton", fusion_tr, fusion_py,
            "upsample_add") for path in ("serve", "train", "validate")),
     ):
         cases = [c for c in kernels[key] if c["path"]]

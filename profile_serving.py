@@ -21,6 +21,8 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --mnv3 [--train]            # the MobileNetV3-large detector
     python3 profile_serving.py --convnext [--train]        # the pretrained ConvNeXt-T + FPN detector
     python3 profile_serving.py --densenet [--train]        # the pretrained DenseNet-121 classifier, 224 px
+    python3 profile_serving.py --dla [--train]             # the DLA-34 + FPN detector, 512 px
+    python3 profile_serving.py --hrnet [--train]           # the HRNetV2-W48 segmenter, 512 px
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -45,7 +47,10 @@ both trained on bench.py's targets, and with ``--convnext`` its pretrained
 ConvNeXt-T + FPN detector (the trunk's file written from a seed), trained
 on bench.py's targets, and with ``--densenet`` its pretrained DenseNet-121
 classifier (224 px), trained on ``chip_smoke.classifier_batch``'s class
-indices; random weights from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
+indices, and with ``--dla`` its DLA-34 + FPN detector (512 px), trained on
+bench.py's targets, and with ``--hrnet`` its HRNetV2-W48 segmenter (512
+px), trained on ``chip_smoke.dense_batch``'s 150-class maps; random weights
+from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  It prints:
 
@@ -74,8 +79,9 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
-    BATCH, DENSENET_SIZE, HYBRID_SCHEDULE, IMAGENET_CLASSES, OPTIMIZER, PRETRAIN_BATCHES, SIZE, anomaly_batch,
-    autoencoder_batch, build_anomaly, build_autoencoder, build_convnext, build_dense, build_densenet, build_flagship,
+    ADE_CLASSES, BATCH, DENSENET_SIZE, DLA_SIZE, HRNET_SIZE, HYBRID_SCHEDULE, IMAGENET_CLASSES, OPTIMIZER,
+    PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly, build_autoencoder, build_convnext,
+    build_dense, build_densenet, build_dla, build_flagship, build_hrnet,
     build_hybrid, build_instance, build_keypoint, build_multitask,
     EFFDET_SIZE, build_effdet, build_mnv3, build_pan, build_panoptic, build_quad, build_resnetv2,
     build_view_invariance, calibrate_anomaly, card_name, classifier_batch,
@@ -201,6 +207,8 @@ def main() -> None:
     models.add_argument("--mnv3", action="store_true", help="the MobileNetV3-large detector")
     models.add_argument("--convnext", action="store_true", help="the pretrained ConvNeXt-T + FPN detector")
     models.add_argument("--densenet", action="store_true", help="the pretrained DenseNet-121 classifier (224 px)")
+    models.add_argument("--dla", action="store_true", help="the DLA-34 + FPN detector (512 px)")
+    models.add_argument("--hrnet", action="store_true", help="the HRNetV2-W48 segmenter (512 px)")
     args = parser.parse_args()
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
@@ -221,9 +229,13 @@ def main() -> None:
         else ("ConvNeXt-T detector", build_convnext, training_batch) if args.convnext
         else ("DenseNet-121 classifier", build_densenet,
               lambda b: classifier_batch(b, size=DENSENET_SIZE, num_classes=IMAGENET_CLASSES)) if args.densenet
+        else ("DLA-34 detector", build_dla, lambda b: training_batch(b, size=DLA_SIZE)) if args.dla
+        else ("HRNetV2-W48 segmenter", build_hrnet, lambda b: dense_batch(b, size=HRNET_SIZE, num_classes=ADE_CLASSES))
+        if args.hrnet
         else ("flagship", build_flagship, training_batch)
     )
-    size = EFFDET_SIZE if args.effdet else DENSENET_SIZE if args.densenet else SIZE
+    size = (EFFDET_SIZE if args.effdet else DENSENET_SIZE if args.densenet else DLA_SIZE if args.dla
+            else HRNET_SIZE if args.hrnet else SIZE)
     train = args.train
     if not torch.cuda.is_available():
         raise SystemExit("profile_serving: needs a CUDA card")

@@ -13,9 +13,8 @@ from sihl_tpu_torch.backbones import _TIMM_ALIASES, Backbone, TimmBackbone, Torc
 from sihl_tpu_torch.model import SihlModel
 from sihl_tpu_torch.policy import compute_dtype, set_compute_dtype
 
-# the names the port builds; both grow with the other families (ROADMAP.md, M17)
 TORCHVISION_BACKBONE_NAMES = backbone_names()
-TIMM_BACKBONE_NAMES = tuple(sorted(n for n, native in _TIMM_ALIASES.items() if native in TORCHVISION_BACKBONE_NAMES))
+TIMM_BACKBONE_NAMES = tuple(sorted(_TIMM_ALIASES))
 
 
 def Trainer(*args, **kwargs):

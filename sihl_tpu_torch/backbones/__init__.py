@@ -1,7 +1,8 @@
 """Backbone factories (counterpart of ``sihl_tpu/backbones/__init__.py``)
-over the ResNet family (ResNetV2 included), MobileNet v2 / v3, EfficientNet
-(B0-B7, V2 S/M/L, lite0), MNASNet, ConvNeXt v1 / v2, MobileNetV4, DenseNet
-and ShuffleNetV2.  DLA and HRNet follow in ROADMAP.md, M17.
+over every family of the JAX package: the ResNet family (ResNetV2
+included), MobileNet v2 / v3, EfficientNet (B0-B7, V2 S/M/L, lite0),
+MNASNet, ConvNeXt v1 / v2, MobileNetV4, DenseNet, ShuffleNetV2, DLA and
+HRNet.
 
 ``pretrained=True`` loads torchvision's weights from its cache directory
 (:func:`~sihl_tpu_torch.backbones.torchvision_import.weights_file`), puts
@@ -16,7 +17,9 @@ import torch
 from sihl_tpu_torch.backbones.base import PyramidBackbone
 from sihl_tpu_torch.backbones.convnext import CONVNEXT_CONFIGS, make_convnext_features
 from sihl_tpu_torch.backbones.densenet import DENSENET_CONFIGS, make_densenet_features
+from sihl_tpu_torch.backbones.dla import DLA_CONFIGS, make_dla_features
 from sihl_tpu_torch.backbones.efficientnet import EFFICIENTNET_CONFIGS, make_efficientnet_features
+from sihl_tpu_torch.backbones.hrnet import HRNET_CONFIGS, make_hrnet_features
 from sihl_tpu_torch.backbones.mnasnet import MNASNET_CONFIGS, make_mnasnet_features
 from sihl_tpu_torch.backbones.mobilenet import MOBILENET_CONFIGS, make_mobilenet_features
 from sihl_tpu_torch.backbones.mobilenetv4 import MOBILENETV4_CONFIGS, make_mobilenetv4_features
@@ -35,6 +38,8 @@ _FEATURE_FACTORIES = {
         (MOBILENETV4_CONFIGS, make_mobilenetv4_features),
         (DENSENET_CONFIGS, make_densenet_features),
         (SHUFFLENET_CONFIGS, make_shufflenet_features),
+        (DLA_CONFIGS, make_dla_features),
+        (HRNET_CONFIGS, make_hrnet_features),
     )
     for name in configs
 }
@@ -78,8 +83,7 @@ def Backbone(
 TorchvisionBackbone = Backbone
 
 # timm architecture names and the native feature nets they map onto (the
-# JAX package's whole table); a name whose family the port lacks (DLA,
-# HRNet) raises
+# JAX package's whole table)
 _TIMM_ALIASES = {
     "resnet18": "resnet18",
     "resnet34": "resnet34",
@@ -166,13 +170,8 @@ def TimmBackbone(
     """timm-style naming front-end over :func:`Backbone`."""
     if name not in _TIMM_ALIASES:
         raise ValueError(f"Architecture {name} is not supported. Select from {tuple(sorted(_TIMM_ALIASES))}")
-    native = _TIMM_ALIASES[name]
-    if native not in _FEATURE_FACTORIES:
-        raise NotImplementedError(
-            f"{name} maps onto {native}, whose feature net the port does not build yet (ROADMAP.md, M17)"
-        )
     return Backbone(
-        native, pretrained=pretrained, input_channels=input_channels, top_level=top_level,
+        _TIMM_ALIASES[name], pretrained=pretrained, input_channels=input_channels, top_level=top_level,
         frozen_levels=frozen_levels, freeze_batchnorms=freeze_batchnorms, generator=generator, device=device,
     )
 

@@ -25,7 +25,7 @@ the weight-decay labels agree with JAX's ``_is_no_decay`` (the layer scale
 and GRN's scale and shift decayed, the LayerNorms not) for convnext_atto,
 convnextv2_atto and mobilenetv4_hybrid_medium with level 1 frozen; and
 ``TimmBackbone`` builds each of the 25 convnext, convnextv2, densenet and
-mobilenetv4 aliases, while DLA and HRNet names still raise.
+mobilenetv4 aliases, and four DLA and HRNet aliases with JAX's channels.
 """
 
 import contextlib
@@ -42,6 +42,8 @@ from sihl_tpu.backbones import _FEATURE_FACTORIES as JAX_FACTORIES
 from sihl_tpu.backbones import _TIMM_ALIASES as JAX_TIMM_ALIASES
 from sihl_tpu.backbones import convnext as jax_convnext
 from sihl_tpu.backbones import densenet as jax_densenet
+from sihl_tpu.backbones import dla as jax_dla
+from sihl_tpu.backbones import hrnet as jax_hrnet
 from sihl_tpu.backbones import mobilenetv4 as jax_mobilenetv4
 from sihl_tpu.backbones import shufflenet as jax_shufflenet
 from sihl_tpu.backbones.base import PyramidBackbone as JaxPyramidBackbone
@@ -102,22 +104,27 @@ def meta_init(monkeypatch) -> None:
     monkeypatch.setattr(mlp, "lecun_normal", empty)
 
 
-def assert_layout_matches_on_meta(name: str, monkeypatch) -> None:
+def assert_layout_matches_on_meta(name: str, monkeypatch, families=SECOND_PART) -> None:
     """``Backbone(name)`` built on the meta device against the JAX net built
-    with stub layers: feature channels, level modules, every parameter's
-    and buffer's name and shape after ``state_dict_from_flat`` (leaf by
-    leaf), and the pyramid's shapes at 64 px."""
+    with stub layers (in the JAX modules ``families``): feature channels,
+    level modules, every parameter's and buffer's name and shape after
+    ``state_dict_from_flat``, and the pyramid's shapes at 64 px."""
     meta_init(monkeypatch)
     with monkeypatch.context() as mp:
-        stub_layout(mp, *SECOND_PART)
+        stub_layout(mp, *families)
         jax_features = JAX_FACTORIES[name](name, rngs=nnx.Rngs(0))
     bb = Backbone(name, device="meta").eval()
     assert bb.features.feature_channels == jax_features.feature_channels
     assert bb.features.level_modules == jax_features.level_modules
-    want = {}
+    want, chunk, size = {}, {}, 0
     for path, value in flat_state(jax_features).items():
-        ((key, tensor),) = state_dict_from_flat({path: value}, bb.features).items()
-        want[key] = tuple(tensor.shape)
+        # a few leaves a call: the state dict copies them (846 million
+        # parameters in convnext_xxlarge), and each call walks the modules
+        chunk[path], size = value, size + value.size
+        if size >= 2**24:
+            want.update({k: tuple(t.shape) for k, t in state_dict_from_flat(chunk, bb.features).items()})
+            chunk, size = {}, 0
+    want.update({k: tuple(t.shape) for k, t in state_dict_from_flat(chunk, bb.features).items()})
     assert {k: tuple(v.shape) for k, v in bb.features.state_dict().items()} == want
     out = bb(torch.empty(1, 3, 64, 64, device="meta"))
     assert [tuple(o.shape[1:]) for o in out] == [(c, 64 >> i, 64 >> i) for i, c in enumerate(bb.out_channels)]
@@ -260,6 +267,14 @@ def test_timm_backbone_builds_each_alias(alias, monkeypatch):
 
 
 @pytest.mark.parametrize("alias", ["dla34", "dla169", "hrnet_w18", "hrnet_w64"])
-def test_dla_and_hrnet_aliases_still_raise(alias):
-    with pytest.raises(NotImplementedError, match="M17"):
-        TimmBackbone(alias, device="cpu")
+def test_dla_and_hrnet_aliases_still_raise(alias, monkeypatch):
+    """The DLA and HRNet aliases, which raised until those families were
+    ported, build the native net with JAX's out channels (the port on the
+    meta device, the JAX side with stub layers)."""
+    meta_init(monkeypatch)
+    with monkeypatch.context() as mp:
+        stub_layout(mp, jax_dla, jax_hrnet)
+        jax_bb = JaxPyramidBackbone(alias, JAX_FACTORIES[alias](alias, rngs=nnx.Rngs(0)), rngs=nnx.Rngs(0))
+    bb = TimmBackbone(alias, device="meta")
+    assert bb.name == JAX_TIMM_ALIASES[alias] == alias
+    assert bb.out_channels == jax_bb.out_channels

@@ -192,14 +192,13 @@ def test_importer_family_refusals(name, match):
 
 
 def test_backbone_name_tables():
-    """The timm table is the JAX package's whole; the public name tuples
-    list what the port builds, a subset of the JAX package's, the
-    inverted-residual families and ConvNeXt, MobileNetV4, DenseNet and
-    ShuffleNetV2 among them; a timm name whose family the port lacks (DLA,
-    HRNet) raises naming M17."""
+    """The timm table is the JAX package's whole, and the public name tuples
+    equal the JAX package's (77 and 68 names): the inverted-residual
+    families, ConvNeXt, MobileNetV4, DenseNet, ShuffleNetV2, DLA and HRNet
+    among them."""
     assert _TIMM_ALIASES == JAX_TIMM_ALIASES
-    assert set(TIMM_BACKBONE_NAMES) <= set(JAX_TIMM_NAMES)
-    assert set(TORCHVISION_BACKBONE_NAMES) <= set(JAX_TORCHVISION_NAMES)
+    assert TIMM_BACKBONE_NAMES == JAX_TIMM_NAMES and len(TIMM_BACKBONE_NAMES) == 68
+    assert TORCHVISION_BACKBONE_NAMES == JAX_TORCHVISION_NAMES and len(TORCHVISION_BACKBONE_NAMES) == 77
     assert {"resnetv2_50", "resnetv2_101", "resnet50", "mobilenetv2_100", "efficientnet_lite0",
             "mnasnet_050"} <= set(TIMM_BACKBONE_NAMES)
     assert {"efficientnet_b7", "efficientnet_v2_l", "mobilenet_v3_small_075", "mnasnet1_3"} <= set(
@@ -208,9 +207,7 @@ def test_backbone_name_tables():
     assert {"convnext_tiny", "convnextv2_atto", "densenet121", "mobilenetv4_conv_small"} <= set(TIMM_BACKBONE_NAMES)
     assert {"convnext_xxlarge", "densenet201", "shufflenet_v2_x2_0", "mobilenetv4_hybrid_large"} <= set(
         TORCHVISION_BACKBONE_NAMES)
-    for name in ("dla34", "hrnet_w18"):
-        with pytest.raises(NotImplementedError, match="M17"):
-            TimmBackbone(name, device="cpu")
+    assert {"dla34", "dla169", "hrnet_w18", "hrnet_w64"} <= set(TORCHVISION_BACKBONE_NAMES)
     with pytest.raises(ValueError, match="not supported"):
         TimmBackbone("vit_base_patch16_224", device="cpu")
     with pytest.raises(NotImplementedError, match="not a torchvision arch"):
