@@ -252,7 +252,23 @@ raises on failure:
    steps at 512 px on 150-class maps; no TPU kernel runs there;
 108. M17, the rest: every DLA and HRNet name as phase 87, and dla34,
    dla102 and hrnet_w18 in train mode too (dla102 within twice the CPU's
-   own f32 drift where that passes 3e-4).
+   own f32 drift where that passes 3e-4);
+109. the optimizer family: every optimizer and schedule case of
+   ``tests/test_torch_optim.py`` on the card (state, step counts and
+   learning rates there, the update replayed from a CUDA graph) against
+   the port's f64 CPU updates;
+110-112. the flagship's scanned dispatch in f32 (``full_f32``, 2 images at
+   640 px, K = 3): ``Trainer.training_steps_scanned`` (one CUDA graph of a
+   step, replayed) against eager steps from the same state, within twice
+   the distance between two eager runs of the same steps; ``predict`` and
+   ``validate`` after a dispatch against a fresh model loaded from the
+   trainer's state; a save after a dispatch restored into a new trainer, one
+   more dispatch on both;
+113. bench.py's dispatch: ``Trainer.fit(steps_per_dispatch=40)`` of the
+   flagship in bf16 at batch 16, then a warm dispatch of 40 under
+   ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside it),
+   timed beside eager steps of the same trainer;
+114-117. the instance segmenter as 110-113, with K = 4 in bf16.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -393,6 +409,30 @@ OPTIMIZER = dict(
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
     grad_clip=0.1,
 )
+# the scanned dispatch: bench.py's 40 steps a dispatch (bench.py:44-46) for
+# the flagship, 4 for the instance segmenter (its masks (16, 100, 640, 640)
+# take 2.6 GB a batch); the f32 checks take 3 steps of 2 images, and hold
+# the scanned run to twice the distance between two eager runs, or to these
+# floors where that distance is 0 (a relative loss; a parameter, a hundredth
+# of the learning rate)
+FLAGSHIP_DISPATCH, INSTANCE_DISPATCH, CHECK_DISPATCH, CHECK_BATCH = 40, 4, 3, 2
+LOSS_FLOOR, PARAM_FLOOR = 1e-6, 1e-6
+# every optimizer and schedule case of tests/test_torch_optim.py
+OPTIMIZER_FAMILY = {
+    "adamw_clipped": dict(optimizer="adamw", grad_clip=0.1,
+                          optimizer_kwargs={"lr": 1e-2, "weight_decay": 0.1, "backbone_lr_factor": 0.1}),
+    "adam_multistep": dict(optimizer="adam", optimizer_kwargs={"lr": 1e-2, "backbone_lr_factor": 0.5}, grad_clip=1e6,
+                           scheduler="multistep", scheduler_kwargs={"milestones": [1], "gamma": 0.5, "warmup": 1}),
+    "sgd": dict(optimizer="sgd", optimizer_kwargs={"lr": 1e-2, "weight_decay": 0.1, "backbone_lr_factor": 0.1}),
+    "sgd_momentum_callable": dict(optimizer="sgd", optimizer_kwargs={"lr": 1e-2, "momentum": 0.9},
+                                  scheduler=lambda step: 1e-2 * 0.5**step),
+    "sgd_nesterov_cosine": dict(
+        optimizer="sgd", optimizer_kwargs={"lr": 1e-2, "momentum": 0.9, "nesterov": True, "backbone_lr_factor": 0.5},
+        scheduler="cosine", scheduler_kwargs={"T_max": 4, "eta_min": 1e-3, "warmup": 1}),
+    "lamb_clipped_onecycle": dict(
+        optimizer="lamb", grad_clip=0.1, optimizer_kwargs={"lr": 1e-2, "weight_decay": 0.1, "backbone_lr_factor": 0.1},
+        scheduler="onecycle", scheduler_kwargs={"total_steps": 5, "max_lr": 2e-2, "warmup": 1}),
+}
 # H100 SXM data-sheet peaks: device memory, and dense operations by type
 # (bf16 on tensor cores, f32 outside them)
 PEAK_BYTES_PER_S = 3.35e12
@@ -417,6 +457,17 @@ def build_instance(generator: torch.Generator, device=None) -> SihlModel:
     head = InstanceSegmentation(
         neck.out_channels, NUM_CLASSES, max_targets=MAX_TARGETS, generator=generator, device=device
     )
+    return SihlModel(backbone, neck, [head])
+
+
+def build_small_detector(generator: torch.Generator, device=None) -> SihlModel:
+    """``tests/test_torch_optim.py``'s detector: resnet18 with level 1
+    frozen, FPN 16 wide over levels 3-5, ObjectDetection with 3 classes."""
+    backbone = Backbone("resnet18", top_level=5, generator=generator, device=device)
+    backbone.set_frozen_levels(1)
+    neck = FPN(backbone.out_channels, 16, bottom_level=3, top_level=5, generator=generator, device=device)
+    head = ObjectDetection(neck.out_channels, 3, bottom_level=3, top_level=5, num_channels=16, generator=generator,
+                           device=device)
     return SihlModel(backbone, neck, [head])
 
 
@@ -2572,8 +2623,12 @@ def read_counts(names) -> dict:
     return {name: COUNTERS[name].launches for name in names}
 
 
-def train(build=build_flagship, batch=None,
-          kernels=("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats"),
+TRAIN_KERNELS = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "stem_conv_stats")
+INSTANCE_TRAIN_KERNELS = ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode",
+                          "dynconv_decode_backward", "stem_conv_stats")
+
+
+def train(build=build_flagship, batch=None, kernels=TRAIN_KERNELS,
           steps: int = 10, label: str = "training", schedule=None, prepare=None):
     """Phases 7, 11 and 15: bf16 training steps through Trainer (the trunk
     frozen by ``freeze_trunk``, bench.py's optimizer, and ``schedule``'s
@@ -3941,6 +3996,263 @@ def hrnet_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> None:
     train(build_hrnet, dense_batch(BATCH, size=HRNET_SIZE, num_classes=ADE_CLASSES), (), label="hrnet training")
 
 
+def optimizer_family_phase(gen: torch.Generator) -> None:
+    """Phase 109: each case of ``OPTIMIZER_FAMILY``, with an EMA at 0.9, on
+    ``build_small_detector``'s parameters drawn from U(-1, 1): three steps
+    on the same normal gradients on the card (f32) and on the CPU (f64).
+    The card's first step runs eagerly (it builds the state); the next two
+    are replays of one CUDA graph of the update (the clip, the optimizer,
+    the EMA), the step's learning rate filled into the groups' device
+    tensors before each.  Every parameter and EMA entry must lie within
+    1e-6 + 1e-5 |p| of the CPU's, the learning rates agree to 1e-6."""
+    t0 = time.perf_counter()
+    worst = {}
+    for name, kwargs in OPTIMIZER_FAMILY.items():
+        models = {device: build_small_detector(torch.Generator().manual_seed(0), device=device)
+                  for device in ("cuda", "cpu")}
+        models["cpu"].double()
+        with torch.no_grad():
+            for p, q in zip(models["cuda"].parameters(), models["cpu"].parameters()):
+                p.copy_(torch.rand(p.shape, generator=gen) * 2 - 1)
+                q.copy_(p)
+        card, cpu = (Trainer(models[device], ema_decay=0.9, **kwargs) for device in ("cuda", "cpu"))
+        graph = None
+        for step in range(3):
+            grads = [torch.randn(q.shape, generator=gen) for q in cpu.model.parameters()]
+            for q, g in zip(cpu.model.parameters(), grads):
+                q.grad = g.double()
+            want_lr = cpu.apply_gradients()
+            if graph is None:
+                for p, g in zip(card.model.parameters(), grads):
+                    p.grad = g.cuda()
+                lr = card.apply_gradients()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    card._update()
+            else:
+                for p, g in zip(card.model.parameters(), grads):
+                    p.grad.copy_(g)
+                lr = card._set_learning_rate(card.step)
+                graph.replay()
+                card.step += 1
+            if not math.isclose(lr, want_lr, rel_tol=1e-6):
+                raise AssertionError(f"optimizer {name}: step {step} learning rate {lr} on the card, {want_lr} on the CPU")
+        torch.cuda.synchronize()
+        excess = 0.0
+        pairs = list(zip(card.model.parameters(), cpu.model.parameters()))
+        pairs += list(zip(card.ema_params.values(), cpu.ema_params.values()))
+        for p, q in pairs:
+            err = (p.detach().double().cpu() - q.detach()).abs() / (1e-6 + 1e-5 * q.detach().abs())
+            excess = max(excess, float(err.max()))
+        worst[name] = excess
+        if excess > 1.0:
+            raise AssertionError(f"optimizer {name}: the card's updates lie {excess:.3g} times the tolerance from the "
+                                 f"CPU's f64 updates")
+    print(f"  optimizer family on the card (f32, state on the card, steps 2-3 replayed from a CUDA graph) against "
+          f"f64 on the CPU, error over (1e-6 + 1e-5 |p|): {json.dumps({k: round(v, 4) for k, v in worst.items()})}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def stack_batches(batches):
+    """(xs, targets) of one dispatch: the batches' images and target dicts
+    stacked on a new leading axis."""
+    return torch.stack([x for x, _ in batches]), {k: torch.stack([t[k] for _, t in batches]) for k in batches[0][1]}
+
+
+def run_state(trainer: Trainer) -> dict:
+    """A trainer's parameters and EMA shadow, on the host in f64."""
+    out = {f"param.{n}": p.detach().double().cpu() for n, p in trainer.model.named_parameters()}
+    out.update({f"ema.{n}": e.double().cpu() for n, e in (trainer.ema_params or {}).items()})
+    return out
+
+
+def run_distance(a, b) -> tuple:
+    """(the largest relative distance between two runs' per-step metrics,
+    the largest absolute distance between their parameters and EMA)."""
+    (metrics_a, state_a), (metrics_b, state_b) = a, b
+    loss = max(float(((metrics_a[k].double() - metrics_b[k].double()).abs()
+                      / metrics_b[k].double().abs().clamp(min=1e-12)).max()) for k in metrics_b)
+    param = max(float((state_a[k] - state_b[k]).abs().max()) for k in state_b)
+    return loss, param
+
+
+def scanned_check(build, batches, label: str, kernels) -> None:
+    """Phases 110-112 and 114-116: K = ``len(batches)`` steps of a freshly
+    built f32 model (``freeze_trunk``, bench.py's optimizer, EMA 0.999) under
+    ``full_f32`` with cuDNN deterministic, from the same weights:
+    two eager runs (``training_step``) and one ``training_steps_scanned``;
+    the scanned run's per-step metrics and final parameters and EMA must lie
+    within twice the distance between the eager runs (or ``LOSS_FLOOR`` and
+    ``PARAM_FLOOR`` where that is 0).  Then a ``predict`` (which caches the
+    K1 packs), a second dispatch (replays only: no parameter's ``_version``
+    moves), and ``predict`` and ``validate`` against a fresh model loaded
+    from the trainer's state (bitwise); then a save, a restore into a new
+    trainer and one more dispatch on both, within the same bounds.  Every
+    kernel in ``kernels`` must launch in the first dispatch."""
+    t0 = time.perf_counter()
+    with compute_dtype_scope(torch.float32):
+        base = build(torch.Generator().manual_seed(6))
+    state = base.state_dict()
+    del base
+
+    def fresh_model():
+        with compute_dtype_scope(torch.float32):
+            model = build(torch.Generator().manual_seed(7))
+        model.load_state_dict(state)
+        freeze_trunk(model)
+        return model
+
+    def fresh_trainer():
+        return Trainer(fresh_model(), ema_decay=0.999, **OPTIMIZER)
+
+    xs, ts = stack_batches(batches)
+    with full_f32(), cudnn_deterministic():
+        eager = []
+        for _ in range(2):
+            trainer = fresh_trainer()
+            rows = [trainer.training_step(x, t) for x, t in batches]
+            eager.append(({k: torch.stack([r[k] for r in rows]) for k in rows[0] if k != "trainer/learning_rate"},
+                          run_state(trainer)))
+        del trainer
+        loss_bound, param_bound = (max(2 * d, floor) for d, floor in
+                                   zip(run_distance(*eager), (LOSS_FLOOR, PARAM_FLOOR)))
+        scanned = fresh_trainer()
+        reset_counts()
+        metrics = scanned.training_steps_scanned(xs, ts)
+        launches = read_counts(kernels)
+        if sorted(metrics) != sorted(eager[0][0]) or any(n == 0 for n in launches.values()):
+            raise AssertionError(f"{label}: the dispatch's metrics {sorted(metrics)}, its kernel launches {launches}")
+        loss_err, param_err = run_distance((metrics, run_state(scanned)), eager[0])
+        eager_dist = run_distance(*eager)
+        if loss_err > loss_bound or param_err > param_bound:
+            raise AssertionError(f"{label}: the scanned steps lie {loss_err:.3g} (metrics, relative) and {param_err:.3g}"
+                                 f" (parameters) from the eager steps; bounds {loss_bound:.3g}, {param_bound:.3g}")
+
+        # predict and validate after a dispatch of replays only
+        images = batches[0][0]
+        scanned.predict(images)
+        scanned.training_steps_scanned(xs, ts)
+        got = scanned.predict(images)
+        reference = fresh_model()
+        reference.load_state_dict(scanned.model.state_dict())
+        with torch.no_grad():
+            want = reference.eval()(images)
+        if not states_equal(to_cpu(list(got)), to_cpu(list(want))):
+            raise AssertionError(f"{label}: predict after a dispatch differs from a fresh model's")
+        got_valid = scanned.validate(batches[:1])
+        want_valid = Trainer(reference, **OPTIMIZER).validate(batches[:1])
+        if got_valid != want_valid:
+            raise AssertionError(f"{label}: validate after a dispatch gives {got_valid}, a fresh model {want_valid}")
+        del reference
+
+        # a save after a dispatch, restored; one more dispatch on both
+        with tempfile.TemporaryDirectory() as ckpt_dir:
+            save_checkpoint(scanned, os.path.join(ckpt_dir, "ckpt"))
+            restored = fresh_trainer()
+            restore_checkpoint(restored, os.path.join(ckpt_dir, "ckpt"))
+        after = scanned.training_steps_scanned(xs, ts)
+        restored_after = restored.training_steps_scanned(xs, ts)
+        restore_err = run_distance((restored_after, run_state(restored)), (after, run_state(scanned)))
+        if restore_err[0] > loss_bound or restore_err[1] > param_bound or restored.step != scanned.step:
+            raise AssertionError(f"{label}: after a restore the dispatch lies {restore_err} from the original's; "
+                                 f"bounds {loss_bound:.3g}, {param_bound:.3g}")
+    stats = scanned.graph_stats
+    print(f"  {label} f32, {CHECK_BATCH} images at {SIZE} px, K = {len(batches)}: scanned against eager "
+          f"{loss_err:.3g} (metrics, relative), {param_err:.3g} (parameters and EMA); two eager runs "
+          f"{eager_dist[0]:.3g}, {eager_dist[1]:.3g}; bounds {loss_bound:.3g}, {param_bound:.3g}; predict and "
+          f"validate after a dispatch of replays equal a fresh model's; after a save and restore one more dispatch "
+          f"{restore_err[0]:.3g}, {restore_err[1]:.3g} from the original's; losses "
+          f"{[round(float(v), 5) for v in metrics['trainer/loss']]}; capture {stats['capture_s']:.2f} s; first "
+          f"dispatch's kernel launches {launches} (its eager step's and the capture's); "
+          f"{time.perf_counter() - t0:.1f} s [{card_name()}]")
+
+
+def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_steps: int = 6) -> dict:
+    """Phases 113 and 117: ``Trainer.fit(steps_per_dispatch=dispatch)`` of
+    bf16 steps on ``batch`` (16 images at 640 px, ``freeze_trunk``, bench.py's
+    optimizer) after ``eager_steps`` timed eager steps of the same trainer,
+    then one warm dispatch of ``dispatch`` steps under
+    ``torch.cuda.set_sync_debug_mode("error")`` (any host sync inside it
+    raises), timed on the host clock to its end.  Prints step ms and
+    images/s (eager: the median of steps 3-``eager_steps``; scanned: the
+    warm dispatch over its steps), the capture's seconds, peak memory and
+    the kernels launched per step.  The wrappers count a kernel where its
+    launch is recorded: the first dispatch's eager step and its capture
+    count one step each, and replays count nothing; so the launches per
+    step are the first dispatch's counts over 2, and the path's launches
+    are those times the steps run (eager and replayed).  Every kernel in
+    ``kernels`` must launch.  Returns the path's launches."""
+    with compute_dtype_scope(torch.bfloat16):
+        model = build(torch.Generator().manual_seed(2))
+    freeze_trunk(model)
+    trainer = Trainer(model, **OPTIMIZER)
+    images, targets = batch
+    times = []
+    for _ in range(eager_steps):
+        t0 = time.perf_counter()
+        trainer.training_step(images, targets)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    eager_ms = statistics.median(times[2:]) * 1000
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    result = trainer.fit([batch] * dispatch, num_steps=dispatch, steps_per_dispatch=dispatch, log_every=dispatch)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts(kernels)
+    if any(n == 0 or n % 2 for n in counts.values()) or not math.isfinite(result["trainer/loss"]):
+        raise AssertionError(f"{label}: the first dispatch's kernel launches {counts}, its metrics {result}")
+    per_step = {name: n // 2 for name, n in counts.items()}
+    xs, ts = stack_batches([batch] * dispatch)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t0 = time.perf_counter()
+        metrics = trainer.training_steps_scanned(xs, ts)
+        launched_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    losses = metrics["trainer/loss"].tolist()
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: non-finite scanned losses {losses}")
+    stats = trainer.graph_stats
+    steps_run = stats["eager_steps"] + stats["replays"]
+    launches = {name: n * steps_run for name, n in per_step.items()}
+    step_ms = warm_s / dispatch * 1000
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  {label} bf16, batch {BATCH} at {images.shape[-1]} px: fit(steps_per_dispatch={dispatch}) "
+          f"{first_s:.2f} s for its first dispatch (an eager step, the capture {stats['capture_s']:.2f} s, "
+          f"{dispatch - 1} replays), loss {result['trainer/loss']:.4f}; a warm dispatch of {dispatch} with no host "
+          f"sync (sync debug mode \"error\") {warm_s:.3f} s, its host returning after {launched_s:.3f} s: "
+          f"scanned step {step_ms:.3f} ms, {BATCH * 1000 / step_ms:.2f} images/s; eager step of the same trainer "
+          f"{eager_ms:.3f} ms, {BATCH * 1000 / eager_ms:.2f} images/s (median of steps 3-{eager_steps}); peak "
+          f"memory {peak_gib:.2f} GiB [{card_name()}]; kernels launched a step {per_step} (counted at the capture), "
+          f"times {steps_run} steps run: {launches}; losses of the warm dispatch "
+          f"{[round(v, 4) for v in losses[:2]]} ... {[round(v, 4) for v in losses[-2:]]}")
+    return launches
+
+
+def scanned_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
+    """Phases 109-117: the optimizer family, then the flagship's and the
+    instance segmenter's scanned dispatches.  Returns the launch counts of
+    the two bf16 paths, ``train_scanned`` and ``instance_train_scanned``."""
+    optimizer_family_phase(gen)
+    scanned_check(build_flagship, [training_batch(CHECK_BATCH, seed=20 + i) for i in range(CHECK_DISPATCH)],
+                  "flagship scanned check", TRAIN_KERNELS)
+    launches = {"train_scanned": scanned_fit_phase(build_flagship, training_batch(BATCH), FLAGSHIP_DISPATCH,
+                                                   TRAIN_KERNELS, "flagship scanned dispatch")}
+    scanned_check(build_instance,
+                  [instance_batch(CHECK_BATCH, seed=20 + i, mask_size=SIZE // 2) for i in range(CHECK_DISPATCH)],
+                  "instance scanned check", INSTANCE_TRAIN_KERNELS)
+    launches["instance_train_scanned"] = scanned_fit_phase(build_instance, instance_batch(BATCH), INSTANCE_DISPATCH,
+                                                           INSTANCE_TRAIN_KERNELS, "instance scanned dispatch")
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4020,11 +4332,8 @@ def main() -> None:
     check_train_slice(model, gen, build_instance, instance_batch(2, seed=1, mask_size=SIZE // 2),
                       "instance train slice")
     del model
-    launches["instance_train"] = train(
-        build_instance, instance_batch(BATCH),
-        ("fused_mlp", "fused_mlp_backward", "row_kth", "upsample_add", "dynconv_decode", "dynconv_decode_backward",
-         "stem_conv_stats"),
-        label="instance training")
+    launches["instance_train"] = train(build_instance, instance_batch(BATCH), INSTANCE_TRAIN_KERNELS,
+                                       label="instance training")
 
     # phases 12-15: the quadrilateral detector, the same four
     model = build_quad(gen)
@@ -4152,6 +4461,13 @@ def main() -> None:
     t0 = time.perf_counter()
     m17_phase(gen, M17_LAST, M17_LAST_TRAIN, "M17 (DLA and HRNet)", drift_names=M17_LAST_DRIFT)
     print(f"phase 108 in {time.perf_counter() - t0:.1f} s")
+
+    # phases 109-117: the optimizer family on the card, and the scanned
+    # dispatch (one CUDA graph of a step, replayed) of the flagship and the
+    # instance segmenter: K1f, K1b, K2, K3, K4, and K5f and K5b
+    t0 = time.perf_counter()
+    launches.update(scanned_phases(gen, cuda_gen))
+    print(f"phases 109-117 in {time.perf_counter() - t0:.1f} s")
 
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
@@ -4337,6 +4653,28 @@ def main() -> None:
           for path in ("train", "validate")),
         *((f"upsample_add@dla_{path}", f"dla_{path}", "upsample_add@dla", "triton", fusion_tr, fusion_py,
            "upsample_add") for path in ("serve", "train", "validate")),
+        # the scanned dispatches replay the training steps' kernels at their shapes
+        ("fused_mlp@train_scanned", "train_scanned", "fused_mlp@train", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp"),
+        ("fused_mlp_backward@train_scanned", "train_scanned", "fused_mlp_backward", "cuda", mlp_cu, f"{mlp_py}:365",
+         "fused_mlp_backward"),
+        ("row_kth@train_scanned", "train_scanned", "row_kth", "cuda", topk_cu, topk_py, "row_kth"),
+        ("upsample_add@train_scanned", "train_scanned", "upsample_add", "triton", fusion_tr, fusion_py, "upsample_add"),
+        ("stem_conv_stats@train_scanned", "train_scanned", "stem_conv_stats", "cuda", stem_cu, stem_py,
+         "stem_conv_stats"),
+        ("fused_mlp@instance_train_scanned", "instance_train_scanned", "fused_mlp@instance_train", "cuda", mlp_cu,
+         f"{mlp_py}:204", "fused_mlp"),
+        ("fused_mlp_backward@instance_train_scanned", "instance_train_scanned", "fused_mlp_backward@instance_train",
+         "cuda", mlp_cu, f"{mlp_py}:365", "fused_mlp_backward"),
+        ("row_kth@instance_train_scanned", "instance_train_scanned", "row_kth@instance_train", "cuda", topk_cu, topk_py,
+         "row_kth"),
+        ("upsample_add@instance_train_scanned", "instance_train_scanned", "upsample_add", "triton", fusion_tr,
+         fusion_py, "upsample_add"),
+        ("dynconv_decode@instance_train_scanned", "instance_train_scanned", "dynconv_decode@train", "cuda", dyn_cu,
+         f"{dyn_py}:257", "dynconv_decode"),
+        ("dynconv_decode_backward@instance_train_scanned", "instance_train_scanned", "dynconv_decode_backward", "cuda",
+         dyn_cu, f"{dyn_py}:290", "dynconv_decode_backward"),
+        ("stem_conv_stats@instance_train_scanned", "instance_train_scanned", "stem_conv_stats", "cuda", stem_cu,
+         stem_py, "stem_conv_stats"),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -23,6 +23,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --densenet [--train]        # the pretrained DenseNet-121 classifier, 224 px
     python3 profile_serving.py --dla [--train]             # the DLA-34 + FPN detector, 512 px
     python3 profile_serving.py --hrnet [--train]           # the HRNetV2-W48 segmenter, 512 px
+    python3 profile_serving.py --train --scanned 4 [--instance]  # dispatches of 4 steps (one CUDA graph, replayed)
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
@@ -52,11 +53,17 @@ bench.py's targets, and with ``--hrnet`` its HRNetV2-W48 segmenter (512
 px), trained on ``chip_smoke.dense_batch``'s 150-class maps; random weights
 from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (each
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
-``PROFILED`` more.  It prints:
+``PROFILED`` more.  With ``--train --scanned K`` each timed and profiled unit
+is a dispatch of K steps through ``Trainer.training_steps_scanned`` (after a
+warm-up dispatch that captures the step's CUDA graph), and every time is
+given per step.  It prints:
 
 - the median unprofiled request or step time;
 - the device's busy time per request or step: the union of the intervals of
-  every device event, over ``PROFILED``;
+  every device event but the profiler's annotations (an annotated range on
+  the device, such as ``Optimizer.step#AdamW.step``, spans the idle time
+  between its kernels), over ``PROFILED``; and, for comparison, that
+  union with the annotations;
 - the busy share: busy time over the unprofiled time (the profiler's own
   host cost stretches profiled runs, so their span is not used);
 - device time per request or step by class.  A class is a set of aten ops,
@@ -209,7 +216,11 @@ def main() -> None:
     models.add_argument("--densenet", action="store_true", help="the pretrained DenseNet-121 classifier (224 px)")
     models.add_argument("--dla", action="store_true", help="the DLA-34 + FPN detector (512 px)")
     models.add_argument("--hrnet", action="store_true", help="the HRNetV2-W48 segmenter (512 px)")
+    parser.add_argument("--scanned", type=int, default=0, metavar="K",
+                        help="with --train: dispatches of K steps (training_steps_scanned), times per step")
     args = parser.parse_args()
+    if args.scanned and not args.train:
+        parser.error("--scanned needs --train")
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
         else ("quadrilateral detection", build_quad, quad_batch) if args.quad
@@ -252,9 +263,17 @@ def main() -> None:
         if pretraining:
             pretrained_teacher(pretraining)(trainer)
         images, targets = batch(BATCH)
+        if args.scanned:
+            xs = torch.stack([images] * args.scanned)
+            ts = ([torch.stack([t] * args.scanned) for t in targets] if isinstance(targets, list)
+                  else {k: torch.stack([v] * args.scanned) for k, v in targets.items()} if isinstance(targets, dict)
+                  else torch.stack([targets] * args.scanned))
 
-        def work():
-            trainer.training_step(images, targets)
+            def work():
+                trainer.training_steps_scanned(xs, ts)
+        else:
+            def work():
+                trainer.training_step(images, targets)
     else:
         randomize_norms_and_biases(model, torch.Generator().manual_seed(1))
         if pretraining:
@@ -275,21 +294,25 @@ def main() -> None:
         return (time.perf_counter() - t0) * 1000
 
     what = "step" if train else "request"
+    steps = args.scanned or 1  # steps a timed unit runs
     for _ in range(3):
         timed()
-    latency = statistics.median(timed() for _ in range(TIMED))
+    latency = statistics.median(timed() for _ in range(TIMED)) / steps
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(PROFILED):
             timed()
-    device_events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    annotated = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_events = [e for e in annotated if not e.is_user_annotation]
     if not device_events:
         raise SystemExit("profile_serving: the profiler recorded no device time")
-    busy = busy_us(device_events) / PROFILED / 1000
-    print(f"{name}, batch {BATCH} at {size} px, bf16: unprofiled {what} {latency:.3f} ms (median of "
-          f"{TIMED}); device busy {busy:.3f} ms per {what} over {PROFILED} profiled; busy "
-          f"share {busy / latency:.4f}; peak memory {peak_gib:.2f} GiB")
+    busy = busy_us(device_events) / PROFILED / steps / 1000
+    with_annotations = busy_us(annotated) / PROFILED / steps / 1000
+    print(f"{name}, batch {BATCH} at {size} px, bf16{f', dispatches of {steps} steps' if args.scanned else ''}: "
+          f"unprofiled {what} {latency:.3f} ms (median of {TIMED}); device busy {busy:.3f} ms per {what} over "
+          f"{PROFILED * steps} profiled; busy share {busy / latency:.4f} (with the profiler's annotations "
+          f"{with_annotations:.3f} ms, {with_annotations / latency:.4f}); peak memory {peak_gib:.2f} GiB")
 
     averages = prof.key_averages()
     rows = []
@@ -300,11 +323,11 @@ def main() -> None:
     for label, names in KERNEL_CLASSES:
         hits = [e for e in averages if any(name in e.key for name in names)]
         rows.append((label, sum(e.device_time_total for e in hits), sum(e.count for e in hits)))
-    rows.append(("other", busy * PROFILED * 1000 - sum(us for _, us, _ in rows), 0))
+    rows.append(("other", busy * PROFILED * steps * 1000 - sum(us for _, us, _ in rows), 0))
     print(f"{'class':24s} {'ms/' + what:>10s} {'share':>7s} {'calls/' + what:>13s}")
     for label, us, count in rows:
-        ms = us / PROFILED / 1000
-        print(f"{label:24s} {ms:10.3f} {ms / busy:7.3f} {count / PROFILED:13.1f}")
+        ms = us / PROFILED / steps / 1000
+        print(f"{label:24s} {ms:10.3f} {ms / busy:7.3f} {count / PROFILED / steps:13.1f}")
     print(averages.table(sort_by="device_time_total", row_limit=25, max_name_column_width=60))
     ms, count = depthwise_ms(model, images, train)
     if count:

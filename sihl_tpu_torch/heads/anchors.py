@@ -11,6 +11,7 @@ from typing import List, Tuple
 import torch
 
 from sihl_tpu_torch.ops.fused_mlp import fused_mlps
+from sihl_tpu_torch.policy import device_vector
 
 
 def gather_anchor_rows(feats: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -53,7 +54,7 @@ def cell_anchors(inputs, levels) -> Tuple[torch.Tensor, torch.Tensor]:
     for level in levels:
         xg, yg, x_min, y_min = _level_grid(inputs[level])
         offsets.append(torch.stack([xg, yg, xg, yg], dim=1))
-        cell = torch.tensor([-x_min, -y_min, x_min, y_min], dtype=torch.float32, device=xg.device)
+        cell = device_vector([-x_min, -y_min, x_min, y_min], xg.device)
         scales.append(cell[None, :].expand(xg.shape[0], 4))
     return torch.cat(offsets), torch.cat(scales)
 

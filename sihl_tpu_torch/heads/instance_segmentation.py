@@ -39,7 +39,7 @@ from sihl_tpu_torch.ops.boxes import bbox_matching, masks_to_boxes
 from sihl_tpu_torch.ops.dynconv import dynamic_pointwise_decode, param_count
 from sihl_tpu_torch.ops.image import packbits_last, resize_linear
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, cross_entropy
-from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.policy import device_vector, upcast
 from sihl_tpu_torch.training import metrics as M
 from sihl_tpu_torch.utils.coco_map import MeanAveragePrecisionAccumulator
 
@@ -175,12 +175,12 @@ class InstanceSegmentation(Head):
         height, width = inputs[0].shape[2:]
         offsets, scales = self.get_offsets_and_scales(inputs)
         device = offsets.device
-        full_size = torch.tensor([width, height, width, height], dtype=torch.float32, device=device)
+        full_size = device_vector([width, height, width, height], device)
 
         # empty masks are invalid targets, as in the reference
         valid = (classes >= 0) & (masks > 0).flatten(2).any(dim=2)
         mh, mw = masks.shape[2:]
-        scale = torch.tensor([width / mw, height / mh, width / mw, height / mh], dtype=torch.float32, device=device)
+        scale = device_vector([width / mw, height / mh, width / mw, height / mh], device)
         boxes = masks_to_boxes(masks) * scale
         assignment, rel_iou = bbox_matching((offsets + scales) * full_size, boxes, valid, self.topk, relative=True)
 

@@ -28,7 +28,7 @@ from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_genera
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import bbox_matching, complete_box_iou_loss
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, cross_entropy
-from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.policy import device_vector, upcast
 from sihl_tpu_torch.training import metrics as M
 from sihl_tpu_torch.utils.coco_map import MeanAveragePrecisionAccumulator
 
@@ -122,9 +122,7 @@ class ObjectDetection(Head):
         height, width = inputs[0].shape[2:]
         flat_feats = self.flat_features(inputs)
         offsets, scales = self.get_offsets_and_scales(inputs)
-        full_size = torch.tensor(
-            [width, height, width, height], dtype=torch.float32, device=offsets.device
-        )
+        full_size = device_vector([width, height, width, height], offsets.device)
 
         (loc_out,) = anchors.run_mlps(flat_feats, [self.loc_head], num_valid=offsets.shape[0])
         loc_logits = loc_out[..., 0].float()
@@ -151,9 +149,7 @@ class ObjectDetection(Head):
             raise ValueError(f"need levels up to {self.top_level}, got {len(inputs)} inputs")
         height, width = inputs[0].shape[2:]
         offsets, scales = self.get_offsets_and_scales(inputs)
-        full_size = torch.tensor(
-            [width, height, width, height], dtype=torch.float32, device=offsets.device
-        )
+        full_size = device_vector([width, height, width, height], offsets.device)
         boxes = boxes.float()
         assignment, rel_iou = bbox_matching(
             (offsets + scales) * full_size, boxes, classes >= 0, self.topk, relative=True

@@ -23,7 +23,10 @@ by the output weight in blocks of 256 outputs laid out as further layers
 an output layer of at most 256 runs from registers.  A pack is cached per
 MLP and rebuilt only when a parameter changes (its ``_version`` or
 ``data_ptr``), so a warm request packs nothing and a training step packs
-once.  The autograd Function takes the MLPs' own parameters as inputs, packs
+once.  A CUDA graph's replay updates parameters without moving their
+``_version``: a call made while a stream is being captured packs inside
+the graph and caches nothing, and the trainer empties the cache after each
+scanned dispatch (:func:`invalidate_packs`).  The autograd Function takes the MLPs' own parameters as inputs, packs
 them outside the graph, and returns each parameter's gradient in its own
 layout and dtype, the weights' gradients rounded to the compute dtype first
 (``_fused_bwd`` of ``sihl_tpu/ops/pallas/mlp.py`` returns its compute-dtype
@@ -116,14 +119,28 @@ def mlp_parameters(mlp) -> List[torch.Tensor]:
 _PACKS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
+def invalidate_packs() -> None:
+    """Forget every cached pack: the next call of each MLP packs anew.  For
+    writes into the parameters that leave ``_version`` where it was (a CUDA
+    graph's replay)."""
+    _PACKS.clear()
+
+
+def _capturing(t: torch.Tensor) -> bool:
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def pack_mlp_params(mlp, dtype: torch.dtype) -> MLPPack:
     """The MLP's :class:`MLPPack` in ``dtype``, cached until a parameter
     changes: the cache key is every parameter's ``data_ptr`` and
-    ``_version``, which an in-place update (an optimizer step) bumps."""
+    ``_version``, which an in-place update (an optimizer step) bumps.  While
+    the stream is being captured into a CUDA graph the pack is built in the
+    graph, from the parameters as each replay finds them, and not cached."""
     params = mlp_parameters(mlp)
+    capturing = _capturing(params[0])
     key = (dtype, tuple((p.data_ptr(), p._version) for p in params))
     cached = _PACKS.get(mlp)
-    if cached is not None and cached[0] == key:
+    if cached is not None and cached[0] == key and not capturing:
         return cached[1]
     linears = list(mlp.linears)
     with torch.no_grad():
@@ -143,7 +160,8 @@ def pack_mlp_params(mlp, dtype: torch.dtype) -> MLPPack:
             wo=linears[-1].weight.to(dtype).contiguous(),
             bo=linears[-1].bias.float().contiguous(),
         )
-    _PACKS[mlp] = (key, pack)
+    if not capturing:
+        _PACKS[mlp] = (key, pack)
     return pack
 
 

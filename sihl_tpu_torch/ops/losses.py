@@ -41,13 +41,19 @@ def cross_entropy(
     Whether to smooth is decided from the argument's type, as the JAX
     package decides it: a Python 0 skips the blend, and any tensor takes it
     (a schedule computed on the device, such as the panoptic head's decay),
-    with no host sync and no branch on its value."""
+    with no host sync and no branch on its value.  A target outside
+    ``[0, num_classes)`` that is not ignored gives a zero row, as
+    ``jax.nn.one_hot`` does."""
     logits = upcast(logits)
     num_classes = logits.shape[dim]
     log_probs = F.log_softmax(logits, dim=dim)
     valid = torch.ones_like(targets, dtype=torch.bool) if ignore_index is None else targets != ignore_index
     safe_targets = torch.where(valid, targets, 0).long()
-    one_hot = F.one_hot(safe_targets, num_classes).to(logits.dtype).movedim(-1, dim)
+    # jax.nn.one_hot's comparison with the class indices: no host read of
+    # the targets (F.one_hot checks their range with one on the CPU), and an
+    # out-of-range target gives a row of zeros, as in JAX
+    classes = torch.arange(num_classes, device=targets.device)
+    one_hot = (safe_targets[..., None] == classes).to(logits.dtype).movedim(-1, dim)
     static_zero = isinstance(label_smoothing, (int, float)) and label_smoothing == 0.0
     if not static_zero:
         one_hot = one_hot * (1.0 - label_smoothing) + label_smoothing / num_classes

@@ -48,6 +48,14 @@ def upcast(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
+def device_vector(values, device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """A short vector of Python numbers made on ``device`` by fill kernels,
+    not copied from the host: a CUDA graph can capture a fill, and cannot
+    capture ``torch.tensor(values, device=...)``'s host-to-device copy.  The
+    values round to ``dtype`` as ``torch.tensor`` rounds them."""
+    return torch.stack([torch.full((), v, dtype=dtype, device=device) for v in values])
+
+
 def set_default_device(device) -> None:
     """Set the device that constructors use when they are given ``device=None``."""
     global _DEFAULT_DEVICE

@@ -27,18 +27,33 @@ Every write into the live parameters (EMA, :meth:`Trainer.use_ema_params`,
 (``ops/fused_mlp.py``) keys on each parameter's storage and version, which
 an in-place write bumps, so the next call repacks.
 
-Not ported: the scanned multi-step dispatch (``steps_per_dispatch > 1``,
-ROADMAP.md M9b), meshes and spatial partitioning (M19), visualization
-(M20) and ``remat`` (a TPU memory lever, not ported).
+The multi-step dispatch (:meth:`Trainer.training_steps_scanned`, and
+:meth:`Trainer.fit` with ``steps_per_dispatch > 1``) runs K steps from one
+call.  On a CUDA model it is one CUDA graph of a whole step (the features,
+the heads' losses, the backward, the clip, the optimizer's update and the
+EMA) replayed K times on static input buffers, with each step's learning
+rate copied into the optimizer's device tensors before its replay: the
+host launches a few copies and one graph a step and waits for nothing.
+The graph is captured once for each (shapes, dtypes, EMA, optimizer), after
+a first step that runs eagerly as step 0 of the same dispatch (it builds the
+optimizer's state, the kernels' libraries, Triton's JIT and cuDNN's
+choices); :meth:`Trainer.load_state_dict` drops it.  A replay moves no
+parameter's ``_version``, so the dispatch ends by emptying the K1 pack
+cache.  On a CPU model the same K steps run as a loop.
+
+Not ported: meshes and spatial partitioning (M19), visualization (M20) and
+``remat`` (a TPU memory lever, not ported).
 """
 
 import os
 import time
-from typing import Any, Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
 
+from sihl_tpu_torch.layers.dropout import Dropout
 from sihl_tpu_torch.model import SihlModel
+from sihl_tpu_torch.ops.fused_mlp import invalidate_packs
 from sihl_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
 
 
@@ -138,6 +153,33 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, {item})")
 
 
+def _map_tree(fn, *trees):
+    """``fn`` over the tensors at the same places of ``trees`` (dicts, lists
+    and tuples of tensors); anything else is taken from the first tree."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _map_tree(fn, *(t[k] for t in trees)) for k in first}
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_tree(fn, *parts) for parts in zip(*trees))
+    if isinstance(first, torch.Tensor):
+        return fn(*trees)
+    return first
+
+
+class _StepGraph(NamedTuple):
+    """One captured training step: what it was captured for, the graph, its
+    static inputs, and the metrics it writes (one f32 vector, ``keys`` in
+    order, cast back to ``dtypes``)."""
+
+    key: Any
+    graph: Any
+    x: torch.Tensor
+    targets: list
+    vector: torch.Tensor
+    keys: List[str]
+    dtypes: List[torch.dtype]
+
+
 class Trainer:
     def __init__(
         self,
@@ -182,6 +224,8 @@ class Trainer:
         if ema_decay:
             # a shadow of the parameters only (no BatchNorm running statistics)
             self.ema_params = {n: p.detach().clone() for n, p in model.named_parameters()}
+        self._graph: Optional[_StepGraph] = None
+        self.graph_stats = {"captures": 0, "capture_s": 0.0, "eager_steps": 0, "replays": 0}
 
     # -- train -------------------------------------------------------------
     def _apply_frozen_bn(self) -> None:
@@ -197,42 +241,171 @@ class Trainer:
             targets = [targets]
         self.model.train()
         self._apply_frozen_bn()
+        lr = self._set_learning_rate(self.step)
+        metrics = self._step_body(x, targets)
+        metrics["trainer/learning_rate"] = lr
+        self.step += 1
+        if self.logger is not None:
+            self.logger({k: float(v) for k, v in metrics.items()}, self.step)
+        return metrics
+
+    def _step_body(self, x: torch.Tensor, targets: list) -> Dict[str, torch.Tensor]:
+        """The step at the learning rates already set, with no host sync:
+        the losses, the backward and :meth:`_update`.  A CUDA graph captures
+        exactly this."""
         self.optimizer.zero_grad(set_to_none=True)
         loss, metrics = _losses(self.model, x, targets)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics["trainer/loss"] = loss.detach()
-        metrics["trainer/learning_rate"] = self.apply_gradients()
-        if self.logger is not None:
-            self.logger({k: float(v) for k, v in metrics.items()}, self.step)
+        self._update()
         return metrics
 
     def apply_gradients(self) -> float:
         """Clip the gradients the parameters hold and update the parameters
         at this step's learning rate, which it returns; update the EMA
         shadow; count the step."""
-        lr = self.schedule(self.step)
+        lr = self._set_learning_rate(self.step)
+        self._update()
+        self.step += 1
+        return lr
+
+    def _set_learning_rate(self, step: int) -> float:
+        """Write ``schedule(step) * lr_scale`` into each parameter group (a
+        fill of its device tensor on the card); return ``schedule(step)``."""
+        lr = self.schedule(step)
         for group in self.optimizer.param_groups:
-            group["lr"] = lr * group["lr_scale"]
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(lr * group["lr_scale"])
+            else:
+                group["lr"] = lr * group["lr_scale"]
+        return lr
+
+    def _update(self) -> None:
+        """The clip, the optimizer's update and the EMA's, at the learning
+        rates the groups hold."""
         if self.grad_clip:
             clip_by_global_norm_(self.model.parameters(), self.grad_clip)
         self.optimizer.step()
         if self.ema_params is not None:
             self._ema_update()
-        self.step += 1
-        return lr
 
     @torch.no_grad()
     def _ema_update(self) -> None:
         """``e * decay + p * (1 - decay)`` for every parameter, in place, with
         ``decay`` and ``1 - decay`` in f32, as the JAX trainer's jitted
         ``_ema_update`` computes them (``decay`` reaches it as an f32
-        argument, so ``1 - 0.999`` is f32(1) - f32(0.999))."""
+        argument, so ``1 - 0.999`` is f32(1) - f32(0.999)).  ``decay`` is
+        filled on the device, so a CUDA graph can hold the update."""
         named = dict(self.model.named_parameters())
         shadow = list(self.ema_params.values())
-        decay = torch.tensor(self.ema_decay, dtype=torch.float32, device=shadow[0].device)
+        decay = torch.full((), self.ema_decay, dtype=torch.float32, device=shadow[0].device)
         torch._foreach_mul_(shadow, decay)
         torch._foreach_add_(shadow, torch._foreach_mul([named[n].detach() for n in self.ema_params], 1 - decay))
+
+    # -- the multi-step dispatch ----------------------------------------------
+    def training_steps_scanned(self, xs: torch.Tensor, targets_stacked) -> Dict[str, torch.Tensor]:
+        """K optimizer steps from one call: ``xs`` is (K, B, C, H, W) and
+        ``targets_stacked`` the targets (one head's, or a list of them) with
+        a leading K axis on every tensor.  Returns every step's metrics
+        stacked to (K,) on the model's device, under the keys of
+        :meth:`training_step` but ``trainer/learning_rate`` (as the JAX
+        trainer's), and advances :attr:`step` by K.  Calls no logger.
+
+        On a CUDA model the steps are replays of one captured CUDA graph
+        (the module docstring says how), each step's inputs copied into the
+        graph's static buffers (inputs on the host are moved to the card
+        first, which waits for them); a model whose step a graph cannot
+        hold raises, with the reason.  On a CPU model they run as a loop."""
+        if not isinstance(targets_stacked, list):
+            targets_stacked = [targets_stacked]
+        num_steps = xs.shape[0]
+        self.model.train()
+        self._apply_frozen_bn()
+        if next(self.model.parameters()).is_cuda:
+            stacked = self._replayed_steps(xs, targets_stacked)
+        else:
+            rows = []
+            for k in range(num_steps):
+                self._set_learning_rate(self.step)
+                rows.append(self._step_body(xs[k], _map_tree(lambda t: t[k], targets_stacked)))
+                self.step += 1
+            stacked = {key: torch.stack([row[key] for row in rows]) for key in rows[0]}
+        invalidate_packs()
+        return stacked
+
+    def _replayed_steps(self, xs: torch.Tensor, targets_stacked: list) -> Dict[str, torch.Tensor]:
+        device = next(self.model.parameters()).device
+        xs = xs.to(device, non_blocking=True)
+        targets_stacked = _map_tree(lambda t: t.to(device, non_blocking=True), targets_stacked)
+        num_steps, base, first = xs.shape[0], self.step, 0
+        x0, targets0 = xs[0], _map_tree(lambda t: t[0], targets_stacked)
+        signature = _map_tree(lambda t: (t.shape, t.dtype, t.device), [x0, targets0])
+        key = (signature, self.ema_params is not None, id(self.optimizer), self.grad_clip)
+        if self._graph is None or self._graph.key != key:
+            self._graph = None
+            self._check_capturable(device)
+            stream = torch.cuda.Stream(device)
+            eager = self._warm_step(stream, x0, targets0)
+            self.step, first = base + 1, 1
+            self._capture(stream, x0, targets0, key)
+        graph, groups = self._graph, self.optimizer.param_groups
+        rates = [[self.schedule(base + k) * g["lr_scale"] for g in groups] for k in range(num_steps)]
+        rates = torch.tensor(rates, dtype=torch.float32).pin_memory().to(xs.device, non_blocking=True)
+        out = torch.empty((num_steps, len(graph.keys)), dtype=torch.float32, device=xs.device)
+        if first:
+            out[0] = torch.stack([eager[k].float() for k in graph.keys])
+        for k in range(first, num_steps):
+            graph.x.copy_(xs[k])
+            _map_tree(lambda static, t: static.copy_(t[k]), graph.targets, targets_stacked)
+            for i, group in enumerate(groups):
+                group["lr"].copy_(rates[k, i])
+            graph.graph.replay()
+            out[k].copy_(graph.vector)
+        self.graph_stats["replays"] += num_steps - first
+        self.step = base + num_steps
+        return {k: out[:, i].to(dtype) for i, (k, dtype) in enumerate(zip(graph.keys, graph.dtypes))}
+
+    def _check_capturable(self, device: torch.device) -> None:
+        """Raise where a CUDA graph cannot hold this trainer's step."""
+        blockers = [name for name, m in self.model.named_modules() if isinstance(m, Dropout) and m.rate > 0]
+        if blockers:
+            raise NotImplementedError(
+                f"a CUDA graph cannot hold the active Dropout at {blockers}: it draws each mask from a host-side "
+                "count, so every replay would reuse one mask (ROADMAP.md, M9b: graph paths)")
+        for group in self.optimizer.param_groups:
+            if not (isinstance(group["lr"], torch.Tensor) and group["lr"].device == device):
+                raise RuntimeError(f"a CUDA graph needs each parameter group's learning rate as a tensor on {device}")
+
+    def _warm_step(self, stream: torch.cuda.Stream, x: torch.Tensor, targets: list) -> Dict[str, torch.Tensor]:
+        """Step ``self.step`` eagerly on ``stream``, the stream the capture
+        will use (the warm-up CUDA graphs ask for): it builds what a capture
+        must find built.  Returns its metrics."""
+        current = torch.cuda.current_stream(x.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            self._set_learning_rate(self.step)
+            metrics = self._step_body(x, targets)
+        current.wait_stream(stream)
+        self.graph_stats["eager_steps"] += 1
+        return metrics
+
+    def _capture(self, stream: torch.cuda.Stream, x: torch.Tensor, targets: list, key) -> None:
+        """Capture one step on static copies of ``(x, targets)`` into
+        :attr:`_graph`."""
+        static_x, static_targets = x.clone(), _map_tree(torch.clone, targets)
+        graph = torch.cuda.CUDAGraph()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(graph, stream=stream):
+                metrics = self._step_body(static_x, static_targets)
+                vector = torch.stack([v.float() for v in metrics.values()])
+        except RuntimeError as err:
+            raise RuntimeError(f"the training step could not be captured in a CUDA graph: {err}") from err
+        self.graph_stats["captures"] += 1
+        self.graph_stats["capture_s"] += time.perf_counter() - t0
+        self._graph = _StepGraph(key, graph, static_x, static_targets, vector, list(metrics),
+                                 [v.dtype for v in metrics.values()])
 
     def fit(
         self,
@@ -247,32 +420,47 @@ class Trainer:
     ) -> Dict[str, float]:
         """Step-driven fit loop over an iterator of ``(x, targets)``.
 
-        Every ``log_every`` steps the step's metrics become floats (the
-        only host syncs of the loop, apart from a logger's) with
+        ``steps_per_dispatch = K > 1`` stacks K batches (on their device)
+        and runs them through :meth:`training_steps_scanned`; after each
+        dispatch the logger gets its last step's metrics with
+        ``trainer/learning_rate`` at the step count the dispatch ends on, as
+        the JAX trainer logs them.  Every ``log_every`` steps (every
+        dispatch that crosses a multiple of it) the step's metrics become
+        floats (the only host syncs of the loop, apart from a logger's) with
         ``trainer/steps_per_sec``: the steps taken since the last log (or
         since the call began) over their time.  The JAX trainer divides
         ``log_every`` instead, which overstates the first reading of a call
-        that starts off the cadence.  Every ``val_every``
-        steps :meth:`validate` runs on ``val_data`` (re-iterated each
-        time); every ``checkpoint_every`` steps the train state is saved to
-        ``checkpoint_dir/step_N``, and once more when fitting ends.
-        Returns the last logged metrics with the last validation's."""
-        if steps_per_dispatch > 1:
-            raise _not_ported("steps_per_dispatch > 1 (the scanned multi-step dispatch)", "M9b")
+        that starts off the cadence.  Every ``val_every`` steps
+        :meth:`validate` runs on ``val_data`` (re-iterated each time); every
+        ``checkpoint_every`` steps the train state is saved to
+        ``checkpoint_dir/step_N``, and once more when fitting ends.  Returns
+        the last logged metrics with the last validation's."""
         it = iter(train_data)
         last_metrics: Dict[str, float] = {}
-        t0, since_log = time.perf_counter(), 0
-        for _ in range(num_steps):
-            x, targets = next(it)
-            metrics = self.training_step(x, targets)
-            since_log += 1
-            if self.step % log_every == 0:
-                last_metrics = {k: float(v) for k, v in metrics.items()}
+        t0, since_log, done = time.perf_counter(), 0, 0
+        while done < num_steps:
+            k = min(steps_per_dispatch, num_steps - done)
+            if steps_per_dispatch > 1:
+                batches = [next(it) for _ in range(k)]
+                xs = torch.stack([b[0] for b in batches])
+                targets = [b[1] if isinstance(b[1], list) else [b[1]] for b in batches]
+                scanned = self.training_steps_scanned(xs, _map_tree(lambda *ts: torch.stack(ts), *targets))
+                metrics = {key: v[-1] for key, v in scanned.items()}
+                metrics["trainer/learning_rate"] = self.schedule(self.step)
+                if self.logger is not None:
+                    self.logger({key: float(v) for key, v in metrics.items()}, self.step)
+            else:
+                x, targets = next(it)
+                metrics = self.training_step(x, targets)
+            done += k
+            since_log += k
+            if self.step % log_every < steps_per_dispatch:
+                last_metrics = {key: float(v) for key, v in metrics.items()}
                 last_metrics["trainer/steps_per_sec"] = since_log / max(time.perf_counter() - t0, 1e-9)
                 t0, since_log = time.perf_counter(), 0
-            if val_data is not None and val_every and self.step % val_every == 0:
+            if val_data is not None and val_every and self.step % val_every < steps_per_dispatch:
                 last_metrics.update(self.validate(val_data))
-            if checkpoint_every and checkpoint_dir and self.step % checkpoint_every == 0:
+            if checkpoint_every and checkpoint_dir and self.step % checkpoint_every < steps_per_dispatch:
                 self._save_checkpoint(checkpoint_dir)
         if checkpoint_every and checkpoint_dir:
             self._save_checkpoint(checkpoint_dir)
@@ -351,9 +539,10 @@ class Trainer:
 
     # -- state access (for checkpointing) ------------------------------------
     def sync_model(self) -> None:
-        """Nothing to do: the live model always holds the parameters.  (The
-        JAX trainer's scanned dispatch keeps them in a carry that this
-        writes back; the port's comes with ROADMAP.md M9b.)"""
+        """Nothing to do: the live parameters are always current.  A
+        scanned dispatch updates them in place, in the graph or in the loop,
+        where the JAX trainer's keeps them in a carry that this writes
+        back."""
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -378,12 +567,23 @@ class Trainer:
     @torch.no_grad()
     def load_state_dict(self, state) -> None:
         """Load a :meth:`state_dict` into the live model, optimizer and EMA
-        shadow, each by an in-place copy (strict on the model's keys)."""
+        shadow, each by an in-place copy (strict on the model's keys).  The
+        optimizer's state and learning rates are new tensors then, so a
+        captured step graph is dropped (the JAX trainer drops its scan
+        runner) and the next dispatch captures anew."""
+        self._graph = None
         self.model.load_state_dict(state["model"], strict=True)
+        rates = [g["lr"] for g in self.optimizer.param_groups]
         # the optimizer keeps loaded tensors that already sit on the right
         # device and dtype as they are; clone them, so that two trainers
         # never share optimizer state
         self.optimizer.load_state_dict(_clone_tensors(state["opt"]))
+        for group, rate in zip(self.optimizer.param_groups, rates):
+            # the learning rate stays a tensor on the card, a float on the CPU
+            if isinstance(rate, torch.Tensor):
+                group["lr"] = rate.copy_(torch.as_tensor(group["lr"]))
+            else:
+                group["lr"] = float(group["lr"])
         if self.ema_params is not None and "ema" in state:
             for name, e in self.ema_params.items():
                 e.copy_(state["ema"][name])

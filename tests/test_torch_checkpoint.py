@@ -13,8 +13,11 @@ random weights from a seed, bench.py's optimizer and an EMA at decay 0.9:
 * loading a live ``state_dict`` shares no optimizer state between two
   trainers;
 * ``use_ema_params`` then ``predict`` equals a model loaded from the shadow;
-* ``mesh``, ``spatial_partition``, ``viz_logger``, ``viz_every``,
-  ``remat`` and ``steps_per_dispatch > 1`` raise ``NotImplementedError``.
+* a fit in dispatches of 2 steps saves at its cadence, and a trainer
+  restored from its ``step_2`` and fitted in one more dispatch ends bitwise
+  where it ends;
+* ``mesh``, ``spatial_partition``, ``viz_logger``, ``viz_every`` and
+  ``remat`` raise ``NotImplementedError``.
 """
 
 import numpy as np
@@ -135,10 +138,14 @@ def test_arguments_not_ported_raise(kwargs):
         Trainer(None, **kwargs)
 
 
-def test_steps_per_dispatch_raises(setup):
+def test_scanned_fit_then_save_and_restore(setup, tmp_path):
     state, data = setup
-    trainer = Trainer(_port_model(state))
-    with pytest.raises(NotImplementedError, match="M9b"):
-        trainer.fit(data, num_steps=2, steps_per_dispatch=2)
-    trainer.sync_model()  # a no-op
-    assert trainer.step == 0
+    scanned = Trainer(_port_model(state), **OPTIMIZER)
+    scanned.fit(data, num_steps=4, steps_per_dispatch=2, checkpoint_every=2, checkpoint_dir=str(tmp_path), log_every=2)
+    assert sorted(p.name for p in tmp_path.iterdir()) == ["step_2", "step_4"]
+    scanned.sync_model()  # a no-op: the live parameters are current
+    resumed = Trainer(_port_model(state), **OPTIMIZER)
+    restore_checkpoint(resumed, str(tmp_path / "step_2"))
+    assert resumed.step == 2
+    resumed.fit(data[2:], num_steps=2, steps_per_dispatch=2, log_every=2)
+    _assert_state_equal(resumed.state_dict(), scanned.state_dict())

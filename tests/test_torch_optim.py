@@ -3,7 +3,11 @@ same gradients, fed to both for 3 steps, give the same parameters (f32,
 to 1e-6 absolute and 1e-5 relative: Adam's arithmetic in another order).
 Updates are compared, not gradients, since AdamW's first step hides a
 gradient's scale; the parameters start random so that weight decay shows
-on every kind of parameter."""
+on every kind of parameter.  Every optimizer (AdamW, Adam, SGD plain, with
+momentum and Nesterov, LAMB) and every schedule (multistep, cosine and
+one-cycle after a warmup, a callable) has a case; the learning rate of each
+step is held to optax's f32 value at 1e-5 relative.  Both models are built
+once for the module and take the same random parameters in each case."""
 
 import jax
 import jax.numpy as jnp
@@ -18,14 +22,15 @@ from sihl_tpu.heads import ObjectDetection as JaxObjectDetection
 from sihl_tpu.layers import FPN as JaxFPN
 from sihl_tpu.training import Trainer as JaxTrainer
 from sihl_tpu.training.optim import _path_keys
+from sihl_tpu.training.optim import make_schedule as jax_make_schedule
 from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.convert import state_dict_from_flat
 from sihl_tpu_torch.heads import ObjectDetection
 from sihl_tpu_torch.layers import FPN
 from sihl_tpu_torch.training import Trainer
-from sihl_tpu_torch.training.optim import param_labels
+from sihl_tpu_torch.training.optim import make_schedule, param_labels
 
-from torch_parity import flat_state
+from torch_parity import flat_state, numpy_filled
 
 CASES = {
     # bench.py's optimizer, with a clip that binds
@@ -42,6 +47,27 @@ CASES = {
         scheduler="multistep",
         scheduler_kwargs={"milestones": [1], "gamma": 0.5, "warmup": 1},
     ),
+    # SGD: the weight decay is given and, as in the JAX package, not applied
+    "sgd": dict(optimizer="sgd", optimizer_kwargs={"lr": 1e-2, "weight_decay": 0.1, "backbone_lr_factor": 0.1}),
+    "sgd_momentum_callable": dict(
+        optimizer="sgd",
+        optimizer_kwargs={"lr": 1e-2, "momentum": 0.9},
+        scheduler=lambda step: 1e-2 * 0.5**step,
+    ),
+    "sgd_nesterov_cosine": dict(
+        optimizer="sgd",
+        optimizer_kwargs={"lr": 1e-2, "momentum": 0.9, "nesterov": True, "backbone_lr_factor": 0.5},
+        scheduler="cosine",
+        scheduler_kwargs={"T_max": 4, "eta_min": 1e-3, "warmup": 1},
+    ),
+    # LAMB with decay in the decay groups and a clip that binds, one-cycle
+    "lamb_clipped_onecycle": dict(
+        optimizer="lamb",
+        optimizer_kwargs={"lr": 1e-2, "weight_decay": 0.1, "backbone_lr_factor": 0.1},
+        grad_clip=0.1,
+        scheduler="onecycle",
+        scheduler_kwargs={"total_steps": 5, "max_lr": 2e-2, "warmup": 1},
+    ),
 }
 
 
@@ -53,18 +79,31 @@ def _build(backbone, fpn, head, model, **init):
     return model(bb, neck, [od])
 
 
+@pytest.fixture(scope="module")
+def models():
+    """The JAX and port models, built once, and random parameters for them
+    (the JAX model from ``nnx.eval_shape``: every parameter is drawn here)."""
+    rng = np.random.RandomState(0)
+    jax_model = numpy_filled(nnx.eval_shape(
+        lambda: _build(JaxBackbone, JaxFPN, JaxObjectDetection, JaxSihlModel, rngs=nnx.Rngs(0))), 0)
+    params = jax.tree.map(lambda a: jnp.asarray(rng.uniform(-1, 1, a.shape), a.dtype), nnx.state(jax_model, nnx.Param))
+    nnx.update(jax_model, params)
+    model = _build(Backbone, FPN, ObjectDetection, SihlModel)
+    state = state_dict_from_flat(flat_state(jax_model))
+    return jax_model, params, model, state
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_optimizer_steps_match_optax(case):
+def test_optimizer_steps_match_optax(models, case):
     kwargs = CASES[case]
     rng = np.random.RandomState(0)
-    jax_model = _build(JaxBackbone, JaxFPN, JaxObjectDetection, JaxSihlModel, rngs=nnx.Rngs(0))
-    params = nnx.state(jax_model, nnx.Param)
-    nnx.update(jax_model, jax.tree.map(lambda a: jnp.asarray(rng.uniform(-1, 1, a.shape), a.dtype), params))
-    model = _build(Backbone, FPN, ObjectDetection, SihlModel)
-    model.load_state_dict(state_dict_from_flat(flat_state(jax_model)), strict=True)
+    jax_model, params, model, state = models
+    nnx.update(jax_model, params)
+    model.load_state_dict(state, strict=True)
     start = {n: p.detach().clone() for n, p in model.named_parameters()}
 
     jax_trainer = JaxTrainer(jax_model, **kwargs)
+    jax_update = nnx.jit(lambda optimizer, module, grads: optimizer.update(module, grads))
     trainer = Trainer(model, **kwargs)
     names = [n for n, _ in model.named_parameters()]
     for step in range(3):
@@ -74,7 +113,7 @@ def test_optimizer_steps_match_optax(case):
         jax_grads = jax.tree_util.tree_map_with_path(
             lambda path, a: jnp.asarray(_to_jax(grads[_port_name(path, a)])), nnx.state(jax_model, nnx.Param)
         )
-        jax_trainer.optimizer.update(jax_model, jax_grads)
+        jax_update(jax_trainer.optimizer, jax_model, jax_grads)
         lr = trainer.apply_gradients()
         assert lr == pytest.approx(float(jax_trainer.schedule(step)), rel=1e-5)  # optax in f32
 
@@ -89,6 +128,22 @@ def test_optimizer_steps_match_optax(case):
             assert torch.equal(p.detach(), start[n]), n
         else:
             assert not torch.equal(p.detach(), start[n]), n
+
+
+@pytest.mark.parametrize("scheduler, kwargs", [
+    ("cosine", {"decay_steps": 7, "eta_min": 1e-4}),
+    ("cosine", {"T_max": 5, "warmup": 3}),
+    ("onecycle", {"total_steps": 12}),
+    ("onecycle", {"total_steps": 10, "max_lr": 3e-2, "pct_start": 0.25, "div_factor": 10.0,
+                  "final_div_factor": 100.0, "warmup": 2}),
+], ids=["cosine", "cosine_warmup", "onecycle", "onecycle_custom_warmup"])
+def test_schedules_match_optax_over_their_whole_run(scheduler, kwargs):
+    """Every step of a schedule's run and past its end, against optax's
+    f32 values."""
+    want = jax_make_schedule(1e-2, scheduler, kwargs)
+    got = make_schedule(1e-2, scheduler, kwargs)
+    for step in range(16):
+        assert got(step) == pytest.approx(float(want(step)), rel=1e-5, abs=1e-12), step
 
 
 def _port_name(path, value) -> str:
