@@ -105,8 +105,8 @@ raises on failure:
    same metric keys, the largest mAP difference printed;
 20-22. fit: for the flagship, the instance model and the quadrilateral
    detector in bf16 at batch 16, 640 px, ``Trainer.fit`` of four steps (EMA
-   0.999) validating on two batches and saving a checkpoint every two
-   steps; one ``validate`` that must launch the path's kernels (K1f, K2, K3;
+   0.999) validating on two batches (the instance model on one) every two
+   steps and saving a checkpoint every two steps; one ``validate`` that must launch the path's kernels (K1f, K2, K3;
    K1f, K2, K3, K5f; K1f, K6; and K4 on each, since level 1 is frozen) and
    no backward kernel and must leave the
    running statistics alone; the final save restored into a fresh trainer
@@ -137,8 +137,9 @@ raises on failure:
    maps within 1e-5 relative; K4 and K3 must launch;
 29. dense serving: three bf16 requests of 16 images at 640 px, every head's
    outputs checked; K4 and K3 must launch;
-30. dense train slice: one f32 training step of four images on the card
-   against an f64 step on the CPU, as phase 25 (the depth head's ReLUs on
+30. dense train slice: one f32 training step of four 256 px images
+   (``SHORT_SLICE_SIZE``) on the card against an f64 step on the CPU, as
+   phase 25 (the depth head's ReLUs on
    the bins' mean and on the logits among the decisions taken from the
    card);
 31. dense training: five bf16 steps of 16 images (semantic classes with
@@ -149,11 +150,11 @@ raises on failure:
    backward kernel;
 33-37. the same five for the panoptic model: the f32 slice (class and
    instance-id maps equal but at explained ties), three bf16 requests
-   (K1f, K5f, K3 and K4 must launch), the f32 train slice against f64 (the
-   step counter equal on both sides after it), five bf16 steps on masks
-   (16, 100, 640, 640) (K1f, K1b, K2, K5f, K5b, K3 and K4 must launch), and
-   the fit, validating with PQ on the host; its checkpoint carries the
-   step counter;
+   (K1f, K5f, K3 and K4 must launch), the f32 train slice on four 256 px
+   images against f64 (the step counter equal on both sides after it),
+   five bf16 steps on masks (16, 100, 640, 640) (K1f, K1b, K2, K5f, K5b,
+   K3 and K4 must launch), and the fit, validating with PQ on the host;
+   its checkpoint carries the step counter;
 38-42. the same five for the canonical detector, after K1f, K1b and K2 at
    the shapes the two new models add (``new_path_kernels``): the f32
    serving slice as phase 4 (K4 and K1f must launch), three bf16 requests,
@@ -164,8 +165,8 @@ raises on failure:
    head's dropout at 0 (detections as phase 4, text tokens equal but at
    ties of the top two logits, depths and embeddings within 1e-5; K1f, K3
    and K4 must launch), three bf16 requests, the f32 train slice against
-   f64 (dropout 0; the text decoder's feed-forward ReLUs among the
-   decisions taken from the card), ten bf16 steps with the example's
+   f64 on four 256 px images (dropout 0; the text decoder's feed-forward
+   ReLUs among the decisions taken from the card), ten bf16 steps with the example's
    dropout 0.1 (K1f, K1b, K2, K3 and K4 must launch), and the fit, whose
    validations retrieve against the metric head's index of a third batch;
    its checkpoint carries the text head's dropout stream;
@@ -223,8 +224,8 @@ raises on failure:
 88-92. the same five for the ConvNeXt-T + FPN detector, its trunk held
    equal to the file's (the layer scales U(0.1, 0.5)): the f32 serving
    slice (scores within 1e-5 of the CPU's), three bf16 requests (K1f and
-   K3), the f32 train slice against f64 (the frozen patchify stem
-   differentiated), ten bf16 steps (K1f, K1b, K2, K3) and the fit, at the
+   K3), the f32 train slice on two 256 px images against f64 (the frozen
+   patchify stem differentiated), ten bf16 steps (K1f, K1b, K2, K3) and the fit, at the
    flagship's kernel shapes;
 93-96. the first four for the DenseNet-121 classifier at 224 px, its trunk
    held equal to the file's (whose ``norm5`` and classifier are skipped):
@@ -268,7 +269,20 @@ raises on failure:
    flagship in bf16 at batch 16, then a warm dispatch of 40 under
    ``torch.cuda.set_sync_debug_mode("error")`` (no host sync inside it),
    timed beside eager steps of the same trainer;
-114-117. the instance segmenter as 110-113, with K = 4 in bf16.
+114-117. the instance segmenter as 110-113, with K = 4 in bf16;
+118-153. the other eighteen models (``SCANNED_MODELS``: the quad model, the
+   classifier, the dense, panoptic, canonical and multitask models, the
+   autoencoder, the view-invariance, anomaly and keypoint models, the PAN,
+   ResNetV2, EfficientDet, MobileNetV3, ConvNeXt-T, DenseNet-121, DLA-34
+   and HRNetV2-W48 models), two phases each: 110-112's f32 check at its
+   model's full train-slice size (640 px for the dense, panoptic,
+   multitask and ConvNeXt models too; the multitask model with its
+   dropout 0.1, two replays' masks different and equal to the eager
+   steps' at the same count and to the CPU's; where a backward adds
+   atomically and two eager runs differ, each replay is held to
+   ``ATOMIC_TWINS`` eager steps from its own state, ``forced_step``), and
+   113's bf16 dispatch with K = 4 at
+   batch 16, each step one CUDA graph of its kernels.
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -288,6 +302,7 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -315,6 +330,7 @@ from sihl_tpu_torch.heads.anomaly_detection import hard_mined
 from sihl_tpu_torch.heads.semantic_segmentation import channel_max
 from sihl_tpu_torch.layers import CBAM, FPN, PAN, BiFPN, CrossCBAM, HybridEncoder, PadToMultipleOf
 from sihl_tpu_torch.layers.convblocks import BatchNorm2d, Conv2d, ConvNormAct, StandardConvNormAct
+from sihl_tpu_torch.layers.dropout import keep_mask
 from sihl_tpu_torch.layers.mlp import MLP, LayerNorm, Linear
 from sihl_tpu_torch.layers.transformer import _FeedForward
 from sihl_tpu_torch.ops.image import interpolate
@@ -327,8 +343,15 @@ from sihl_tpu_torch.tools import (probe_conv1x1, probe_conv3x3, probe_mlp_pipeli
                                   probe_wrt_filter)
 from sihl_tpu_torch.tools.probe_timing import card_name, cublas_products_ms, graph_ms, median_ms, within_one_bf16_step
 from sihl_tpu_torch.training import Trainer, restore_checkpoint, save_checkpoint
-from sihl_tpu_torch.training.trainer import _losses
+from sihl_tpu_torch.training.trainer import _losses, _map_tree
 from sihl_tpu_torch.utils import polygon_iou
+
+# the caching allocator's segments grow in place, as a user sets them for a
+# step whose eager peak nears the card's memory (``Trainer``'s docstring): a
+# capture cannot hand split pieces back to the card, and the autoencoder's
+# (63.5 GiB live at batch 16, 640 px) ran out of the 80 GB without it; read
+# when CUDA first allocates
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 BATCH, SIZE, NUM_CLASSES, WIDTH = 16, 640, 80, 256
 # anchors of levels 3-7 at 640 px: 80^2 + 40^2 + 20^2 + 10^2 + 5^2
@@ -374,6 +397,11 @@ MT_CLASSES, MT_TARGETS, MT_TOKENS, MT_LENGTH, MT_IDENTITIES = 10, 20, 30, 12, 8
 # factors (the autoencoder's 4 x 4 and the anomaly head's 8 x 8 map against
 # level 5's 10 x 10 and 5 x 5)
 SSL_SERVE_SIZE, SSL_TRAIN_SIZE = 320, 160
+# the dense, panoptic and multitask train slices (four images each) and the
+# ConvNeXt detector's (two) run at 256 px, where the CPU's f64 step took
+# about 34, 33, 28 and 23 s of their phases at 640 px: SPPM's pools
+# of 1, 2 and 4 still divide level 5's 8 x 8
+SHORT_SLICE_SIZE = 256
 # the anomaly example's noise patch (rows and columns 30-60 at 128 px),
 # scaled to 640 px; its pretraining pass takes 4 batches
 ANOMALY_PATCH, PRETRAIN_BATCHES = (150, 300), 4
@@ -412,11 +440,18 @@ OPTIMIZER = dict(
 # the scanned dispatch: bench.py's 40 steps a dispatch (bench.py:44-46) for
 # the flagship, 4 for the instance segmenter (its masks (16, 100, 640, 640)
 # take 2.6 GB a batch); the f32 checks take 3 steps of 2 images, and hold
-# the scanned run to twice the distance between two eager runs, or to these
-# floors where that distance is 0 (a relative loss; a parameter, a hundredth
+# the scanned run to twice the largest distance between eager runs, or to
+# these floors where that distance is 0 (a relative loss; a parameter, a hundredth
 # of the learning rate)
 FLAGSHIP_DISPATCH, INSTANCE_DISPATCH, CHECK_DISPATCH, CHECK_BATCH = 40, 4, 3, 2
 LOSS_FLOOR, PARAM_FLOOR = 1e-6, 1e-6
+# where a backward adds atomically (a bilinear resize's, a max pool's), two
+# eager runs of the check differ, and a third step's parameters can lie a
+# learning rate apart now and then (an outlier among eager runs as among
+# scanned ones: no bound of a few runs holds them); there the check holds
+# each replay to eager steps from the replay's own state (``forced_step``),
+# ``ATOMIC_TWINS`` of them, whose forward is the replay's bit for bit
+ATOMIC_TWINS = 4
 # every optimizer and schedule case of tests/test_torch_optim.py
 OPTIMIZER_FAMILY = {
     "adamw_clipped": dict(optimizer="adamw", grad_clip=0.1,
@@ -896,29 +931,29 @@ def dense_batch(batch: int, seed: int = 0, device="cuda", size: int = SIZE,
     return images.to(device), [semantic.to(device), {"targets": depth.to(device), "masks": masks.to(device)}]
 
 
-def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda"):
+def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda", size: int = SIZE):
     """Images (``varied_images``) and panoptic targets from a seeded numpy
-    generator: a semantic map (B, 640, 640) of stuff classes in [0, 53) in
+    generator: a semantic map (B, size, size) of stuff classes in [0, 53) in
     blocks of 32 x 32 px (about 5% void, 255) under 1-20 things per image
     (rectangles or ellipses, later ones on top, thing classes 53-132), and
     the things' padded targets as ``panoptic_targets_from_maps`` makes them
     from an instance-id map: classes (B, 100) in [0, 80), -1 padded, and
     binary f32 masks (B, 100, mask_size, mask_size) of the visible part of
-    each (every ``SIZE // mask_size``-th pixel; at the image's size by
+    each (every ``size // mask_size``-th pixel; at the image's size by
     default), drawn on ``device``."""
     rng = np.random.RandomState(seed)
-    images = varied_images(rng, batch)
-    blocks = rng.randint(0, STUFF_CLASSES, (batch, SIZE // 32, SIZE // 32))
+    images = varied_images(rng, batch, size)
+    blocks = rng.randint(0, STUFF_CLASSES, (batch, size // 32, size // 32))
     blocks[rng.rand(*blocks.shape) < 0.05] = VOID
     semantic = torch.from_numpy(blocks.repeat(32, axis=1).repeat(32, axis=2)).to(device)
-    ids = torch.zeros(batch, SIZE, SIZE, dtype=torch.int64, device=device)
+    ids = torch.zeros(batch, size, size, dtype=torch.int64, device=device)
     classes = np.full((batch, MAX_TARGETS), -1, np.int64)
     for b in range(batch):
         n = rng.randint(1, 21)
         classes[b, :n] = rng.randint(0, THING_CLASSES, n)
         for t in range(n):
-            h, w = rng.randint(SIZE // 40, SIZE // 4, 2) + 1
-            y, x = rng.randint(0, SIZE - h), rng.randint(0, SIZE - w)
+            h, w = rng.randint(size // 40, size // 4, 2) + 1
+            y, x = rng.randint(0, size - h), rng.randint(0, size - w)
             inside = torch.ones(h, w, dtype=torch.bool, device=device)
             if rng.rand() >= 0.5:
                 yy = torch.arange(h, device=device)[:, None] - (h - 1) / 2
@@ -927,7 +962,7 @@ def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda")
             ids[b, y : y + h, x : x + w] = torch.where(inside, t + 1, ids[b, y : y + h, x : x + w])
             semantic[b, y : y + h, x : x + w] = torch.where(
                 inside, STUFF_CLASSES + int(classes[b, t]), semantic[b, y : y + h, x : x + w])
-    step = SIZE // (mask_size or SIZE)
+    step = size // (mask_size or size)
     slots = torch.arange(1, MAX_TARGETS + 1, device=device)[None, :, None, None]
     masks = (ids[:, None, ::step, ::step] == slots).float()
     classes = torch.from_numpy(classes).to(device)
@@ -935,7 +970,7 @@ def panoptic_batch(batch: int, seed: int = 0, mask_size: int = 0, device="cuda")
     return images.to(device), {"semantic": semantic, "classes": classes, "masks": masks}
 
 
-def multitask_batch(batch: int, seed: int = 0, device="cuda"):
+def multitask_batch(batch: int, seed: int = 0, device="cuda", size: int = SIZE):
     """Images (``varied_images``: the text head's train-mode BatchNorm runs on
     each image's mean over the pixels) and the multitask model's four
     targets from a seeded numpy generator, as ``examples/multitask.py:39-61``
@@ -944,20 +979,20 @@ def multitask_batch(batch: int, seed: int = 0, device="cuda"):
     0.1 + 9.9 x the image's mean over its channels (over 1.75) with about 10%
     of the pixels invalid, and identities in [0, 8)."""
     rng = np.random.RandomState(seed)
-    images = varied_images(rng, batch)
+    images = varied_images(rng, batch, size)
     classes = np.full((batch, MT_TARGETS), -1, np.int64)
     gt = np.zeros((batch, MT_TARGETS, 4), np.float32)
     texts = np.full((batch, MT_LENGTH), MT_TOKENS, np.int64)
     for b in range(batch):
         n = rng.randint(1, MT_TARGETS + 1)
         classes[b, :n] = rng.randint(0, MT_CLASSES, n)
-        xy = rng.rand(n, 2) * (SIZE - 64)
+        xy = rng.rand(n, 2) * (size - 64)
         wh = rng.rand(n, 2) * 128 + 8
         gt[b, :n] = np.concatenate([xy, xy + wh], axis=1)
         length = rng.randint(1, MT_LENGTH)
         texts[b, :length] = rng.randint(0, MT_TOKENS, length)
     depth = images.mean(dim=1) / 1.75 * 9.9 + DEPTH_RANGE[0]
-    masks = torch.from_numpy(rng.rand(batch, SIZE, SIZE) > 0.1)
+    masks = torch.from_numpy(rng.rand(batch, size, size) > 0.1)
     depth = torch.where(masks, depth, 0.0)
     ids = torch.from_numpy(rng.randint(0, MT_IDENTITIES, batch))
     det = {"classes": torch.from_numpy(classes).to(device), "boxes": torch.from_numpy(gt).to(device)}
@@ -3140,7 +3175,7 @@ def dense_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     model.eval()
     check_dense_slice(model, gen)
     launches = {"dense_serve": serve_phase(model, build_dense, cuda_gen, DENSE_KERNELS, "dense serving")}
-    check_train_slice(model, gen, build_dense, dense_batch(4, seed=1), "dense train slice")
+    check_train_slice(model, gen, build_dense, dense_batch(4, seed=1, size=SHORT_SLICE_SIZE), "dense train slice")
     del model
     launches["dense_train"] = train(build_dense, dense_batch(BATCH), DENSE_KERNELS, steps=DENSE_STEPS,
                                     label="dense training")
@@ -3160,7 +3195,8 @@ def panoptic_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     model.eval()
     check_panoptic_slice(model, gen)
     launches = {"panoptic_serve": serve_phase(model, build_panoptic, cuda_gen, PANOPTIC_SERVE, "panoptic serving")}
-    check_train_slice(model, gen, build_panoptic, panoptic_batch(4, seed=1, mask_size=SIZE // 2),
+    check_train_slice(model, gen, build_panoptic,
+                      panoptic_batch(4, seed=1, mask_size=SHORT_SLICE_SIZE // 2, size=SHORT_SLICE_SIZE),
                       "panoptic train slice")
     del model
     launches["panoptic_train"] = train(build_panoptic, panoptic_batch(BATCH), PANOPTIC_TRAIN, steps=DENSE_STEPS,
@@ -3259,7 +3295,8 @@ def multitask_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
     model.eval()
     check_multitask_slice(model, gen)
     launches = {"multitask_serve": serve_phase(model, build_multitask, cuda_gen, MT_SERVE, "multitask serving")}
-    check_train_slice(model, gen, build_multitask_still, multitask_batch(4, seed=1), "multitask train slice")
+    check_train_slice(model, gen, build_multitask_still, multitask_batch(4, seed=1, size=SHORT_SLICE_SIZE),
+                      "multitask train slice")
     del model
     launches["multitask_train"] = train(build_multitask, multitask_batch(BATCH), MT_TRAIN, label="multitask training")
     launches["multitask_validate"] = fit_phase(
@@ -3906,7 +3943,8 @@ def convnext_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
         model.eval()
         check_slice(model, gen, "convnext slice", kernels=MNV3_SERVE, score_tol=1e-5)
         launches = {"convnext_serve": serve_phase(model, build_convnext, cuda_gen, MNV3_SERVE, "convnext serving")}
-        check_train_slice(model, gen, build_convnext, training_batch(2, seed=1), "convnext train slice")
+        check_train_slice(model, gen, build_convnext, training_batch(2, seed=1, size=SHORT_SLICE_SIZE),
+                          "convnext train slice")
         del model
         launches["convnext_train"] = train(build_convnext, training_batch(BATCH), MNV3_TRAIN,
                                            label="convnext training")
@@ -4054,79 +4092,195 @@ def optimizer_family_phase(gen: torch.Generator) -> None:
 
 
 def stack_batches(batches):
-    """(xs, targets) of one dispatch: the batches' images and target dicts
-    stacked on a new leading axis."""
-    return torch.stack([x for x, _ in batches]), {k: torch.stack([t[k] for _, t in batches]) for k in batches[0][1]}
+    """(xs, targets) of one dispatch: the batches' images and targets (a
+    tensor, a dict or list of them, or None) stacked on a new leading
+    axis, as ``Trainer.fit`` stacks them."""
+    targets = [t if isinstance(t, list) else [t] for _, t in batches]
+    return torch.stack([x for x, _ in batches]), _map_tree(lambda *ts: torch.stack(ts), *targets)
 
 
 def run_state(trainer: Trainer) -> dict:
-    """A trainer's parameters and EMA shadow, on the host in f64."""
-    out = {f"param.{n}": p.detach().double().cpu() for n, p in trainer.model.named_parameters()}
-    out.update({f"ema.{n}": e.double().cpu() for n, e in (trainer.ema_params or {}).items()})
+    """A copy of a trainer's parameters and EMA shadow, on its device."""
+    out = {f"param.{n}": p.detach().clone() for n, p in trainer.model.named_parameters()}
+    out.update({f"ema.{n}": e.clone() for n, e in (trainer.ema_params or {}).items()})
     return out
 
 
 def run_distance(a, b) -> tuple:
     """(the largest relative distance between two runs' per-step metrics,
-    the largest absolute distance between their parameters and EMA)."""
+    the largest absolute distance between their parameters and EMA), in
+    f64 on the device, read with one wait."""
     (metrics_a, state_a), (metrics_b, state_b) = a, b
-    loss = max(float(((metrics_a[k].double() - metrics_b[k].double()).abs()
-                      / metrics_b[k].double().abs().clamp(min=1e-12)).max()) for k in metrics_b)
-    param = max(float((state_a[k] - state_b[k]).abs().max()) for k in state_b)
-    return loss, param
+    loss = torch.stack([((metrics_a[k].double() - metrics_b[k].double()).abs()
+                         / metrics_b[k].double().abs().clamp(min=1e-12)).max() for k in metrics_b]).max()
+    param = torch.stack([(state_a[k].double() - state_b[k].double()).abs().max() for k in state_b]).max()
+    return tuple(torch.stack([loss, param]).tolist())
 
 
-def scanned_check(build, batches, label: str, kernels) -> None:
-    """Phases 110-112 and 114-116: K = ``len(batches)`` steps of a freshly
-    built f32 model (``freeze_trunk``, bench.py's optimizer, EMA 0.999) under
-    ``full_f32`` with cuDNN deterministic, from the same weights:
-    two eager runs (``training_step``) and one ``training_steps_scanned``;
-    the scanned run's per-step metrics and final parameters and EMA must lie
-    within twice the distance between the eager runs (or ``LOSS_FLOOR`` and
-    ``PARAM_FLOOR`` where that is 0).  Then a ``predict`` (which caches the
-    K1 packs), a second dispatch (replays only: no parameter's ``_version``
-    moves), and ``predict`` and ``validate`` against a fresh model loaded
-    from the trainer's state (bitwise); then a save, a restore into a new
-    trainer and one more dispatch on both, within the same bounds.  Every
-    kernel in ``kernels`` must launch in the first dispatch."""
-    t0 = time.perf_counter()
+def same_metrics(a: dict, b: dict) -> bool:
+    """Two metric dicts equal, a NaN equal to a NaN."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (isinstance(a[k], float) and math.isnan(a[k]) and math.isnan(b[k])) for k in a)
+
+
+class MaskTap:
+    """Records the masks that a ``Dropout`` applies: each eager call's in
+    :attr:`eager`, and the last two calls' in :attr:`ring` on the card, by
+    copies that a CUDA graph holding the call replays."""
+
+    def __init__(self, dropout):
+        self.eager, self.ring = [], None
+        dropout.register_forward_hook(self)
+
+    def __call__(self, module, inputs, output):
+        keep = output != 0
+        if self.ring is None:
+            self.ring = torch.zeros((2, *keep.shape), dtype=torch.bool, device=keep.device)
+        self.ring[0].copy_(self.ring[1])
+        self.ring[1].copy_(keep)
+        if not torch.cuda.is_current_stream_capturing():
+            self.eager.append(keep.clone())
+
+
+def check_replayed_masks(eager_tap: MaskTap, scanned_tap: MaskTap, dropout, label: str) -> str:
+    """The scanned dispatch's last two replays (counts K - 2 and K - 1) drew
+    different masks, each the mask an eager step drew at that count, and
+    the card's mask at K - 1 is the CPU's (``keep_mask``) bit for bit."""
+    count = int(dropout.count)
+    last = scanned_tap.ring
+    want_cpu = keep_mask(dropout.seed, torch.tensor(count - 1), last.shape[1:], dropout.rate)
+    checks = {
+        "replays differ": not torch.equal(last[0], last[1]),
+        "equal to the eager steps'": torch.equal(last[0], eager_tap.eager[count - 2])
+        and torch.equal(last[1], eager_tap.eager[count - 1]),
+        "equal to the CPU's": torch.equal(last[1].cpu(), want_cpu),
+    }
+    if not all(checks.values()):
+        raise AssertionError(f"{label}: the dropout masks of the replays at counts {count - 2}, {count - 1}: {checks}")
+    kept = float(last.float().mean())
+    return (f"dropout {dropout.rate}: the replays at counts {count - 2} and {count - 1} drew different masks, each "
+            f"the eager step's at its count and the CPU's, {kept:.4f} kept")
+
+
+def check_models(build, prepare=None) -> Callable:
+    """A function that makes fresh f32 models of one seeded build of
+    ``build`` (``prepare(model)`` run on it first: the anomaly model's
+    teacher statistics and pretraining), each with ``freeze_trunk``."""
     with compute_dtype_scope(torch.float32):
         base = build(torch.Generator().manual_seed(6))
-    state = base.state_dict()
-    del base
+    if prepare is not None:
+        prepare(base)
 
     def fresh_model():
-        with compute_dtype_scope(torch.float32):
-            model = build(torch.Generator().manual_seed(7))
-        model.load_state_dict(state)
+        model = copy.deepcopy(base)  # the same state as a build loaded from ``base``'s, without the build
         freeze_trunk(model)
         return model
+
+    return fresh_model
+
+
+def eager_run(trainer: Trainer, batches) -> tuple:
+    """(per-step metrics stacked, ``run_state``) of ``training_step`` on
+    each of ``batches``, as ``training_steps_scanned`` returns them."""
+    rows = [trainer.training_step(x, t) for x, t in batches]
+    return ({k: torch.stack([r[k] for r in rows]) for k in rows[0] if k != "trainer/learning_rate"},
+            run_state(trainer))
+
+
+def forced_step(trainers, batch, twins: int, fresh_trainer) -> tuple:
+    """One step on ``batch`` of each of ``trainers``, which hold one state
+    (a dispatch of one step: a replay where the trainer holds a graph),
+    against ``twins`` eager steps of fresh trainers loaded from that state
+    (``Trainer.load_state_dict``).  Returns each trainer's distance from the
+    first twin (``run_distance``) and the bounds: twice the widest distance
+    between two twins, or ``LOSS_FLOOR`` and ``PARAM_FLOOR`` where it is 0."""
+    state = trainers[0].state_dict()
+    runs = []
+    for _ in range(twins):
+        twin = fresh_trainer()
+        twin.load_state_dict(state)
+        runs.append(eager_run(twin, [batch]))
+        del twin
+    pairs = [run_distance(a, b) for i, a in enumerate(runs) for b in runs[i + 1:]]
+    bounds = tuple(max(2 * max(d), floor) for d, floor in zip(zip(*pairs), (LOSS_FLOOR, PARAM_FLOOR)))
+    xs, ts = stack_batches([batch])
+    return [run_distance((t.training_steps_scanned(xs, ts), run_state(t)), runs[0]) for t in trainers], bounds
+
+
+def scanned_check(build, batches, label: str, kernels, prepare=None, prepare_validate=None, dropout_path=None,
+                  twins: int = 0) -> None:
+    """Phases 110-112, 114-116 and one of each model's two in 118-153: K =
+    ``len(batches)`` steps of a freshly built f32 model (``check_models``,
+    bench.py's optimizer, EMA 0.999) under ``full_f32`` with cuDNN
+    deterministic, from the same weights: two eager runs
+    (``training_step``) and one ``training_steps_scanned``; the scanned
+    run's per-step metrics and final parameters and EMA must lie within
+    twice the distance between the eager runs (``LOSS_FLOOR`` and
+    ``PARAM_FLOOR`` where that is 0) of the first eager run.  With
+    ``twins`` (a backward that adds atomically) one eager run, whose
+    distance is printed, and instead each of K more replays, one a
+    dispatch, lies within ``forced_step``'s bounds of ``twins`` eager steps
+    from its own state.  Then a ``predict`` (which caches the K1 packs), a
+    second dispatch (replays only: no parameter's ``_version`` moves), and
+    ``predict`` and ``validate`` against a fresh model loaded from the
+    trainer's state (bitwise; ``prepare_validate(trainer)`` runs before
+    each validate: the multitask model's retrieval index); then a save, a
+    restore into a new trainer and one more dispatch on both, within the
+    same bounds (with ``twins``, one step on both, each within
+    ``forced_step``'s bounds).  Every kernel in ``kernels`` must launch in
+    the first dispatch.  With ``dropout_path``, the dotted path of a
+    model's ``Dropout``, the first dispatch's replays are held to the masks
+    of the first eager run (``check_replayed_masks``)."""
+    t0 = time.perf_counter()
+    fresh_model = check_models(build, prepare)
 
     def fresh_trainer():
         return Trainer(fresh_model(), ema_decay=0.999, **OPTIMIZER)
 
+    def tap(trainer):
+        return MaskTap(trainer.model.get_submodule(dropout_path)) if dropout_path else None
+
+    def refuse(what, errs, bounds):
+        if any(e[0] > bounds[0] or e[1] > bounds[1] for e in errs):
+            raise AssertionError(f"{label}: {what} lie {[tuple(f'{v:.3g}' for v in e) for e in errs]} (metrics, "
+                                 f"relative; parameters) from the eager steps; bounds {bounds[0]:.3g}, {bounds[1]:.3g}")
+
     xs, ts = stack_batches(batches)
     with full_f32(), cudnn_deterministic():
         eager = []
-        for _ in range(2):
+        for run in range(1 if twins else 2):
             trainer = fresh_trainer()
-            rows = [trainer.training_step(x, t) for x, t in batches]
-            eager.append(({k: torch.stack([r[k] for r in rows]) for k in rows[0] if k != "trainer/learning_rate"},
-                          run_state(trainer)))
+            if run == 0:
+                eager_tap = tap(trainer)
+            eager.append(eager_run(trainer, batches))
         del trainer
-        loss_bound, param_bound = (max(2 * d, floor) for d, floor in
-                                   zip(run_distance(*eager), (LOSS_FLOOR, PARAM_FLOOR)))
         scanned = fresh_trainer()
+        scanned_tap = tap(scanned)
         reset_counts()
         metrics = scanned.training_steps_scanned(xs, ts)
         launches = read_counts(kernels)
         if sorted(metrics) != sorted(eager[0][0]) or any(n == 0 for n in launches.values()):
             raise AssertionError(f"{label}: the dispatch's metrics {sorted(metrics)}, its kernel launches {launches}")
-        loss_err, param_err = run_distance((metrics, run_state(scanned)), eager[0])
-        eager_dist = run_distance(*eager)
-        if loss_err > loss_bound or param_err > param_bound:
-            raise AssertionError(f"{label}: the scanned steps lie {loss_err:.3g} (metrics, relative) and {param_err:.3g}"
-                                 f" (parameters) from the eager steps; bounds {loss_bound:.3g}, {param_bound:.3g}")
+        scanned_err = run_distance((metrics, run_state(scanned)), eager[0])
+        masks = (check_replayed_masks(eager_tap, scanned_tap, scanned.model.get_submodule(dropout_path), label) + "; "
+                 if dropout_path else "")
+        if twins:
+            forced = [forced_step([scanned], batch, twins, fresh_trainer) for batch in batches]
+            for errs, bounds in forced:
+                refuse("the replays from their own states", errs, bounds)
+            errs = [errs[0] for errs, _ in forced]
+            bounds = tuple(max(b[i] for _, b in forced) for i in range(2))
+            checked = (f"{len(forced)} replays, each a dispatch, against {twins} eager steps from its state "
+                       f"{max(e[0] for e in errs):.3g} (metrics, relative), {max(e[1] for e in errs):.3g} "
+                       f"(parameters and EMA), bounds at most {bounds[0]:.3g}, {bounds[1]:.3g}; the first dispatch "
+                       f"{scanned_err[0]:.3g}, {scanned_err[1]:.3g} from the eager run (not bounded)")
+        else:
+            eager_dist = run_distance(*eager)
+            bounds = tuple(max(2 * d, floor) for d, floor in zip(eager_dist, (LOSS_FLOOR, PARAM_FLOOR)))
+            refuse("the scanned steps", [scanned_err], bounds)
+            checked = (f"scanned against the first eager run {scanned_err[0]:.3g} (metrics, relative), "
+                       f"{scanned_err[1]:.3g} (parameters and EMA); the eager runs {eager_dist[0]:.3g}, "
+                       f"{eager_dist[1]:.3g} apart; bounds {bounds[0]:.3g}, {bounds[1]:.3g}")
 
         # predict and validate after a dispatch of replays only
         images = batches[0][0]
@@ -4139,39 +4293,47 @@ def scanned_check(build, batches, label: str, kernels) -> None:
             want = reference.eval()(images)
         if not states_equal(to_cpu(list(got)), to_cpu(list(want))):
             raise AssertionError(f"{label}: predict after a dispatch differs from a fresh model's")
-        got_valid = scanned.validate(batches[:1])
-        want_valid = Trainer(reference, **OPTIMIZER).validate(batches[:1])
-        if got_valid != want_valid:
+        validators = [scanned, Trainer(reference, **OPTIMIZER)]
+        for trainer in validators if prepare_validate else ():
+            prepare_validate(trainer)
+        got_valid, want_valid = (trainer.validate(batches[:1]) for trainer in validators)
+        if not same_metrics(got_valid, want_valid):
             raise AssertionError(f"{label}: validate after a dispatch gives {got_valid}, a fresh model {want_valid}")
-        del reference
+        del reference, validators
 
         # a save after a dispatch, restored; one more dispatch on both
         with tempfile.TemporaryDirectory() as ckpt_dir:
             save_checkpoint(scanned, os.path.join(ckpt_dir, "ckpt"))
             restored = fresh_trainer()
             restore_checkpoint(restored, os.path.join(ckpt_dir, "ckpt"))
-        after = scanned.training_steps_scanned(xs, ts)
-        restored_after = restored.training_steps_scanned(xs, ts)
-        restore_err = run_distance((restored_after, run_state(restored)), (after, run_state(scanned)))
-        if restore_err[0] > loss_bound or restore_err[1] > param_bound or restored.step != scanned.step:
-            raise AssertionError(f"{label}: after a restore the dispatch lies {restore_err} from the original's; "
-                                 f"bounds {loss_bound:.3g}, {param_bound:.3g}")
+        if twins:
+            errs, restore_bounds = forced_step([scanned, restored], batches[0], twins, fresh_trainer)
+            refuse("after a restore, a replay and the restored trainer's step", errs, restore_bounds)
+            restore_err = tuple(max(e[i] for e in errs) for i in range(2))
+        else:
+            after = scanned.training_steps_scanned(xs, ts)
+            restored_after = restored.training_steps_scanned(xs, ts)
+            restore_err = run_distance((restored_after, run_state(restored)), (after, run_state(scanned)))
+            refuse("after a restore, the dispatch's steps", [restore_err], bounds)
+        if restored.step != scanned.step:
+            raise AssertionError(f"{label}: after a restore the steps are {restored.step}, {scanned.step}")
     stats = scanned.graph_stats
-    print(f"  {label} f32, {CHECK_BATCH} images at {SIZE} px, K = {len(batches)}: scanned against eager "
-          f"{loss_err:.3g} (metrics, relative), {param_err:.3g} (parameters and EMA); two eager runs "
-          f"{eager_dist[0]:.3g}, {eager_dist[1]:.3g}; bounds {loss_bound:.3g}, {param_bound:.3g}; predict and "
-          f"validate after a dispatch of replays equal a fresh model's; after a save and restore one more dispatch "
-          f"{restore_err[0]:.3g}, {restore_err[1]:.3g} from the original's; losses "
+    print(f"  {label} f32, {images.shape[0]} images at {images.shape[-1]} px, K = {len(batches)}: {checked}; "
+          f"{masks}predict and validate after a dispatch of replays equal a fresh model's; after a save and restore "
+          f"one more {'step' if twins else 'dispatch'} {restore_err[0]:.3g}, {restore_err[1]:.3g} from "
+          f"{'the eager steps' if twins else 'the original'}; losses "
           f"{[round(float(v), 5) for v in metrics['trainer/loss']]}; capture {stats['capture_s']:.2f} s; first "
           f"dispatch's kernel launches {launches} (its eager step's and the capture's); "
           f"{time.perf_counter() - t0:.1f} s [{card_name()}]")
 
 
-def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_steps: int = 6) -> dict:
-    """Phases 113 and 117: ``Trainer.fit(steps_per_dispatch=dispatch)`` of
-    bf16 steps on ``batch`` (16 images at 640 px, ``freeze_trunk``, bench.py's
-    optimizer) after ``eager_steps`` timed eager steps of the same trainer,
-    then one warm dispatch of ``dispatch`` steps under
+def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_steps: int = 6, prepare=None) -> dict:
+    """Phases 113, 117 and one of each model's two in 118-153:
+    ``Trainer.fit(steps_per_dispatch=dispatch)`` of bf16 steps on ``batch``
+    (16 images at the model's size, ``freeze_trunk``, bench.py's optimizer;
+    ``prepare(trainer)`` first: the anomaly model's pretraining) after
+    ``eager_steps`` timed eager steps of the same trainer, then one warm
+    dispatch of ``dispatch`` steps under
     ``torch.cuda.set_sync_debug_mode("error")`` (any host sync inside it
     raises), timed on the host clock to its end.  Prints step ms and
     images/s (eager: the median of steps 3-``eager_steps``; scanned: the
@@ -4182,25 +4344,29 @@ def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_st
     step are the first dispatch's counts over 2, and the path's launches
     are those times the steps run (eager and replayed).  Every kernel in
     ``kernels`` must launch.  Returns the path's launches."""
+    t0 = time.perf_counter()
     with compute_dtype_scope(torch.bfloat16):
         model = build(torch.Generator().manual_seed(2))
     freeze_trunk(model)
     trainer = Trainer(model, **OPTIMIZER)
+    if prepare is not None:
+        prepare(trainer)
     images, targets = batch
     times = []
     for _ in range(eager_steps):
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         trainer.training_step(images, targets)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+        times.append(time.perf_counter() - t1)
     eager_ms = statistics.median(times[2:]) * 1000
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()  # the eager steps' cache out of the reserved peak
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    t0 = time.perf_counter()
+    t1 = time.perf_counter()
     result = trainer.fit([batch] * dispatch, num_steps=dispatch, steps_per_dispatch=dispatch, log_every=dispatch)
     torch.cuda.synchronize()
-    first_s = time.perf_counter() - t0
+    first_s = time.perf_counter() - t1
     counts = read_counts(kernels)
     if any(n == 0 or n % 2 for n in counts.values()) or not math.isfinite(result["trainer/loss"]):
         raise AssertionError(f"{label}: the first dispatch's kernel launches {counts}, its metrics {result}")
@@ -4209,11 +4375,11 @@ def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_st
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        t0 = time.perf_counter()
+        t1 = time.perf_counter()
         metrics = trainer.training_steps_scanned(xs, ts)
-        launched_s = time.perf_counter() - t0
+        launched_s = time.perf_counter() - t1
         torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        warm_s = time.perf_counter() - t1
     finally:
         torch.cuda.set_sync_debug_mode("default")
     losses = metrics["trainer/loss"].tolist()
@@ -4224,15 +4390,18 @@ def scanned_fit_phase(build, batch, dispatch: int, kernels, label: str, eager_st
     launches = {name: n * steps_run for name, n in per_step.items()}
     step_ms = warm_s / dispatch * 1000
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    reserved_gib = torch.cuda.max_memory_reserved() / 2**30
     print(f"  {label} bf16, batch {BATCH} at {images.shape[-1]} px: fit(steps_per_dispatch={dispatch}) "
           f"{first_s:.2f} s for its first dispatch (an eager step, the capture {stats['capture_s']:.2f} s, "
           f"{dispatch - 1} replays), loss {result['trainer/loss']:.4f}; a warm dispatch of {dispatch} with no host "
           f"sync (sync debug mode \"error\") {warm_s:.3f} s, its host returning after {launched_s:.3f} s: "
           f"scanned step {step_ms:.3f} ms, {BATCH * 1000 / step_ms:.2f} images/s; eager step of the same trainer "
           f"{eager_ms:.3f} ms, {BATCH * 1000 / eager_ms:.2f} images/s (median of steps 3-{eager_steps}); peak "
-          f"memory {peak_gib:.2f} GiB [{card_name()}]; kernels launched a step {per_step} (counted at the capture), "
+          f"memory {peak_gib:.2f} GiB ({reserved_gib:.2f} GiB reserved) [{card_name()}]; kernels launched a step "
+          f"{per_step} (counted at the capture), "
           f"times {steps_run} steps run: {launches}; losses of the warm dispatch "
-          f"{[round(v, 4) for v in losses[:2]]} ... {[round(v, 4) for v in losses[-2:]]}")
+          f"{[round(v, 4) for v in losses[:2]]} ... {[round(v, 4) for v in losses[-2:]]}; "
+          f"{time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4250,6 +4419,157 @@ def scanned_phases(gen: torch.Generator, cuda_gen: torch.Generator) -> dict:
                   "instance scanned check", INSTANCE_TRAIN_KERNELS)
     launches["instance_train_scanned"] = scanned_fit_phase(build_instance, instance_batch(BATCH), INSTANCE_DISPATCH,
                                                            INSTANCE_TRAIN_KERNELS, "instance scanned dispatch")
+    return launches
+
+
+def anomaly_prepare(model: SihlModel) -> None:
+    """A ``scanned_check`` ``prepare`` for the anomaly model: its teacher's
+    statistics and pretraining over ``PRETRAIN_BATCHES`` batches of 2 at
+    ``SSL_TRAIN_SIZE`` px, as ``pretrained_teacher`` runs them."""
+    batches = [anomaly_batch(CHECK_BATCH, seed=10 + i, size=SSL_TRAIN_SIZE) for i in range(PRETRAIN_BATCHES)]
+    pretrained_teacher(batches)(Trainer(model, **OPTIMIZER))
+
+
+class ScannedModel(NamedTuple):
+    """One model of phases 118-153: its key in the kernel summary's paths
+    (``<key>_train_scanned``), the label its lines print, its builder, its
+    f32 check's batch and its bf16 batch of 16 from a seed, the kernels its
+    step launches, the pretrained file its builder reads (an arch, or None),
+    whether two eager runs of its f32 check differ (a backward that adds
+    atomically: the check then holds each replay to ``ATOMIC_TWINS`` eager
+    steps from its own state) and
+    functions that make the extra arguments of ``scanned_check`` and
+    ``scanned_fit_phase``."""
+
+    key: str
+    label: str
+    build: Callable
+    check_batch: Callable
+    fit_batch: Callable
+    kernels: tuple
+    arch: Optional[str] = None
+    atomic: bool = False
+    check_extras: Callable = dict
+    fit_extras: Callable = dict
+
+
+SCANNED_MODELS = (
+    ScannedModel("quad", "quad", build_quad, lambda s: quad_batch(CHECK_BATCH, seed=s), lambda: quad_batch(BATCH),
+                 ("fused_mlp", "fused_mlp_backward", "weighted_sum", "stem_conv_stats"), atomic=True),
+    ScannedModel("classifier", "classifier", build_classifier, lambda s: classifier_batch(CHECK_BATCH, seed=s),
+                 lambda: classifier_batch(BATCH), K4_ONLY),
+    ScannedModel("dense", "dense", build_dense, lambda s: dense_batch(CHECK_BATCH, seed=s),
+                 lambda: dense_batch(BATCH), DENSE_KERNELS, atomic=True),
+    ScannedModel("panoptic", "panoptic", build_panoptic,
+                 lambda s: panoptic_batch(CHECK_BATCH, seed=s, mask_size=SIZE // 2), lambda: panoptic_batch(BATCH),
+                 PANOPTIC_TRAIN, atomic=True),
+    ScannedModel("hybrid", "canonical detector", build_hybrid, lambda s: training_batch(CHECK_BATCH, seed=s),
+                 lambda: training_batch(BATCH), HYBRID_TRAIN),
+    ScannedModel("multitask", "multitask (dropout 0.1)", build_multitask,
+                 lambda s: multitask_batch(CHECK_BATCH, seed=s), lambda: multitask_batch(BATCH),
+                 MT_TRAIN, atomic=True, check_extras=lambda: dict(
+                     prepare_validate=index_from(multitask_batch(CHECK_BATCH, seed=5)),
+                     dropout_path="heads.1.dropout")),
+    ScannedModel("autoencoder", "autoencoder", build_autoencoder,
+                 lambda s: autoencoder_batch(CHECK_BATCH, seed=s, size=SSL_TRAIN_SIZE),
+                 lambda: autoencoder_batch(BATCH), K4_ONLY, atomic=True),
+    # four images, as the view-invariance train slice takes them: standardised
+    # over two, every embedding is +-1/sqrt(2) and the loss has no gradient
+    ScannedModel("view", "view invariance", build_view_invariance, lambda s: view_batch(4, seed=s),
+                 lambda: view_batch(BATCH), K4_ONLY),
+    ScannedModel("anomaly", "anomaly", build_anomaly, lambda s: anomaly_batch(CHECK_BATCH, seed=s, size=SSL_TRAIN_SIZE),
+                 lambda: anomaly_batch(BATCH), K4_ONLY, atomic=True,
+                 check_extras=lambda: dict(prepare=anomaly_prepare),
+                 fit_extras=lambda: dict(prepare=pretrained_teacher(
+                     [anomaly_batch(BATCH, seed=10 + i) for i in range(PRETRAIN_BATCHES)]))),
+    ScannedModel("keypoint", "keypoint", build_keypoint, lambda s: keypoint_batch(CHECK_BATCH, seed=s),
+                 lambda: keypoint_batch(BATCH), KP_TRAIN),
+    ScannedModel("pan", "pretrained PAN detector", build_pan, lambda s: training_batch(CHECK_BATCH, seed=s),
+                 lambda: training_batch(BATCH), PAN_TRAIN, arch="resnet50"),
+    ScannedModel("v2", "ResNetV2 detector", build_resnetv2, lambda s: training_batch(CHECK_BATCH, seed=s),
+                 lambda: training_batch(BATCH), PAN_TRAIN),
+    ScannedModel("effdet", "EfficientDet-D0-shaped detector", build_effdet,
+                 lambda s: training_batch(CHECK_BATCH, seed=s, size=EFFDET_SIZE),
+                 lambda: training_batch(BATCH, size=EFFDET_SIZE), EFFDET_TRAIN, arch="efficientnet_b0", atomic=True),
+    ScannedModel("mnv3", "MobileNetV3-large detector", build_mnv3, lambda s: training_batch(CHECK_BATCH, seed=s),
+                 lambda: training_batch(BATCH), MNV3_TRAIN),
+    ScannedModel("convnext", "ConvNeXt-T detector", build_convnext, lambda s: training_batch(CHECK_BATCH, seed=s),
+                 lambda: training_batch(BATCH), MNV3_TRAIN, arch="convnext_tiny"),
+    ScannedModel("densenet", "DenseNet-121 classifier", build_densenet,
+                 lambda s: classifier_batch(CHECK_BATCH, seed=s, size=DENSENET_SIZE, num_classes=IMAGENET_CLASSES),
+                 lambda: classifier_batch(BATCH, size=DENSENET_SIZE, num_classes=IMAGENET_CLASSES), (),
+                 arch="densenet121"),
+    ScannedModel("dla", "DLA-34 detector", build_dla, lambda s: training_batch(CHECK_BATCH, seed=s, size=DLA_SIZE),
+                 lambda: training_batch(BATCH, size=DLA_SIZE), MNV3_TRAIN),
+    ScannedModel("hrnet", "HRNetV2-W48 segmenter", build_hrnet,
+                 lambda s: dense_batch(CHECK_BATCH, seed=s, size=HRNET_SLICE_SIZE, num_classes=ADE_CLASSES),
+                 lambda: dense_batch(BATCH, size=HRNET_SIZE, num_classes=ADE_CLASSES), (), atomic=True),
+)
+# the bf16 dispatch of phases 118-153, and the eager steps timed beside it
+# (the median of steps 3-4)
+MODELS_DISPATCH, MODELS_EAGER_STEPS = 4, 4
+
+
+# each scanned path's kernels: the phase-3 (or model-phase) cases at its
+# training step's shapes, as its eager training path's rows take them
+_DETECTOR_CASES = {"fused_mlp": "fused_mlp@train", "fused_mlp_backward": "fused_mlp_backward", "row_kth": "row_kth",
+                   "upsample_add": "upsample_add"}
+_EFFDET_CASES = {"fused_mlp": "fused_mlp@effdet_train", "fused_mlp_backward": "fused_mlp_backward@effdet_train",
+                 "row_kth": "row_kth@effdet"}
+SCANNED_KERNEL_CASES = {
+    "quad_train_scanned": {"fused_mlp": "fused_mlp@quad_train", "fused_mlp_backward": "fused_mlp_backward@quad_train",
+                           "weighted_sum": "weighted_sum@train", "stem_conv_stats": "stem_conv_stats"},
+    "classifier_train_scanned": {"stem_conv_stats": "stem_conv_stats"},
+    "dense_train_scanned": {"upsample_add": "upsample_add@fpn128", "stem_conv_stats": "stem_conv_stats"},
+    "panoptic_train_scanned": {
+        "fused_mlp": "fused_mlp@instance_train", "fused_mlp_backward": "fused_mlp_backward@instance_train",
+        "row_kth": "row_kth@instance_train", "upsample_add": "upsample_add@fpn128",
+        "dynconv_decode": "dynconv_decode@train", "dynconv_decode_backward": "dynconv_decode_backward",
+        "stem_conv_stats": "stem_conv_stats"},
+    "hybrid_train_scanned": {
+        "fused_mlp": "fused_mlp@hybrid_train", "fused_mlp_backward": "fused_mlp_backward@hybrid_train",
+        "row_kth": "row_kth@hybrid_train", "stem_conv_stats": "stem_conv_stats"},
+    "multitask_train_scanned": {
+        "fused_mlp": "fused_mlp@multitask_train", "fused_mlp_backward": "fused_mlp_backward@multitask_train",
+        "row_kth": "row_kth@multitask_train", "upsample_add": "upsample_add@fpn128",
+        "stem_conv_stats": "stem_conv_stats"},
+    **{f"{model}_train_scanned": {"stem_conv_stats": "stem_conv_stats"}
+       for model in ("autoencoder", "view", "anomaly")},
+    "keypoint_train_scanned": {
+        "fused_mlp": "fused_mlp@keypoint_train", "fused_mlp_backward": "fused_mlp_backward@keypoint_train",
+        "row_kth": "row_kth@keypoint_train", "upsample_add": "upsample_add@fpn128",
+        "dynconv_decode": "dynconv_decode@keypoint_train",
+        "dynconv_decode_backward": "dynconv_decode_backward@keypoint",
+        "stem_conv_stats": "stem_conv_stats"},
+    "pan_train_scanned": {**_DETECTOR_CASES, "stem_conv_stats": "stem_conv_stats"},
+    "v2_train_scanned": {**_DETECTOR_CASES, "stem_conv_stats": "stem_conv_stats"},
+    "effdet_train_scanned": {**_EFFDET_CASES, "weighted_sum": "weighted_sum@effdet"},
+    "mnv3_train_scanned": _DETECTOR_CASES,
+    "convnext_train_scanned": _DETECTOR_CASES,
+    "dla_train_scanned": {**_EFFDET_CASES, "upsample_add": "upsample_add@dla"},
+}
+
+
+def models_scanned_phases(models=SCANNED_MODELS) -> dict:
+    """Phases 118-153, two for each model of ``models``: its f32
+    ``scanned_check`` (K = 3, its kernels launched in the first dispatch;
+    the multitask model's with the example's dropout 0.1, its replays'
+    masks held to the eager steps' and the CPU's) and its bf16
+    ``scanned_fit_phase`` (``fit(steps_per_dispatch=4)`` at batch 16, a warm
+    dispatch with no host sync).  Returns each bf16 path's launch counts
+    under ``<key>_train_scanned``."""
+    launches = {}
+    for phase, m in enumerate(models, start=118):
+        t0 = time.perf_counter()
+        with pretrained_home(m.arch) if m.arch else contextlib.nullcontext():
+            scanned_check(m.build, [m.check_batch(20 + i) for i in range(CHECK_DISPATCH)],
+                          f"{m.label} scanned check", m.kernels, twins=ATOMIC_TWINS if m.atomic else 0,
+                          **m.check_extras())
+            launches[f"{m.key}_train_scanned"] = scanned_fit_phase(
+                m.build, m.fit_batch(), MODELS_DISPATCH, m.kernels, f"{m.label} scanned dispatch",
+                eager_steps=MODELS_EAGER_STEPS, **m.fit_extras())
+        torch.cuda.empty_cache()
+        print(f"phases {2 * phase - 118}-{2 * phase - 117} ({m.label}) in {time.perf_counter() - t0:.1f} s")
     return launches
 
 
@@ -4299,12 +4619,16 @@ def main() -> None:
           f"upsample_add K3 (Triton) {t_triton:.1f} s; weighted_sum K6 (Triton) {t_triton6:.1f} s")
 
     # phase 3: kernels against their plain versions
+    t0 = time.perf_counter()
     gen = torch.Generator().manual_seed(0)
     cuda_gen = torch.Generator("cuda").manual_seed(0)
     _, train_targets = training_batch(BATCH)
     kernels = check_kernels(gen, cuda_gen, train_targets)
     kernels.update(check_instance_kernels(gen, cuda_gen, train_targets))
     kernels.update(check_quad_kernels(gen, cuda_gen, kernels))
+
+    print(f"phase 3 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
 
     # phase 4: serving slice parity, f32, card against CPU
     model = build_flagship(gen)
@@ -4322,6 +4646,9 @@ def main() -> None:
     # phase 7: the bf16 training step through the kernels
     launches["train"] = train()
 
+    print(f"phases 4-7 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
     # phases 8-11: instance segmentation, the same four
     model = build_instance(gen)
     randomize_norms_and_biases(model, gen)
@@ -4335,6 +4662,9 @@ def main() -> None:
     launches["instance_train"] = train(build_instance, instance_batch(BATCH), INSTANCE_TRAIN_KERNELS,
                                        label="instance training")
 
+    print(f"phases 8-11 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
     # phases 12-15: the quadrilateral detector, the same four
     model = build_quad(gen)
     randomize_norms_and_biases(model, gen)
@@ -4347,6 +4677,9 @@ def main() -> None:
         build_quad, quad_batch(BATCH), ("fused_mlp", "fused_mlp_backward", "weighted_sum", "stem_conv_stats"),
         label="quad training")
 
+    print(f"phases 12-15 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
     # phase 16: the backbone-conv probes
     probes = probes_phase()
 
@@ -4356,6 +4689,9 @@ def main() -> None:
     # phase 18: the fused-MLP pipeline probe
     probes += mlp_pipeline_phase()
 
+    print(f"phases 16-18 in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+
     # phase 19: validation parity, f32, card against CPU
     check_validate_slice(gen)
 
@@ -4364,12 +4700,16 @@ def main() -> None:
     launches["validate"] = fit_phase(
         build_flagship, [training_batch(BATCH), training_batch(BATCH, seed=4)],
         ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats"), "flagship fit")
+    # one batch: the host's mask mAP over two took 14-39 s a validate, by
+    # host, 23 s of the phase's 33 s
     launches["instance_validate"] = fit_phase(
-        build_instance, [instance_batch(BATCH), instance_batch(BATCH, seed=4)],
+        build_instance, [instance_batch(BATCH)],
         ("fused_mlp", "row_kth", "upsample_add", "dynconv_decode", "stem_conv_stats"), "instance fit")
     launches["quad_validate"] = fit_phase(
         build_quad, [quad_batch(BATCH), quad_batch(BATCH, seed=4)], ("fused_mlp", "weighted_sum", "stem_conv_stats"),
         "quad fit")
+
+    print(f"phases 19-22 in {time.perf_counter() - t0:.1f} s")
 
     # phases 23-27: the classifier
     t0 = time.perf_counter()
@@ -4469,6 +4809,14 @@ def main() -> None:
     launches.update(scanned_phases(gen, cuda_gen))
     print(f"phases 109-117 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 118-153: the other eighteen models' scanned dispatches, each
+    # step one CUDA graph of its kernels (K6 on the quad model and
+    # EfficientDet, K5f and K5b at c = 32 and the wide K1 on the keypoint
+    # model), the multitask model's with its dropout
+    t0 = time.perf_counter()
+    launches.update(models_scanned_phases())
+    print(f"phases 118-153 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -4491,6 +4839,12 @@ def main() -> None:
     dyn_cu, dyn_py = "sihl_tpu_torch/ops/csrc/dynconv.cu", "sihl_tpu/ops/pallas/dynconv.py"
     stem_cu, stem_py = "sihl_tpu_torch/ops/csrc/stem.cu", "sihl_tpu/ops/pallas/stem.py:179"
     fusion6_py = "sihl_tpu/ops/pallas/fusion.py:138"
+    KERNEL_SOURCES = {
+        "fused_mlp": ("cuda", mlp_cu, f"{mlp_py}:204"), "fused_mlp_backward": ("cuda", mlp_cu, f"{mlp_py}:365"),
+        "row_kth": ("cuda", topk_cu, topk_py), "upsample_add": ("triton", fusion_tr, fusion_py),
+        "weighted_sum": ("triton", fusion_tr, fusion6_py), "dynconv_decode": ("cuda", dyn_cu, f"{dyn_py}:257"),
+        "dynconv_decode_backward": ("cuda", dyn_cu, f"{dyn_py}:290"), "stem_conv_stats": ("cuda", stem_cu, stem_py),
+    }
     summary = []
     for name, path, key, route, source, replaces, counter in (
         ("fused_mlp", "serve", "fused_mlp", "cuda", mlp_cu, f"{mlp_py}:204", "fused_mlp"),
@@ -4675,6 +5029,9 @@ def main() -> None:
          dyn_cu, f"{dyn_py}:290", "dynconv_decode_backward"),
         ("stem_conv_stats@instance_train_scanned", "instance_train_scanned", "stem_conv_stats", "cuda", stem_cu,
          stem_py, "stem_conv_stats"),
+        # the other models' scanned dispatches replay their training steps' kernels at their shapes
+        *((f"{counter}@{path}", path, key, *KERNEL_SOURCES[counter], counter)
+          for path, keys in SCANNED_KERNEL_CASES.items() for counter, key in keys.items()),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -7,6 +7,7 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --train              # bench.py's training step, 16 images at 640 px
     python3 profile_serving.py --instance [--train] # the instance-segmentation model instead
     python3 profile_serving.py --quad [--train]     # the quadrilateral detector instead
+    python3 profile_serving.py --classifier [--train]      # the three-head ResNet-50 classifier
     python3 profile_serving.py --dense [--train]    # the dense model (semantic segmentation + depth)
     python3 profile_serving.py --panoptic [--train] # the panoptic model
     python3 profile_serving.py --hybrid [--train]   # the canonical detector (HybridEncoder neck)
@@ -23,11 +24,13 @@ Run from the repository root on a machine with an NVIDIA card:
     python3 profile_serving.py --densenet [--train]        # the pretrained DenseNet-121 classifier, 224 px
     python3 profile_serving.py --dla [--train]             # the DLA-34 + FPN detector, 512 px
     python3 profile_serving.py --hrnet [--train]           # the HRNetV2-W48 segmenter, 512 px
-    python3 profile_serving.py --train --scanned 4 [--instance]  # dispatches of 4 steps (one CUDA graph, replayed)
+    python3 profile_serving.py --train --scanned 4 [--<model>]   # dispatches of 4 steps (one CUDA graph, replayed)
 
 It builds the flagship model of ``chip_smoke.py`` (or, with ``--instance``,
 its instance-segmentation model, trained on masks (16, 100, 640, 640), or,
 with ``--quad``, its quadrilateral detector, trained on 5-20 quads per image;
+with ``--classifier`` its three-head classifier, trained on
+``chip_smoke.classifier_batch``;
 with ``--dense`` and ``--panoptic`` its dense models, trained on the
 targets of ``chip_smoke.dense_batch`` and ``panoptic_batch``; with
 ``--hybrid`` its canonical detector, trained on bench.py's targets on the
@@ -55,8 +58,9 @@ from a seed), warms it up, times ``TIMED`` requests or steps on the host clock (
 ended by ``torch.cuda.synchronize()``), then runs ``torch.profiler`` over
 ``PROFILED`` more.  With ``--train --scanned K`` each timed and profiled unit
 is a dispatch of K steps through ``Trainer.training_steps_scanned`` (after a
-warm-up dispatch that captures the step's CUDA graph), and every time is
-given per step.  It prints:
+warm-up dispatch that captures the step's CUDA graph), for every model
+(the multitask model's with its dropout 0.1), and every time is given per
+step.  It prints:
 
 - the median unprofiled request or step time;
 - the device's busy time per request or step: the union of the intervals of
@@ -87,13 +91,13 @@ from torch.profiler import ProfilerActivity, profile
 
 from chip_smoke import (
     ADE_CLASSES, BATCH, DENSENET_SIZE, DLA_SIZE, HRNET_SIZE, HYBRID_SCHEDULE, IMAGENET_CLASSES, OPTIMIZER,
-    PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly, build_autoencoder, build_convnext,
-    build_dense, build_densenet, build_dla, build_flagship, build_hrnet,
+    PRETRAIN_BATCHES, SIZE, anomaly_batch, autoencoder_batch, build_anomaly, build_autoencoder, build_classifier,
+    build_convnext, build_dense, build_densenet, build_dla, build_flagship, build_hrnet,
     build_hybrid, build_instance, build_keypoint, build_multitask,
     EFFDET_SIZE, build_effdet, build_mnv3, build_pan, build_panoptic, build_quad, build_resnetv2,
     build_view_invariance, calibrate_anomaly, card_name, classifier_batch,
     dense_batch, freeze_trunk, instance_batch, keypoint_batch, multitask_batch, panoptic_batch, pretrained_home,
-    pretrained_teacher, quad_batch, randomize_norms_and_biases, training_batch, view_batch,
+    pretrained_teacher, quad_batch, randomize_norms_and_biases, stack_batches, training_batch, view_batch,
 )
 from sihl_tpu_torch.layers.convblocks import Conv2d
 from sihl_tpu_torch.policy import compute_dtype_scope
@@ -172,6 +176,8 @@ def depthwise_ms(model, images, train: bool) -> tuple:
 
     depthwise = [m for m in model.modules()
                  if isinstance(m, Conv2d) and m.groups > 1 and m.groups == m.weight.shape[0]]
+    if not depthwise:  # no forward to run: beside a captured step's pool it may not fit (the autoencoder's)
+        return 0.0, 0
     handles = [m.register_forward_hook(record) for m in depthwise]
     with torch.no_grad():
         model(images)
@@ -200,6 +206,7 @@ def main() -> None:
     models = parser.add_mutually_exclusive_group()
     models.add_argument("--instance", action="store_true", help="the instance-segmentation model")
     models.add_argument("--quad", action="store_true", help="the quadrilateral detector")
+    models.add_argument("--classifier", action="store_true", help="the three-head classifier")
     models.add_argument("--dense", action="store_true", help="the dense model (semantic segmentation + depth)")
     models.add_argument("--panoptic", action="store_true", help="the panoptic model")
     models.add_argument("--hybrid", action="store_true", help="the canonical detector (HybridEncoder neck)")
@@ -224,6 +231,7 @@ def main() -> None:
     name, build, batch = (
         ("instance segmentation", build_instance, instance_batch) if args.instance
         else ("quadrilateral detection", build_quad, quad_batch) if args.quad
+        else ("classifier", build_classifier, classifier_batch) if args.classifier
         else ("dense", build_dense, dense_batch) if args.dense
         else ("panoptic", build_panoptic, panoptic_batch) if args.panoptic
         else ("canonical detector", build_hybrid, training_batch) if args.hybrid
@@ -264,10 +272,7 @@ def main() -> None:
             pretrained_teacher(pretraining)(trainer)
         images, targets = batch(BATCH)
         if args.scanned:
-            xs = torch.stack([images] * args.scanned)
-            ts = ([torch.stack([t] * args.scanned) for t in targets] if isinstance(targets, list)
-                  else {k: torch.stack([v] * args.scanned) for k, v in targets.items()} if isinstance(targets, dict)
-                  else torch.stack([targets] * args.scanned))
+            xs, ts = stack_batches([(images, targets)] * args.scanned)
 
             def work():
                 trainer.training_steps_scanned(xs, ts)

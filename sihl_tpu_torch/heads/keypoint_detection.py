@@ -45,7 +45,7 @@ from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import bbox_matching
 from sihl_tpu_torch.ops.dynconv import dynamic_pointwise_decode, param_count
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits
-from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.policy import device_vector, upcast
 from sihl_tpu_torch.training import metrics as M
 from sihl_tpu_torch.utils.pck import PercentageOfCorrectKeypoints
 
@@ -202,19 +202,20 @@ class KeypointDetection(Head):
         """Enclosing box (..., 4) of each instance's visible keypoints; 0 where
         none is visible."""
         vis = presence[..., None]
-        inf = torch.tensor(float("inf"), dtype=keypoints.dtype, device=keypoints.device)
-        low = torch.where(vis, keypoints, inf).amin(dim=-2)
-        high = torch.where(vis, keypoints, -inf).amax(dim=-2)
+        low = torch.where(vis, keypoints, float("inf")).amin(dim=-2)
+        high = torch.where(vis, keypoints, float("-inf")).amax(dim=-2)
         boxes = torch.cat([low, high], dim=-1)
-        return torch.where(presence.any(dim=-1)[..., None], boxes, torch.zeros((), dtype=boxes.dtype))
+        return torch.where(presence.any(dim=-1)[..., None], boxes, 0.0)
 
     def keypoints_to_heatmaps(self, keypoints, presence, height: int, width: int, img_h: int, img_w: int):
         """One-hot target heatmaps (..., K, height, width) in f32 of
         keypoints in an img_h x img_w image, zero where absent."""
         xs = torch.clamp(torch.round(keypoints[..., 0] * (width - 1) / (img_w - 1)), 0, width - 1).long()
         ys = torch.clamp(torch.round(keypoints[..., 1] * (height - 1) / (img_h - 1)), 0, height - 1).long()
-        one_x = F.one_hot(xs, width).float()
-        one_y = F.one_hot(ys, height).float()
+        # one-hot rows by comparison, as ops/losses.py builds them: off the card
+        # ``F.one_hot`` reads its indices' range on the host
+        one_x = (xs[..., None] == torch.arange(width, device=xs.device)).float()
+        one_y = (ys[..., None] == torch.arange(height, device=ys.device)).float()
         heat = one_y[..., :, None] * one_x[..., None, :]
         return heat * presence[..., None, None]
 
@@ -230,7 +231,7 @@ class KeypointDetection(Head):
         boxes = self.keypoints_to_boxes(keypoints, presence)
         offsets, scales = self.get_offsets_and_scales(inputs)
         device = offsets.device
-        full_size = torch.tensor([full_w, full_h, full_w, full_h], dtype=torch.float32, device=device)
+        full_size = device_vector([full_w, full_h, full_w, full_h], device)
         assignment, rel_iou = bbox_matching((offsets + scales) * full_size, boxes, valid, self.topk, relative=True)
 
         flat_feats = self.flat_features(inputs)
@@ -286,7 +287,7 @@ class KeypointDetection(Head):
         loss, _ = self.training_step(inputs, keypoints, presence)
         state = {"loss": M.mean_update(state["loss"], loss)}
         full_h, full_w = inputs[0].shape[2:]
-        full = torch.tensor([full_w, full_h], dtype=torch.float32, device=pred_keypoints.device)
+        full = device_vector([full_w, full_h], pred_keypoints.device)
         aux = {
             "num_instances": num_instances,
             "pred_presence": pred_presence,

@@ -20,7 +20,6 @@ ported head uses, is not ported.
 from typing import List, Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from sihl_tpu_torch.heads import anchors
@@ -30,7 +29,7 @@ from sihl_tpu_torch.layers.convblocks import StandardConvNormAct, default_genera
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops.boxes import complete_box_iou
 from sihl_tpu_torch.ops.losses import binary_cross_entropy_with_logits, sigmoid_focal_loss
-from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.policy import device_vector, upcast
 from sihl_tpu_torch.training import metrics as M
 
 
@@ -160,8 +159,9 @@ class QuadrilateralDetection(Head):
         rel = quads - quads.mean(dim=-2, keepdim=True)
         order = torch.argsort(torch.atan2(rel[..., 1], rel[..., 0]), dim=-1, stable=True)
         v = torch.take_along_dim(quads, order[..., None], dim=-2)
-        v_next = v[..., [1, 2, 3, 0], :]
-        v_prev = v[..., [3, 0, 1, 2], :]
+        # the neighbours by rolls: an index list would be copied from the host
+        v_next = torch.roll(v, -1, dims=-2)
+        v_prev = torch.roll(v, 1, dims=-2)
         cross = (v_next[..., 0] - v[..., 0]) * (v_prev[..., 1] - v[..., 1]) - (
             (v_next[..., 1] - v[..., 1]) * (v_prev[..., 0] - v[..., 0])
         )
@@ -184,7 +184,7 @@ class QuadrilateralDetection(Head):
         quad_out, class_logits = anchors.run_mlps(
             feats, [self.quad_head, self.class_head], num_valid=num_slots
         )
-        full = torch.tensor([full_w, full_h] * 4, dtype=torch.float32, device=feats.device)
+        full = device_vector([full_w, full_h] * 4, feats.device)
         quad_preds = (torch.tanh(upcast(quad_out)) + rel_offsets[loc_idxs]) * full
         classes = torch.argmax(class_logits, dim=2)
         return num_instances, scores, classes, quad_preds.reshape(batch, num_slots, 4, 2)
@@ -197,11 +197,11 @@ class QuadrilateralDetection(Head):
         batch, (full_h, full_w) = inputs[0].shape[0], inputs[0].shape[2:]
         feats = self.get_features(inputs)
         rel_offsets, levels = self.get_offsets_and_levels(inputs)
-        kw = dict(dtype=torch.float32, device=rel_offsets.device)
+        device = rel_offsets.device
 
         # anchors: a box around each cell centre, half-side sigmoid(level - top)
-        directions = torch.tensor([-1.0, -1.0, 1.0, 1.0], **kw)
-        full4 = torch.tensor([full_w, full_h, full_w, full_h], **kw)
+        directions = device_vector([-1.0, -1.0, 1.0, 1.0], device)
+        full4 = device_vector([full_w, full_h, full_w, full_h], device)
         anchor_boxes = (rel_offsets[:, :4] + directions * torch.sigmoid(levels - self.top_level)) * full4
 
         quads = quads.float()
@@ -224,13 +224,13 @@ class QuadrilateralDetection(Head):
         # quad L1 loss against the canonical, convex target
         quad_preds = torch.clamp(torch.tanh(upcast(quad_out)) + rel_offsets[pos_idx], 0.0, 1.0)
         quad_target = torch.take_along_dim(quads, pos_assign[..., None, None], dim=1)
-        quad_target = self.canonicalize_and_convexify(quad_target) / torch.tensor([full_w, full_h], **kw)
+        quad_target = self.canonicalize_and_convexify(quad_target) / device_vector([full_w, full_h], device)
         l1 = torch.abs(quad_preds.reshape(batch, k, 4, 2) - quad_target).sum(dim=(2, 3))
         quad_loss = 10.0 * (pos_w * l1).sum() / w_sum
 
         # focal classification loss over the positives
         class_target = torch.take_along_dim(torch.clamp(classes, min=0), pos_assign, dim=1)
-        one_hot = F.one_hot(class_target.long(), self.num_classes).float()
+        one_hot = (class_target.long()[..., None] == torch.arange(self.num_classes, device=classes.device)).float()
         focal = sigmoid_focal_loss(class_logits, one_hot).sum(dim=2)
         class_loss = 10.0 * (pos_w * focal).sum() / w_sum
 

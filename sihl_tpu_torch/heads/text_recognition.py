@@ -74,7 +74,7 @@ class TextRecognition(Head):
             in_channels[level], num_channels, 1, act="silu", generator=generator, device=device)
         self.lateral_conv = StandardConvNormAct(
             in_channels[level], num_channels, 1, act="silu", generator=generator, device=device)
-        self.dropout = Dropout(dropout, generator=generator)
+        self.dropout = Dropout(dropout, generator=generator, device=device)
         self.decoder_layers = nn.ModuleList(
             TransformerDecoderLayer(num_channels, num_heads=num_heads, ff_dim=embedding_dim, activation="relu",
                                     norm_first=False, generator=generator, device=device)

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sihl_tpu_torch.policy import upcast
+from sihl_tpu_torch.policy import device_vector, upcast
 
 
 def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
@@ -131,18 +131,24 @@ def _depthwise_conv(x: torch.Tensor, kernel_hw: torch.Tensor, stride: int = 1) -
     return F.conv2d(x.to(kernel.dtype), kernel, stride=stride, groups=c)
 
 
+def _binomial_kernel(kernel_size: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """The (k, k) outer product of ``poly1d((0.5, 0.5)) ** (k - 1)``, made on
+    ``device`` by fills: a CUDA graph can hold a fill, not a copy from the
+    host."""
+    k1 = device_vector((np.poly1d((0.5, 0.5)) ** (kernel_size - 1)).coeffs, device, dtype)
+    return k1[:, None] * k1[None, :]
+
+
 def blur_pool_2d(x: torch.Tensor, kernel_size: int = 3, stride: int = 1) -> torch.Tensor:
     """Antialiased (binomial-kernel) blur-pool with reflect padding, as the
     JAX package's: kernel ``poly1d((0.5, 0.5)) ** (k - 1)`` in its outer
     product, reflect pad of ``((s - 1) + (k - 1)) // 2``, a strided depthwise
     conv in f32 (f64 for f64 inputs), and the result in ``x``'s dtype, in
     channels_last memory."""
-    coeffs = (np.poly1d((0.5, 0.5)) ** (kernel_size - 1)).coeffs
     xp = upcast(x)
-    k1 = torch.tensor(coeffs, dtype=xp.dtype, device=x.device)
     pad = ((stride - 1) + (kernel_size - 1)) // 2
     xp = F.pad(xp, (pad, pad, pad, pad), mode="reflect")
-    out = _depthwise_conv(xp, k1[:, None] * k1[None, :], stride=stride)
+    out = _depthwise_conv(xp, _binomial_kernel(kernel_size, xp.dtype, x.device), stride=stride)
     return out.to(dtype=x.dtype, memory_format=torch.channels_last)
 
 

@@ -39,7 +39,25 @@ a first step that runs eagerly as step 0 of the same dispatch (it builds the
 optimizer's state, the kernels' libraries, Triton's JIT and cuDNN's
 choices); :meth:`Trainer.load_state_dict` drops it.  A replay moves no
 parameter's ``_version``, so the dispatch ends by emptying the K1 pack
-cache.  On a CPU model the same K steps run as a loop.
+cache.  State that a step moves lives on the card and moves in place, so
+each replay moves it on: BatchNorm's running statistics, the optimizer's
+state, the panoptic head's step counter, the anomaly head's reservoirs
+and a ``Dropout``'s count (each replay draws a new mask, the one an eager
+step at that count draws; ``layers/dropout.py``).  A step that a graph
+cannot hold (a host read, a data-dependent shape, a tensor copied from
+the host) makes the capture raise, naming the first operation that
+failed and where the model called it; the dispatch never falls back to
+eager steps.  On a CPU model the same K steps run as a loop.
+
+A capture cannot hand memory back to the card while it runs, so the pieces
+that the caching allocator splits can exhaust the card where a step's eager
+peak comes near its memory: the autoencoder's step at batch 16, 640 px
+(63.5 GiB live of an 80 GB H100) captures only with
+``PYTORCH_CUDA_ALLOC_CONF=expandable_segments:True`` in the process's
+environment (read at CUDA's first allocation; ``chip_smoke.py`` sets it).
+The allocator then unmaps a dropped graph's pages after waiting for the
+stream it was captured on, and the replays run on the caller's stream, so
+each dispatch ends by making the capture stream wait for them.
 
 Not ported: meshes and spatial partitioning (M19), visualization (M20) and
 ``remat`` (a TPU memory lever, not ported).
@@ -47,14 +65,19 @@ Not ported: meshes and spatial partitioning (M19), visualization (M20) and
 
 import os
 import time
+import traceback
 from typing import Any, Callable, Dict, List, NamedTuple, Optional
 
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
-from sihl_tpu_torch.layers.dropout import Dropout
 from sihl_tpu_torch.model import SihlModel
 from sihl_tpu_torch.ops.fused_mlp import invalidate_packs
 from sihl_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
+
+
+_PACKAGE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+_THIS_FILE = os.path.join("training", "trainer.py")
 
 
 def _call_step(head, method: str, feats, target, state=None):
@@ -166,13 +189,35 @@ def _map_tree(fn, *trees):
     return first
 
 
+class _FailingOp(TorchDispatchMode):
+    """Names the first operation that raises while it is active (the aten
+    op and the innermost frame of the model's code that called it), as
+    :attr:`where`; a capture reports it."""
+
+    def __init__(self):
+        super().__init__()
+        self.where: Optional[str] = None
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        try:
+            return func(*args, **(kwargs or {}))
+        except Exception:
+            if self.where is None:
+                frames = [f for f in traceback.extract_stack()
+                          if _PACKAGE in f.filename and not f.filename.endswith(_THIS_FILE)]
+                site = f" at {frames[-1].filename}:{frames[-1].lineno}" if frames else ""
+                self.where = f"{func}{site}"
+            raise
+
+
 class _StepGraph(NamedTuple):
-    """One captured training step: what it was captured for, the graph, its
-    static inputs, and the metrics it writes (one f32 vector, ``keys`` in
-    order, cast back to ``dtypes``)."""
+    """One captured training step: what it was captured for, the graph, the
+    stream it was captured on, its static inputs, and the metrics it writes
+    (one f32 vector, ``keys`` in order, cast back to ``dtypes``)."""
 
     key: Any
     graph: Any
+    stream: Any
     x: torch.Tensor
     targets: list
     vector: torch.Tensor
@@ -252,8 +297,11 @@ class Trainer:
     def _step_body(self, x: torch.Tensor, targets: list) -> Dict[str, torch.Tensor]:
         """The step at the learning rates already set, with no host sync:
         the losses, the backward and :meth:`_update`.  A CUDA graph captures
-        exactly this."""
-        self.optimizer.zero_grad(set_to_none=True)
+        exactly this.  Every parameter's gradient starts anew, the frozen
+        ones' too (in no optimizer group, a trunk without a gradient cut
+        still gives them one, which the clip's norm counts, as the JAX
+        trainer's does: one step's, not a sum over steps)."""
+        self.model.zero_grad(set_to_none=True)
         loss, metrics = _losses(self.model, x, targets)
         loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
@@ -362,17 +410,16 @@ class Trainer:
                 group["lr"].copy_(rates[k, i])
             graph.graph.replay()
             out[k].copy_(graph.vector)
+        # the graph's pool belongs to its capture stream, which the allocator
+        # waits for before it unmaps a dropped graph's pages (expandable
+        # segments); the replays run on this stream, so that one waits for them
+        graph.stream.wait_stream(torch.cuda.current_stream(xs.device))
         self.graph_stats["replays"] += num_steps - first
         self.step = base + num_steps
         return {k: out[:, i].to(dtype) for i, (k, dtype) in enumerate(zip(graph.keys, graph.dtypes))}
 
     def _check_capturable(self, device: torch.device) -> None:
         """Raise where a CUDA graph cannot hold this trainer's step."""
-        blockers = [name for name, m in self.model.named_modules() if isinstance(m, Dropout) and m.rate > 0]
-        if blockers:
-            raise NotImplementedError(
-                f"a CUDA graph cannot hold the active Dropout at {blockers}: it draws each mask from a host-side "
-                "count, so every replay would reuse one mask (ROADMAP.md, M9b: graph paths)")
         for group in self.optimizer.param_groups:
             if not (isinstance(group["lr"], torch.Tensor) and group["lr"].device == device):
                 raise RuntimeError(f"a CUDA graph needs each parameter group's learning rate as a tensor on {device}")
@@ -396,15 +443,18 @@ class Trainer:
         static_x, static_targets = x.clone(), _map_tree(torch.clone, targets)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
+        watch = _FailingOp()
         try:
-            with torch.cuda.graph(graph, stream=stream):
+            with torch.cuda.graph(graph, stream=stream), watch:
                 metrics = self._step_body(static_x, static_targets)
                 vector = torch.stack([v.float() for v in metrics.values()])
         except RuntimeError as err:
-            raise RuntimeError(f"the training step could not be captured in a CUDA graph: {err}") from err
+            raise RuntimeError(
+                f"the training step could not be captured in a CUDA graph: {watch.where or 'outside an operation'}: "
+                f"{err}") from err
         self.graph_stats["captures"] += 1
         self.graph_stats["capture_s"] += time.perf_counter() - t0
-        self._graph = _StepGraph(key, graph, static_x, static_targets, vector, list(metrics),
+        self._graph = _StepGraph(key, graph, stream, static_x, static_targets, vector, list(metrics),
                                  [v.dtype for v in metrics.values()])
 
     def fit(

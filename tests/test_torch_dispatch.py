@@ -9,7 +9,10 @@ and an instance segmenter on the same trunk, random weights from a seed:
   ``fit(steps_per_dispatch=1)`` ends (parameters, BatchNorm statistics,
   optimizer state, EMA, the last logged metrics but the learning rate,
   which a dispatch logs at the step count it ends on), for AdamW with an
-  EMA, Nesterov SGD and LAMB under a one-cycle schedule;
+  EMA, Nesterov SGD and LAMB under a one-cycle schedule, and for the
+  multitask model (the detector's trunk and neck under ObjectDetection,
+  TextRecognition with Dropout 0.1, DepthEstimation and MetricLearning),
+  whose dropout stream ends at the same count;
 * a K1 pack built before a dispatch is not served after it, even where a
   parameter changed without moving its ``_version`` (as a CUDA graph's
   replay writes); a call made while a stream is captured packs anew and
@@ -19,8 +22,8 @@ and an instance segmenter on the same trunk, random weights from a seed:
   to host data: no read of a tensor on the host (``item``), no
   data-dependent shape (``nonzero``, a boolean index), no tensor made from
   host data (a host-to-device copy on the card);
-* a model with an active Dropout refuses a graph, naming M9b; without one,
-  a trainer whose learning rates are floats (the CPU's) refuses too.
+* a trainer whose learning rates are floats (the CPU's) refuses a graph;
+  an active Dropout does not.
 """
 
 import numpy as np
@@ -29,9 +32,9 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from sihl_tpu_torch import Backbone, SihlModel
-from sihl_tpu_torch.heads import InstanceSegmentation, ObjectDetection
+from sihl_tpu_torch.heads import (DepthEstimation, InstanceSegmentation, MetricLearning, ObjectDetection,
+                                  TextRecognition)
 from sihl_tpu_torch.layers import FPN
-from sihl_tpu_torch.layers.dropout import Dropout
 from sihl_tpu_torch.layers.mlp import MLP
 from sihl_tpu_torch.ops import fused_mlp
 from sihl_tpu_torch.policy import set_default_device
@@ -42,6 +45,7 @@ torch.set_num_threads(1)
 set_default_device("cpu")
 
 BATCH, SIZE, NUM_CLASSES, T = 2, 64, 4, 5
+TOKENS, LENGTH, IDENTITIES = 6, 5, 3
 ADAMW_EMA = dict(
     optimizer="adamw",
     optimizer_kwargs={"lr": 1e-4, "weight_decay": 1e-4, "backbone_lr_factor": 0.1},
@@ -73,6 +77,36 @@ def _instance_model():
     return SihlModel(bb, neck, [head])
 
 
+def _multitask(dropout: float = 0.1):
+    """``examples/multitask.py``'s four heads, narrow, on the detector's
+    trunk and neck; the text head with ``dropout``."""
+    gen = torch.Generator().manual_seed(0)
+    bb, neck = _trunk(gen)
+    c = neck.out_channels
+    heads = [
+        ObjectDetection(c, NUM_CLASSES, num_channels=16, num_layers=1, max_instances=8, max_targets=T, generator=gen),
+        TextRecognition(c, TOKENS, LENGTH, level=3, num_channels=16, num_heads=4, embedding_dim=32, dropout=dropout,
+                        generator=gen),
+        DepthEstimation(c, 0.1, 10.0, num_channels=16, num_bins=16, generator=gen),
+        MetricLearning(c, IDENTITIES, embedding_dim=16, level=2, generator=gen),
+    ]
+    return SihlModel(bb, neck, heads)
+
+
+def _multitask_targets(rng, x, detection):
+    """The four heads' targets of images ``x``: ``detection``, texts of 1 to
+    ``LENGTH - 1`` tokens padded with ``TOKENS``, depths in (0.1, 10) with a
+    tenth of the pixels invalid, identities."""
+    texts = torch.full((x.shape[0], LENGTH), TOKENS, dtype=torch.long)
+    for b in range(x.shape[0]):
+        n = rng.randint(1, LENGTH)
+        texts[b, :n] = torch.from_numpy(rng.randint(0, TOKENS, n))
+    masks = torch.from_numpy(rng.rand(x.shape[0], SIZE, SIZE) > 0.1)
+    depth = torch.where(masks, x.mean(dim=1) * 9.0 + 0.5, 0.0)
+    ids = torch.from_numpy(rng.randint(0, IDENTITIES, x.shape[0]))
+    return [detection, texts, {"targets": depth, "masks": masks}, ids]
+
+
 @pytest.fixture(scope="module")
 def data():
     rng = np.random.RandomState(0)
@@ -96,17 +130,23 @@ def _stack(batches):
     return torch.stack([x for x, _ in batches]), {k: torch.stack([t[k] for _, t in batches]) for k in batches[0][1]}
 
 
-@pytest.mark.parametrize("case", ["adamw_ema", "sgd_nesterov", "lamb_onecycle"])
+@pytest.mark.parametrize("case", ["adamw_ema", "sgd_nesterov", "lamb_onecycle", "multitask_dropout"])
 def test_fit_dispatch_of_3_is_bitwise_one_step_at_a_time(data, case):
     kwargs = {
         "adamw_ema": ADAMW_EMA,
         "sgd_nesterov": SGD,
         "lamb_onecycle": dict(optimizer="lamb", optimizer_kwargs={"lr": 1e-3, "weight_decay": 1e-2},
                               scheduler="onecycle", scheduler_kwargs={"total_steps": 6}),
+        "multitask_dropout": ADAMW_EMA,
     }[case]
+    build = _detector
+    if case == "multitask_dropout":
+        build = _multitask
+        rng = np.random.RandomState(1)
+        data = [(x, _multitask_targets(rng, x, t)) for x, t in data]
     ends = []
     for k in (3, 1):
-        trainer = Trainer(_detector(), **kwargs)
+        trainer = Trainer(build(), **kwargs)
         result = trainer.fit(data, num_steps=6, steps_per_dispatch=k, log_every=3)
         ends.append((trainer.state_dict(), result))
     (scanned, scanned_result), (stepped, stepped_result) = ends
@@ -184,11 +224,7 @@ def test_step_has_no_host_round_trip(data, model):
     assert mode.seen == []
 
 
-def test_active_dropout_refuses_a_graph():
-    trainer = Trainer(_detector(), **SGD)
-    trainer.model.heads[0].dropout = Dropout(0.1)
-    with pytest.raises(NotImplementedError, match="Dropout.*M9b"):
-        trainer._check_capturable(torch.device("cpu"))
-    trainer.model.heads[0].dropout = Dropout(0.0)  # rate 0 draws nothing; the CPU's float rates refuse next
+def test_float_learning_rates_refuse_a_graph():
+    trainer = Trainer(_multitask(), **SGD)  # an active Dropout, which a graph holds
     with pytest.raises(RuntimeError, match="learning rate as a tensor"):
         trainer._check_capturable(torch.device("cpu"))

@@ -19,6 +19,20 @@ dispatches of 2 with ``log_every=3``, ``val_every=4`` (AdamW only) and
   1e-9;
 * checkpoints saved at the same steps (4, 6 and the final save at 6).
 
+And one dispatch of K = 3 steps of the quadrilateral detector (resnet18 with
+level 1 frozen → BiFPN 16 wide over levels 3-5 with 2 layers →
+QuadrilateralDetection with 5 classes; 2 images at 64 px), the JAX model
+from ``nnx.eval_shape`` filled by ``torch_parity.numpy_filled``, JAX in f64
+against the port: under SGD with momentum in f64 and in f32, under AdamW
+(with EMA) in f64, every step's metrics within ``LOSS_RTOL``.  It runs the
+BiFPN's blur-pool downscalers and the quad head's training step, which
+build their constant vectors on the device.  AdamW has no f32 case: there
+the port's f32 run moves the third step's location loss 1.08e-5 relative
+from JAX's f64 one, just outside ``LOSS_RTOL``.  Adam scales every gradient
+to about the learning rate, the f32 rounding of the gradients that are zero
+in exact arithmetic too (``tests/test_torch_quad_slice.py`` names the
+BiFPN's last BatchNorm biases); the f64 case holds the same dispatch.
+
 The port's own checks of the dispatch (torch only) are in
 ``tests/test_torch_dispatch.py``.
 """
@@ -33,16 +47,25 @@ from flax import nnx
 from sihl_tpu import Backbone as JaxBackbone
 from sihl_tpu import SihlModel as JaxSihlModel
 from sihl_tpu.heads import ObjectDetection as JaxObjectDetection
+from sihl_tpu.heads import QuadrilateralDetection as JaxQuadrilateralDetection
 from sihl_tpu.layers import FPN as JaxFPN
+from sihl_tpu.layers import BiFPN as JaxBiFPN
 from sihl_tpu.layers import convblocks as jax_convblocks
 from sihl_tpu.policy import compute_dtype_scope as jax_compute_dtype_scope
 from sihl_tpu.training import Trainer as JaxTrainer
+from sihl_tpu_torch import Backbone, SihlModel
 from sihl_tpu_torch.convert import state_dict_from_flat
+from sihl_tpu_torch.heads import QuadrilateralDetection
+from sihl_tpu_torch.layers import BiFPN
+from sihl_tpu_torch.policy import compute_dtype_scope
 from sihl_tpu_torch.training import Trainer
 from test_torch_fit import (OPTIMIZER, Logger, _assert_metrics_match, _batches, _build, _jax_data, _port_model,
                             _torch_data)
+from test_torch_quadrilateral_detection import BATCH as QUAD_BATCH
+from test_torch_quadrilateral_detection import quad_targets
+from test_torch_quad_slice import _build_model as _build_quad
 
-from torch_parity import flat_state, randomize_norms
+from torch_parity import flat_state, numpy_filled, randomize_norms, to_torch
 
 LOSS_RTOL = 1e-5
 CASES = {
@@ -130,3 +153,54 @@ def test_scanned_dispatch_and_fit_match_jax(setup, jax_runs, monkeypatch, case, 
     for (_, got), (_, want) in zip(logger.calls, want_log.calls):
         _assert_metrics_match(got, want)
     assert saves == want_saves == [4, 6, 6]
+
+
+
+# (optimizer case, port dtype) of the quad dispatch
+QUAD_CASES = [("sgd", torch.float64), ("sgd", torch.float32), ("adamw_ema", torch.float64)]
+
+
+@pytest.fixture(scope="module")
+def quad_run():
+    """(the data, the port's state, JAX's dispatch of 3 steps in f64 under
+    each optimizer case of ``QUAD_CASES``)."""
+    rng = np.random.RandomState(2)
+    xs = rng.rand(3, QUAD_BATCH, 64, 64, 3).astype(np.float32)
+    targets = [quad_targets(rng, 64, 5, (2, 4)) for _ in range(3)]
+    classes, quads = (np.stack(parts) for parts in zip(*targets))
+
+    def abstract():
+        return nnx.eval_shape(lambda: _build_quad(JaxBackbone, JaxBiFPN, JaxQuadrilateralDetection, JaxSihlModel,
+                                                  rngs=nnx.Rngs(0)))
+
+    jax_model = numpy_filled(abstract(), seed=3)
+    want = {}
+    with pytest.MonkeyPatch.context() as mp, jax.enable_x64(True):
+        mp.setattr(jax_convblocks, "_FUSED_BN", False)
+        with jax_compute_dtype_scope(jnp.float64):
+            graphdef, _ = nnx.split(abstract())
+        for case in sorted({case for case, _ in QUAD_CASES}):
+            model = nnx.merge(graphdef, jax.tree_util.tree_map(
+                lambda v: jnp.asarray(v, jnp.float64) if v.dtype == jnp.float32 else v, nnx.state(jax_model)))
+            got = JaxTrainer(model, **CASES[case]).training_steps_scanned(
+                jnp.asarray(xs, jnp.float64), {"classes": jnp.asarray(classes), "quads": jnp.asarray(quads)})
+            want[case] = {k: np.asarray(v) for k, v in got.items()}
+    return (xs, classes, quads), state_dict_from_flat(flat_state(jax_model)), want
+
+
+@pytest.mark.parametrize("case,dtype", QUAD_CASES, ids=["sgd-f64", "sgd-f32", "adamw_ema-f64"])
+def test_quad_scanned_dispatch_matches_jax(quad_run, case, dtype):
+    (xs, classes, quads), state, want = quad_run
+    want = want[case]
+    with compute_dtype_scope(dtype):
+        port = _build_quad(Backbone, BiFPN, QuadrilateralDetection, SihlModel)
+    port.load_state_dict(state, strict=True)
+    trainer = Trainer(port, **CASES[case])
+    got = trainer.training_steps_scanned(
+        torch.stack([to_torch(x) for x in xs]),
+        {"classes": torch.from_numpy(classes).long(), "quads": torch.from_numpy(quads)})
+    assert trainer.step == 3 and sorted(got) == sorted(want)
+    assert float(want["head0/train/quad_loss"][0]) > 0
+    for k, v in got.items():
+        assert v.shape == (3,)
+        np.testing.assert_allclose(v.double().numpy(), want[k], rtol=LOSS_RTOL, atol=1e-7, err_msg=k)

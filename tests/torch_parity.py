@@ -135,7 +135,8 @@ def numpy_filled(abstract, seed: int):
     """A JAX module from ``nnx.eval_shape``'s abstract one, every leaf drawn
     from a seeded numpy generator: conv and linear kernels N(0, 1/fan_in),
     biases U(-0.1, 0.1), norm scales U(0.8, 1.2), running means U(-0.2, 0.2)
-    and variances U(0.5, 1.5); ConvNeXt's layer scales (``gamma``) U(0.1,
+    and variances U(0.5, 1.5), a BiFPN fusion's ``weights`` U(0.5, 1.5) (the
+    package starts them at 1); ConvNeXt's layer scales (``gamma``) U(0.1,
     0.5) and a GRN's ``gamma`` and ``beta`` U(-0.5, 0.5), where the JAX
     package starts them at 1e-6 and 0, which would make every block the
     identity to six digits.  Building a deep JAX net this way takes a trace
@@ -148,6 +149,7 @@ def numpy_filled(abstract, seed: int):
         "scale": lambda s: rng.uniform(0.8, 1.2, s),
         "mean": lambda s: rng.uniform(-0.2, 0.2, s),
         "var": lambda s: rng.uniform(0.5, 1.5, s),
+        "weights": lambda s: rng.uniform(0.5, 1.5, s),
         "gamma": lambda s: rng.uniform(0.1, 0.5, s),
         "beta": lambda s: rng.uniform(-0.5, 0.5, s),
         "grn.gamma": lambda s: rng.uniform(-0.5, 0.5, s),
