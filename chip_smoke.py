@@ -282,7 +282,20 @@ raises on failure:
    atomically and two eager runs differ, each replay is held to
    ``ATOMIC_TWINS`` eager steps from its own state, ``forced_step``), and
    113's bf16 dispatch with K = 4 at
-   batch 16, each step one CUDA graph of its kernels.
+   batch 16, each step one CUDA graph of its kernels;
+154-160. the data feed (``sihl_tpu_torch.data``), files to the card: a
+   synthetic COCO set written to a temporary directory (48 PNGs at COCO's
+   shapes, 1-20 objects an image over COCO's 80 category ids, polygons, an
+   uncompressed RLE, a crowd annotation, a missing file); the loader alone
+   and its stages' host ms; the flagship's ``fit`` through
+   ``CocoDataset`` -> ``train_pipeline(640)`` -> ``batched_loader`` ->
+   ``collate_detection(100)`` -> ``DevicePrefetcher``, eager and
+   dispatched (the capture made while the prefetcher's worker stages a
+   batch), each bitwise the same ``fit`` on batches staged beforehand;
+   ``validate`` over an epoch of ``eval_pipeline(640)`` (K1f, K2, K3, K4);
+   the instance segmenter's steps on masks (16, 100, 640, 640) from the
+   same files (K5f, K5b); ``batch_resize_normalize`` against its numpy
+   version (``data_phases()``).
 
 The line before the last is a JSON object of per-kernel results; the last
 line is ``{"ok": true, "device": {...}}``.
@@ -300,8 +313,10 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 from typing import Callable, NamedTuple, Optional
 
 import numpy as np
@@ -321,6 +336,11 @@ from sihl_tpu_torch.backbones.mobilenetv4 import MOBILENETV4_CONFIGS
 from sihl_tpu_torch.backbones.shufflenet import SHUFFLENET_CONFIGS
 from sihl_tpu_torch.backbones.resnet import BasicBlock, Bottleneck, PreactBottleneck, ResNetFeatures
 from sihl_tpu_torch.backbones.torchvision_import import dump_state_dict
+from sihl_tpu_torch.data import DevicePrefetcher, batch_resize_normalize, to_device
+from sihl_tpu_torch.data import augment
+from sihl_tpu_torch.data.augment import eval_pipeline, train_pipeline
+from sihl_tpu_torch.data.datasets import (CocoDataset, batched_loader, collate_detection,
+                                          collate_instance_segmentation)
 from sihl_tpu_torch.heads import (AnomalyDetection, Autoencoding, DepthEstimation, InstanceSegmentation,
                                   KeypointDetection, MetricLearning, MulticlassClassification,
                                   MultilabelClassification, ObjectDetection, PanopticSegmentation,
@@ -4573,6 +4593,417 @@ def models_scanned_phases(models=SCANNED_MODELS) -> dict:
     return launches
 
 
+# -- phases 154-160: the data feed ---------------------------------------------------
+
+# COCO 2017's image shapes (w, h) and its 80 category ids (1-90 with ten unused)
+COCO_SHAPES = ((640, 480), (480, 640), (640, 427), (500, 375), (612, 612))
+COCO_CATEGORY_IDS = tuple(i for i in range(1, 91) if i not in (12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+COCO_IMAGES, DATA_WORKERS, DATA_SEED = 48, 4, 29
+DATA_STEPS, DATA_DISPATCH = 4, 4
+VALIDATE_KERNELS = ("fused_mlp", "row_kth", "upsample_add", "stem_conv_stats")
+# the paths of phases 155-159 and, for each kernel they launch, phase 3's case at its shapes
+DATA_KERNEL_CASES = {
+    "data_train": {"fused_mlp": "fused_mlp@train", "fused_mlp_backward": "fused_mlp_backward", "row_kth": "row_kth",
+                   "upsample_add": "upsample_add", "stem_conv_stats": "stem_conv_stats"},
+    "data_train_scanned": {"fused_mlp": "fused_mlp@train", "fused_mlp_backward": "fused_mlp_backward",
+                           "row_kth": "row_kth", "upsample_add": "upsample_add", "stem_conv_stats": "stem_conv_stats"},
+    "data_validate": {"fused_mlp": "fused_mlp@validate", "row_kth": "row_kth", "upsample_add": "upsample_add",
+                      "stem_conv_stats": "stem_conv_stats"},
+    "data_instance_train": {
+        "fused_mlp": "fused_mlp@instance_train", "fused_mlp_backward": "fused_mlp_backward@instance_train",
+        "row_kth": "row_kth@instance_train", "upsample_add": "upsample_add", "dynconv_decode": "dynconv_decode@train",
+        "dynconv_decode_backward": "dynconv_decode_backward", "stem_conv_stats": "stem_conv_stats"},
+}
+
+
+def polygon(rng, cx: float, cy: float, rx: float, ry: float) -> list:
+    """3-12 vertices around (cx, cy) at sorted angles, every other one pulled
+    in on half the polygons (concave), as COCO's flat [x0, y0, x1, ...]."""
+    n = rng.randint(3, 13)
+    angles = np.sort(rng.rand(n) * 2 * np.pi)
+    scale = rng.uniform(0.6, 1.0, n)
+    if rng.rand() < 0.5:
+        scale[::2] *= 0.4
+    return np.stack([cx + rx * scale * np.cos(angles), cy + ry * scale * np.sin(angles)], 1).reshape(-1).round(2).tolist()
+
+
+def write_coco_set(root: Path, seed: int = DATA_SEED):
+    """Phase 154: a synthetic COCO set of ``COCO_IMAGES`` PNGs at COCO's
+    shapes (``COCO_SHAPES``, written with Pillow) and ``instances_train.json``:
+    1-20 objects an image over COCO's 80 category ids, each a box and a
+    polygon segmentation (two polygons on every fifth), image 1's first
+    object an uncompressed RLE (an ellipse), image 2's first object a crowd
+    annotation, and the last image's file missing.  Returns (image_dir,
+    ann_file, bytes written)."""
+    from PIL import Image
+
+    rng = np.random.RandomState(seed)
+    image_dir = root / "images"
+    image_dir.mkdir()
+    images, annotations, written = [], [], 0
+    for i in range(COCO_IMAGES):
+        w, h = COCO_SHAPES[i % len(COCO_SHAPES)]
+        name = f"{i:012d}.png"
+        images.append({"id": i + 1, "file_name": name, "width": w, "height": h})
+        if i != COCO_IMAGES - 1:
+            coarse = rng.randint(0, 256, (h // 16 + 1, w // 16 + 1, 3))
+            pixels = np.repeat(np.repeat(coarse, 16, 0), 16, 1)[:h, :w] + rng.randint(-12, 13, (h, w, 3))
+            Image.fromarray(np.clip(pixels, 0, 255).astype(np.uint8)).save(image_dir / name, compress_level=1)
+            written += (image_dir / name).stat().st_size
+        for k in range(max(rng.randint(1, 21), 2 if i == 2 else 1)):
+            bw, bh = rng.uniform(8, w / 3), rng.uniform(8, h / 3)
+            x0, y0 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+            cx, cy = x0 + bw / 2, y0 + bh / 2
+            segmentation = [polygon(rng, cx, cy, bw / 2, bh / 2)]
+            if k % 5 == 4:
+                segmentation.append(polygon(rng, x0 + bw / 4, y0 + bh / 4, bw / 5, bh / 5))
+            if i == 1 and k == 0:
+                yy, xx = np.mgrid[:h, :w]
+                inside = ((xx - cx) / (bw / 2)) ** 2 + ((yy - cy) / (bh / 2)) ** 2 <= 1
+                flat = inside.T.reshape(-1)  # column-major
+                edges = np.flatnonzero(np.diff(np.concatenate([[0], flat.astype(np.int8), [0]])))
+                runs = np.diff(np.concatenate([[0], edges, [flat.size]]))
+                segmentation = {"size": [h, w], "counts": runs.tolist()}
+            annotations.append({"id": len(annotations) + 1, "image_id": i + 1, "iscrowd": int(i == 2 and k == 0),
+                                "category_id": COCO_CATEGORY_IDS[rng.randint(len(COCO_CATEGORY_IDS))],
+                                "bbox": [round(x0, 2), round(y0, 2), round(bw, 2), round(bh, 2)],
+                                "segmentation": segmentation})
+    categories = [{"id": c, "name": f"category {c}"} for c in COCO_CATEGORY_IDS]
+    ann_file = root / "instances_train.json"
+    ann_file.write_text(json.dumps({"images": images, "annotations": annotations, "categories": categories}))
+    return image_dir, ann_file, written
+
+
+def coco_loader(image_dir, ann_file, task: str, collate, augment, epochs=None, shuffle: bool = True):
+    """``CocoDataset`` -> ``augment`` -> ``batched_loader`` (``DATA_WORKERS``
+    threads) -> ``collate``: host batches of ``BATCH``."""
+    dataset = CocoDataset(image_dir, ann_file, task=task)
+    return batched_loader(dataset, BATCH, collate, augment=augment, shuffle=shuffle, seed=DATA_SEED,
+                          workers=DATA_WORKERS, epochs=epochs)
+
+
+class Tap:
+    """Iterates ``batches`` (a prefetcher), keeping the first ``keep``
+    batches it hands over and the seconds each ``next()`` waited."""
+
+    def __init__(self, batches, keep: int = 2):
+        self.batches, self.keep, self.kept, self.waits = batches, keep, [], []
+
+    def __iter__(self):
+        return self
+
+    def __next__(self):
+        t0 = time.perf_counter()
+        batch = next(self.batches)
+        self.waits.append(time.perf_counter() - t0)
+        if len(self.kept) < self.keep:
+            self.kept.append(batch)
+        return batch
+
+
+def check_delivered(kept, hosts, label: str) -> None:
+    """Each delivered batch bitwise its host batch: images a channels_last
+    CUDA view of the NHWC array, classes int64, boxes or masks float32."""
+    for (x, targets), (hx, ht) in zip(kept, hosts):
+        layout_ok = x.is_contiguous(memory_format=torch.channels_last) and x.dtype == torch.float32
+        if not layout_ok or not torch.equal(x.permute(0, 2, 3, 1).cpu(), torch.from_numpy(hx)):
+            raise AssertionError(f"{label}: a delivered image batch differs from its host batch "
+                                 f"({x.dtype}, strides {x.stride()})")
+        for key, host in ht.items():
+            want = torch.from_numpy(host)
+            want = want.long() if key == "classes" else want
+            if targets[key].dtype != want.dtype or not torch.equal(targets[key].cpu(), want):
+                raise AssertionError(f"{label}: delivered {key} ({targets[key].dtype}) differ from the host's")
+
+
+def logged_fit(trainer: Trainer, data, steps: int, dispatch: int = 1) -> list:
+    """``trainer.fit`` of ``steps`` steps, ``dispatch`` a dispatch, logging
+    every dispatch; returns the logger's (step, host time, metrics)."""
+    log = []
+    trainer.logger = lambda metrics, step: log.append((step, time.perf_counter(), metrics))
+    try:
+        trainer.fit(data, num_steps=steps, steps_per_dispatch=dispatch, log_every=dispatch)
+    finally:
+        trainer.logger = None
+    return log
+
+
+def data_trainer(build=build_flagship, seed: int = 3) -> Trainer:
+    with compute_dtype_scope(torch.bfloat16):
+        model = build(torch.Generator().manual_seed(seed))
+    freeze_trunk(model)
+    return Trainer(model, **OPTIMIZER)
+
+
+def images_per_s(log: list, batches_per_entry: int = 1) -> float:
+    """Images/s between the first and the last logger call."""
+    return BATCH * batches_per_entry * (len(log) - 1) / (log[-1][1] - log[0][1])
+
+
+def augment_stages_ms(image_dir, ann_file, samples: int = 8) -> dict:
+    """Host ms a sample of each stage of ``train_pipeline(640)``, one thread,
+    over the first ``samples`` images: the decode (``CocoDataset[i]``) and
+    each transform with a draw that takes it."""
+    dataset = CocoDataset(image_dir, ann_file, task="boxes")
+    samples = min(samples, len(dataset))
+    stages = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        stages[name] = stages.get(name, 0.0) + (time.perf_counter() - t0) * 1000 / samples
+        return out
+
+    for i in range(samples):
+        rng = np.random.RandomState(i)
+        sample = timed("decode", dataset.__getitem__, i)
+        sample = timed("flip", augment.horizontal_flip, sample)
+        sample = timed("photometric", augment.photometric_distort, sample, rng)
+        sample = timed("zoom_out", augment.zoom_out, sample, rng, (1.5, 2.0))
+        sample = timed("resize", augment.resize, sample, SIZE - 1, SIZE)
+        sample = timed("crop", augment.random_crop, sample, SIZE, rng)
+        timed("sanitize", augment.sanitize, sample)
+    return stages
+
+
+def flagship_data_phases(image_dir, ann_file, card: str) -> dict:
+    """Phases 155-158: the flagship fed from the files (``CocoDataset(task=
+    "boxes")`` -> ``train_pipeline(640)`` -> ``batched_loader`` ->
+    ``collate_detection(100)`` -> ``DevicePrefetcher``), bf16 at batch 16,
+    cuDNN deterministic.  155: the loader alone, 8 host batches, images/s,
+    and one thread's host ms a sample of each stage;
+    156: ``fit(num_steps=4)`` through the prefetcher against a ``fit`` of a
+    trainer from the same state on those host batches staged on the card
+    beforehand (``to_device``): the first two delivered batches bitwise
+    their host batches (layout and dtypes), every logged metric bitwise,
+    the parameters bitwise; images/s of both (steps 2-4) and the seconds
+    each step waited in ``next()``; 157: the same with
+    ``fit(steps_per_dispatch=4, num_steps=8)``, the capture of the step made
+    while the prefetcher's worker stages a batch (its source held until the
+    capture has begun, the capture held until the batch is on the card:
+    allocations, a pinned copy and a copy on the worker's stream from
+    another thread); 158: ``validate`` over one epoch of
+    ``eval_pipeline(640)`` through a prefetcher, which must launch K1f, K2,
+    K3 and K4.  Returns the three paths' launches."""
+    collate = collate_detection(MAX_TARGETS)
+    launches = {}
+
+    t0 = time.perf_counter()
+    loader = coco_loader(image_dir, ann_file, "boxes", collate, train_pipeline(SIZE))
+    hosts = [next(loader) for _ in range(2 * DATA_DISPATCH)]
+    loader_s = time.perf_counter() - t0
+    loader.close()
+    x, t = hosts[0]
+    if (x.shape, x.dtype, t["classes"].dtype, t["boxes"].shape) != (
+            (BATCH, SIZE, SIZE, 3), np.float32, np.int32, (BATCH, MAX_TARGETS, 4)) or not all(
+            (h[1]["classes"] >= 0).any(axis=1).all() for h in hosts):
+        raise AssertionError(f"the loader's batches: {x.shape} {x.dtype}, classes {t['classes'].dtype}")
+    loader_rate = len(hosts) * BATCH / loader_s
+    stages = augment_stages_ms(image_dir, ann_file)
+    print(f"  phase 155, the loader alone ({DATA_WORKERS} threads): {len(hosts)} batches of {BATCH} at {SIZE} px in "
+          f"{loader_s:.2f} s, {loader_rate:.2f} images/s (decode, augment, collate; {len(os.sched_getaffinity(0))} "
+          f"cores) [{card}]; one thread's host ms a sample, by stage (zoom-out at 1.5-2x): "
+          f"{ {k: round(v, 1) for k, v in stages.items()} }; {time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with cudnn_deterministic():
+        staged = [to_device(h) for h in hosts]
+        torch.cuda.synchronize()
+        reference = data_trainer()
+        want = logged_fit(reference, staged[:DATA_STEPS], DATA_STEPS)
+        trainer = data_trainer()
+        prefetcher = DevicePrefetcher(coco_loader(image_dir, ann_file, "boxes", collate, train_pipeline(SIZE)))
+        tap = Tap(prefetcher)
+        reset_counts()
+        got = logged_fit(trainer, tap, DATA_STEPS)
+        launches["data_train"] = read_counts(TRAIN_KERNELS)
+        pinned = prefetcher.pinned_bytes
+        prefetcher.close()
+    check_delivered(tap.kept, hosts, "phase 156")
+    if [(s, m) for s, _, m in got] != [(s, m) for s, _, m in want]:
+        raise AssertionError(f"phase 156: fit through the prefetcher logged {[m['trainer/loss'] for _, _, m in got]},"
+                             f" on staged batches {[m['trainer/loss'] for _, _, m in want]}")
+    if not states_equal(trainer.model.state_dict(), reference.model.state_dict()) or any(
+            n == 0 for n in launches["data_train"].values()):
+        raise AssertionError(f"phase 156: the parameters differ, or the kernels launched {launches['data_train']}")
+    print(f"  phase 156, fit of {DATA_STEPS} bf16 steps fed by the prefetcher: losses "
+          f"{[round(m['trainer/loss'], 6) for _, _, m in got]} bitwise those on staged batches, parameters bitwise; "
+          f"the first two batches bitwise their host batches (channels_last f32, int64 classes); "
+          f"{images_per_s(got):.2f} images/s through the prefetcher, {images_per_s(want):.2f} on staged batches "
+          f"(steps 2-{DATA_STEPS}); next() waited {[round(w * 1000, 1) for w in tap.waits]} ms; pinned staging "
+          f"{pinned / 2**20:.1f} MiB [{card}]; kernel launches {launches['data_train']}; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    t0 = time.perf_counter()
+    with cudnn_deterministic():
+        reference = data_trainer()
+        want = logged_fit(reference, staged, 2 * DATA_DISPATCH, DATA_DISPATCH)
+        trainer = data_trainer()
+        held = threading.Event()
+        source = coco_loader(image_dir, ann_file, "boxes", collate, train_pipeline(SIZE))
+
+        def gated():
+            # the worker stages batches 4 and 5 while the consumer takes 0-3,
+            # then waits here for batch 6 until the capture has begun
+            for i, batch in enumerate(source):
+                if i == DATA_DISPATCH + 2 and not held.wait(timeout=600):
+                    raise TimeoutError("the capture never began")
+                yield batch
+
+        prefetcher = DevicePrefetcher(gated())
+        tap = Tap(prefetcher)
+        step_body, seen = trainer._step_body, []
+
+        def step_in_capture(x, targets):
+            if torch.cuda.is_current_stream_capturing() and not seen:
+                before = prefetcher.staged
+                held.set()
+                deadline = time.perf_counter() + 600
+                while prefetcher.staged == before and prefetcher.thread.is_alive():
+                    if time.perf_counter() > deadline:
+                        raise TimeoutError("the prefetcher staged nothing during the capture")
+                    time.sleep(0.01)
+                seen.append(prefetcher.staged - before)
+            return step_body(x, targets)
+
+        trainer._step_body = step_in_capture
+        reset_counts()
+        got = logged_fit(trainer, tap, 2 * DATA_DISPATCH, DATA_DISPATCH)
+        launches["data_train_scanned"] = read_counts(TRAIN_KERNELS)
+        prefetcher.close()
+        del trainer._step_body
+    check_delivered(tap.kept, hosts, "phase 157")
+    if [(s, m) for s, _, m in got] != [(s, m) for s, _, m in want] or not states_equal(
+            trainer.model.state_dict(), reference.model.state_dict()):
+        raise AssertionError(f"phase 157: dispatched fit through the prefetcher logged "
+                             f"{[m['trainer/loss'] for _, _, m in got]}, on staged batches "
+                             f"{[m['trainer/loss'] for _, _, m in want]}, or the parameters differ")
+    if len(seen) != 1 or trainer.graph_stats["captures"] != 1 or any(
+            n == 0 for n in launches["data_train_scanned"].values()):
+        raise AssertionError(f"phase 157: staged during the capture {seen}, {trainer.graph_stats}, "
+                             f"launches {launches['data_train_scanned']}")
+    print(f"  phase 157, fit(steps_per_dispatch={DATA_DISPATCH}) of {2 * DATA_DISPATCH} bf16 steps fed by the "
+          f"prefetcher, which staged a batch on its own stream during the capture: the logged losses "
+          f"{[round(m['trainer/loss'], 6) for _, _, m in got]} and the parameters bitwise those on staged batches; "
+          f"the second dispatch (replays) {images_per_s(got, DATA_DISPATCH):.2f} images/s through the prefetcher, "
+          f"{images_per_s(want, DATA_DISPATCH):.2f} on staged batches; next() waited "
+          f"{[round(w * 1000, 1) for w in tap.waits]} ms; capture {trainer.graph_stats['capture_s']:.2f} s [{card}]; "
+          f"kernel launches {launches['data_train_scanned']} (the first dispatch's eager step and capture); "
+          f"{time.perf_counter() - t0:.1f} s")
+    del staged, reference
+
+    t0 = time.perf_counter()
+    with DevicePrefetcher(coco_loader(image_dir, ann_file, "boxes", collate, eval_pipeline(SIZE), epochs=1,
+                                      shuffle=False)) as prefetcher:
+        tap = Tap(prefetcher, keep=0)
+        torch.cuda.synchronize()
+        reset_counts()
+        t1 = time.perf_counter()
+        metrics = trainer.validate(tap)
+        t_val = time.perf_counter() - t1
+        launches["data_validate"] = read_counts(VALIDATE_KERNELS)
+    backward = read_counts(("fused_mlp_backward",))
+    if (len(tap.waits) != len(CocoDataset(image_dir, ann_file).items) // BATCH or any(
+            n == 0 for n in launches["data_validate"].values()) or any(backward.values())
+            or not all(math.isfinite(v) for v in metrics.values())):
+        raise AssertionError(f"phase 158: validate over {len(tap.waits)} batches launched "
+                             f"{launches['data_validate']}, backward {backward}; metrics {metrics}")
+    print(f"  phase 158, validate over one epoch of eval_pipeline({SIZE}) through the prefetcher: "
+          f"{len(tap.waits)} batches, {len(tap.waits) * BATCH / t_val:.2f} images/s (the host's mAP "
+          f"included), map_50 {metrics['head0/valid/map_50']:.4f}; kernel launches {launches['data_validate']} "
+          f"[{card}]; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def instance_data_phase(image_dir, ann_file, card: str) -> dict:
+    """Phase 159: the instance segmenter fed from the files
+    (``CocoDataset(task="masks")`` -> ``train_pipeline(640)`` ->
+    ``batched_loader`` -> ``collate_instance_segmentation(100)``, masks
+    (16, 100, 640, 640) f32 -> ``DevicePrefetcher``), ``fit`` of 4 bf16
+    eager steps, which must launch K5f and K5b (and K1f, K1b, K2, K3, K4);
+    the collate's host ms a batch, the seconds each step waited in
+    ``next()`` and the pinned staging bytes printed.  Returns its launches."""
+    t0 = time.perf_counter()
+    collate_ms = []
+    collate = collate_instance_segmentation(MAX_TARGETS)
+
+    def timed_collate(samples):
+        t1 = time.perf_counter()
+        out = collate(samples)
+        collate_ms.append((time.perf_counter() - t1) * 1000)
+        return out
+
+    trainer = data_trainer(build_instance)
+    with DevicePrefetcher(coco_loader(image_dir, ann_file, "masks", timed_collate, train_pipeline(SIZE))) as prefetcher:
+        tap = Tap(prefetcher, keep=1)
+        reset_counts()
+        log = logged_fit(trainer, tap, DATA_STEPS)
+        launches = read_counts(INSTANCE_TRAIN_KERNELS)
+        pinned = prefetcher.pinned_bytes
+    x, targets = tap.kept[0]
+    if targets["masks"].shape != (BATCH, MAX_TARGETS, SIZE, SIZE) or any(n == 0 for n in launches.values()) or not all(
+            math.isfinite(m["trainer/loss"]) for _, _, m in log):
+        raise AssertionError(f"phase 159: masks {tuple(targets['masks'].shape)}, launches {launches}, "
+                             f"losses {[m['trainer/loss'] for _, _, m in log]}")
+    print(f"  phase 159, instance segmenter fed by the prefetcher, {DATA_STEPS} bf16 steps on masks "
+          f"{tuple(targets['masks'].shape)}: losses {[round(m['trainer/loss'], 4) for _, _, m in log]}; "
+          f"{images_per_s(log):.2f} images/s (steps 2-{DATA_STEPS}); the collate's host ms a batch "
+          f"{[round(v) for v in collate_ms]}; next() waited {[round(w * 1000, 1) for w in tap.waits]} ms; pinned "
+          f"staging {pinned / 2**30:.2f} GiB [{card}]; kernel launches {launches}; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def native_batch_phase(card: str) -> None:
+    """Phase 160: ``batch_resize_normalize`` (the native C++ library, built
+    with g++ here) on 16 uint8 images of 480 x 640 to 640 x 640 with
+    ImageNet's mean and std, against its numpy version within 2e-5."""
+    t0 = time.perf_counter()
+    rng = np.random.RandomState(DATA_SEED)
+    images = [rng.randint(0, 256, (480, 640, 3), np.uint8) for _ in range(BATCH)]
+    mean, std = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+    batch_resize_normalize(images[:1], SIZE, mean, std)  # the build
+    t1 = time.perf_counter()
+    native = batch_resize_normalize(images, SIZE, mean, std)
+    native_ms = (time.perf_counter() - t1) * 1000
+    t1 = time.perf_counter()
+    plain = batch_resize_normalize(images, SIZE, mean, std, force_numpy=True)
+    plain_ms = (time.perf_counter() - t1) * 1000
+    err = float(np.abs(native - plain).max())
+    if native.shape != (BATCH, SIZE, SIZE, 3) or err > 2e-5:
+        raise AssertionError(f"phase 160: the native batch {native.shape} lies {err} from its numpy version")
+    print(f"  phase 160, batch_resize_normalize 16 x 480x640 -> {SIZE}: native {native_ms:.1f} ms "
+          f"({len(os.sched_getaffinity(0))} cores), numpy {plain_ms:.1f} ms, max difference {err:.3g} [{card}]; "
+          f"{time.perf_counter() - t0:.1f} s")
+
+
+def data_phases() -> dict:
+    """Phases 154-160: a synthetic COCO set written to a temporary directory,
+    then the flagship and the instance segmenter fed from it and the native
+    batch path.  Returns the data paths' launches."""
+    card = card_name()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        image_dir, ann_file, written = write_coco_set(Path(root))
+        dataset = CocoDataset(image_dir, ann_file, task="masks")
+        data = json.loads(ann_file.read_text())
+        rle = next(a for a in data["annotations"] if isinstance(a["segmentation"], dict))
+        counts = rle["segmentation"]["counts"]
+        h, w = rle["segmentation"]["size"]
+        want = np.repeat(np.arange(len(counts)) % 2, counts).reshape(w, h).T
+        kept = {a["id"] for _, anns in dataset.items for a in anns}
+        crowd = [a["id"] for a in data["annotations"] if a["iscrowd"]]
+        if (len(dataset) != COCO_IMAGES - 1 or not np.array_equal(dataset[1]["masks"][0], want)
+                or any(c in kept for c in crowd)):
+            raise AssertionError(f"phase 154: {len(dataset)} images kept, the RLE mask or the crowd annotation wrong")
+        print(f"  phase 154, a COCO set of {COCO_IMAGES} PNGs ({written / 2**20:.1f} MiB) at {COCO_SHAPES}, "
+              f"{len(data['annotations'])} annotations: {len(dataset)} images kept (a missing file dropped, a crowd "
+              f"annotation skipped), the RLE mask decoded; {time.perf_counter() - t0:.1f} s")
+        launches = flagship_data_phases(image_dir, ann_file, card)
+        launches["data_instance_train"] = instance_data_phase(image_dir, ann_file, card)
+    native_batch_phase(card)
+    return launches
+
+
 def main() -> None:
     # phase 1: device
     if not torch.cuda.is_available():
@@ -4817,6 +5248,13 @@ def main() -> None:
     launches.update(models_scanned_phases())
     print(f"phases 118-153 in {time.perf_counter() - t0:.1f} s")
 
+    # phases 154-160: the data feed, files to the card: a synthetic COCO set,
+    # the flagship's fit and validate and the instance segmenter's steps
+    # through the loader and the prefetcher, the native batch path
+    t0 = time.perf_counter()
+    launches.update(data_phases())
+    print(f"phases 154-160 in {time.perf_counter() - t0:.1f} s")
+
     # each validate batch runs the serving forward and the training step's
     # forward once: K1f at both shapes of each, K5f at both decodes
     kernels["fused_mlp@validate"] = kernels["fused_mlp"] + kernels["fused_mlp@train"]
@@ -5032,6 +5470,9 @@ def main() -> None:
         # the other models' scanned dispatches replay their training steps' kernels at their shapes
         *((f"{counter}@{path}", path, key, *KERNEL_SOURCES[counter], counter)
           for path, keys in SCANNED_KERNEL_CASES.items() for counter, key in keys.items()),
+        # the data feed's paths run the flagship's and the instance segmenter's kernels at their shapes
+        *((f"{counter}@{path}", path, key, *KERNEL_SOURCES[counter], counter)
+          for path, keys in DATA_KERNEL_CASES.items() for counter, key in keys.items()),
     ):
         cases = [c for c in kernels[key] if c["path"]]
         summary.append(dict(

@@ -15,6 +15,9 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_OPS_PER_S = 989e12
 PEAK_F32_OPS_PER_S = 67e12
 GRAPH_BELOW_MS = 0.05  # calls shorter than this are timed in a CUDA graph
+# a long call needs fewer repeats: a timed run of median_ms lasts at least
+# TIMED_MS in all (and 5 calls), a replay of graph_ms at least REPLAY_MS
+TIMED_MS, REPLAY_MS = 100.0, 5.0
 FLIP_SHARE = 0.1  # the most elements within_rounding_flips lets differ
 
 
@@ -26,18 +29,26 @@ def card_name() -> str:
     ).stdout.strip().splitlines()[0]
 
 
+def _one_call_ms(fn) -> float:
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Median over ``reps`` runs of ``fn``'s device time, from CUDA events."""
+    """Median over ``reps`` runs of ``fn``'s device time, from CUDA events;
+    a call longer than ``TIMED_MS / reps`` is run fewer times, as many as
+    fill ``TIMED_MS`` and at least 5 (a 30 ms call 5 times, not 20)."""
     for _ in range(warmup):
         fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
+    times = [_one_call_ms(fn)]
+    if times[0] * reps > TIMED_MS:
+        reps = min(reps, max(5, math.ceil(TIMED_MS / times[0])))
+    while len(times) < reps:
+        times.append(_one_call_ms(fn))
     return statistics.median(times)
 
 
@@ -45,13 +56,16 @@ def graph_ms(fn, reps: int = 20) -> float:
     """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
     graph, replayed between CUDA events (median of 5 replays).  For calls
     shorter than their host-side launch, which a per-call event pair would
-    time instead."""
+    time instead.  A call longer than ``REPLAY_MS / reps`` takes fewer calls
+    a graph, as many as fill ``REPLAY_MS`` (at least one): one call of 30
+    ms a replay, where the launches between calls are noise."""
     fn()
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         fn()
     torch.cuda.current_stream().wait_stream(side)
+    reps = min(reps, max(1, math.ceil(REPLAY_MS / max(_one_call_ms(fn), 1e-6))))
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(reps):

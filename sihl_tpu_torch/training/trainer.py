@@ -59,6 +59,18 @@ The allocator then unmaps a dropped graph's pages after waiting for the
 stream it was captured on, and the replays run on the caller's stream, so
 each dispatch ends by making the capture stream wait for them.
 
+A capture runs with CUDA's thread-local capture mode: a
+``DevicePrefetcher`` (``sihl_tpu_torch/data``) allocates, pins and copies
+on its own stream from its worker thread while the consumer may be
+capturing, and under the global mode any such call from another thread
+would invalidate the capture.  What the capturing thread itself does is
+checked as before.
+
+:meth:`Trainer.training_step`, :meth:`Trainer.fit` and
+:meth:`Trainer.validate` take the JAX package's host batches (numpy, NHWC
+images, int32 classes) as well as tensors, through
+``sihl_tpu_torch.data.to_device``.
+
 Not ported: meshes and spatial partitioning (M19), visualization (M20) and
 ``remat`` (a TPU memory lever, not ported).
 """
@@ -71,6 +83,7 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from sihl_tpu_torch.data import to_device
 from sihl_tpu_torch.model import SihlModel
 from sihl_tpu_torch.ops.fused_mlp import invalidate_packs
 from sihl_tpu_torch.training.optim import clip_by_global_norm_, make_optimizer
@@ -278,10 +291,18 @@ class Trainer:
         if getattr(backbone, "freeze_batchnorms", False) and getattr(backbone, "frozen_levels", 0):
             backbone._set_frozen_bn_eval()
 
+    def _on_device(self, x, targets):
+        """A batch as the model takes it: a host batch in the JAX package's
+        layout (numpy, NHWC images) through :func:`~sihl_tpu_torch.data.to_device`
+        to the model's device; tensors unchanged."""
+        return to_device((x, targets), next(self.model.parameters()).device)
+
     def training_step(self, x: torch.Tensor, targets=None) -> Dict[str, Any]:
-        """One optimisation step on a batch of (B, C, H, W) images; ``targets``
+        """One optimisation step on a batch of (B, C, H, W) images (or a host
+        batch of NHWC numpy images, moved by :func:`to_device`); ``targets``
         is one head's targets (a dict splats as keyword arguments) or a list
         of them, one per head.  Returns the step's metrics."""
+        x, targets = self._on_device(x, targets)
         if not isinstance(targets, list):
             targets = [targets]
         self.model.train()
@@ -445,7 +466,9 @@ class Trainer:
         t0 = time.perf_counter()
         watch = _FailingOp()
         try:
-            with torch.cuda.graph(graph, stream=stream), watch:
+            # a DevicePrefetcher's worker may allocate, pin and copy on its own
+            # stream meanwhile: only this thread's calls can invalidate the capture
+            with torch.cuda.graph(graph, stream=stream, capture_error_mode="thread_local"), watch:
                 metrics = self._step_body(static_x, static_targets)
                 vector = torch.stack([v.float() for v in metrics.values()])
         except RuntimeError as err:
@@ -468,7 +491,10 @@ class Trainer:
         checkpoint_every: Optional[int] = None,
         checkpoint_dir: Optional[str] = None,
     ) -> Dict[str, float]:
-        """Step-driven fit loop over an iterator of ``(x, targets)``.
+        """Step-driven fit loop over an iterator of ``(x, targets)``: tensors,
+        or host batches in the JAX package's layout (numpy, NHWC images;
+        :func:`~sihl_tpu_torch.data.to_device` moves them, and a
+        :class:`~sihl_tpu_torch.data.DevicePrefetcher` hands them over moved).
 
         ``steps_per_dispatch = K > 1`` stacks K batches (on their device)
         and runs them through :meth:`training_steps_scanned`; after each
@@ -491,7 +517,7 @@ class Trainer:
         while done < num_steps:
             k = min(steps_per_dispatch, num_steps - done)
             if steps_per_dispatch > 1:
-                batches = [next(it) for _ in range(k)]
+                batches = [self._on_device(*next(it)) for _ in range(k)]
                 xs = torch.stack([b[0] for b in batches])
                 targets = [b[1] if isinstance(b[1], list) else [b[1]] for b in batches]
                 scanned = self.training_steps_scanned(xs, _map_tree(lambda *ts: torch.stack(ts), *targets))
@@ -525,7 +551,8 @@ class Trainer:
     # -- validation ---------------------------------------------------------
     def validate(self, val_data) -> Dict[str, float]:
         """Each head's metrics over ``val_data`` (an iterable of ``(x,
-        targets)``) under ``head{i}/valid/...``.  Runs in eval mode under
+        targets)``, tensors or host batches as :meth:`fit` takes them) under
+        ``head{i}/valid/...``.  Runs in eval mode under
         ``torch.no_grad()`` (not inference mode: a K1 weight pack built in
         inference mode could not be saved for a later training step's
         backward), so BatchNorm's running statistics do not move."""
@@ -538,6 +565,7 @@ class Trainer:
         collected: List[list] = [[] for _ in heads]
         with torch.no_grad():
             for x, targets in val_data:
+                x, targets = self._on_device(x, targets)
                 if not isinstance(targets, list):
                     targets = [targets]
                 states, _, auxes = _eval_step(self.model, states, x, targets)

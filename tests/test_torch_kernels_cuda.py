@@ -1153,3 +1153,92 @@ def test_m16_layers_ops_and_utils_on_card():
                 torch.testing.assert_close(got, want, rtol=0, atol=tol)
     finally:
         torch.backends.cudnn.allow_tf32 = cudnn
+
+
+def _host_batches(n: int, seed: int = 0, batch: int = 4, size: int = 64):
+    """Host batches in the JAX package's layout: NHWC f32 images, int32
+    classes padded with -1, f32 boxes."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        classes = np.full((batch, 5), -1, np.int32)
+        classes[:, :3] = rng.randint(0, 3, (batch, 3))
+        xy = rng.uniform(0, size - 24, (batch, 5, 2))
+        boxes = np.concatenate([xy, xy + rng.uniform(6, 20, (batch, 5, 2))], axis=2).astype(np.float32)
+        out.append((rng.rand(batch, size, size, 3).astype(np.float32), {"classes": classes, "boxes": boxes}))
+    return out
+
+
+def _assert_on_card_as_host(got, host):
+    images, targets = got
+    assert images.is_cuda and images.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(images.permute(0, 2, 3, 1).cpu(), torch.from_numpy(host[0]))
+    assert targets["classes"].is_cuda and targets["classes"].dtype == torch.int64
+    assert torch.equal(targets["classes"].cpu(), torch.from_numpy(host[1]["classes"]).long())
+    assert torch.equal(targets["boxes"].cpu(), torch.from_numpy(host[1]["boxes"]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("buffer_size", [1, 2])
+def test_to_device_and_prefetcher_hand_over_host_batches_on_card(buffer_size):
+    _need_card()
+    from sihl_tpu_torch.data import DevicePrefetcher, to_device
+
+    hosts = _host_batches(5)
+    _assert_on_card_as_host(to_device(hosts[0], "cuda"), hosts[0])
+
+    def source():
+        yield from hosts
+        raise OSError("a file went missing")
+
+    prefetcher = DevicePrefetcher(source(), buffer_size=buffer_size, device="cuda")
+    for host in hosts:
+        _assert_on_card_as_host(next(prefetcher), host)
+    with pytest.raises(OSError, match="went missing"):
+        next(prefetcher)
+    assert prefetcher.staged == 5 and prefetcher.pinned_bytes > 0
+    prefetcher.close()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dispatch", [1, 2])
+def test_fit_over_the_prefetcher_is_bitwise_fit_over_staged_batches_on_card(dispatch):
+    """A resnet18 detector (FPN 32 over levels 3-5, 3 classes) at 64 px: a
+    2-step ``fit`` fed by the prefetcher, eager or as one dispatch of a
+    captured graph, against the same ``fit`` on batches staged beforehand."""
+    _need_card()
+    from sihl_tpu_torch import Backbone, SihlModel
+    from sihl_tpu_torch.data import DevicePrefetcher, to_device
+    from sihl_tpu_torch.heads import ObjectDetection
+    from sihl_tpu_torch.layers import FPN
+    from sihl_tpu_torch.training import Trainer
+
+    def fitted(data):
+        gen = torch.Generator().manual_seed(0)
+        backbone = Backbone("resnet18", top_level=5, generator=gen, device="cuda")
+        backbone.set_frozen_levels(1)
+        neck = FPN(backbone.out_channels, 32, bottom_level=3, top_level=5, generator=gen, device="cuda")
+        # K1 takes 256-wide hidden layers
+        head = ObjectDetection(neck.out_channels, 3, num_layers=1, max_instances=8, max_targets=5, generator=gen,
+                               device="cuda")
+        model = SihlModel(backbone, neck, [head])
+        logged = []
+        trainer = Trainer(model, optimizer="adamw", optimizer_kwargs={"lr": 1e-3}, grad_clip=0.1,
+                          logger=lambda metrics, step: logged.append((step, metrics)))
+        trainer.fit(data, num_steps=2, steps_per_dispatch=dispatch, log_every=dispatch)
+        return logged, model.state_dict()
+
+    hosts = _host_batches(2, seed=1)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        want_log, want_state = fitted([to_device(h, "cuda") for h in hosts])
+        with DevicePrefetcher(iter(hosts), device="cuda") as prefetcher:
+            got_log, got_state = fitted(prefetcher)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert got_log == want_log and len(got_log) == 2 // dispatch
+    for k, v in want_state.items():
+        assert torch.equal(got_state[k], v), k
